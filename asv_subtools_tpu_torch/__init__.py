@@ -1,0 +1,8 @@
+"""asv_subtools_tpu_torch: the PyTorch and CUDA port of asv_subtools_tpu.
+
+The JAX package ``asv_subtools_tpu`` is the reference; this package never
+imports it (nor JAX). So far it covers the serving path: waveform ->
+fused Kaldi fbank (CUDA kernel) -> utterance CMVN -> ECAPA-TDNN ->
+embedding -> cosine scoring and EER. Public functions keep the JAX
+layouts: channels-last ``[B, T, C]`` and ``[B, T]`` masks, True = valid.
+"""

@@ -1,0 +1,166 @@
+"""Embedding-extraction service: batched whole-utterance x-vectors.
+
+Counterpart: asv_subtools_tpu/extract.py:34-203. Utterances are
+length-bucketed and zero-padded to a few static shapes, so the card sees
+large masked batches. Utterances longer than ``max_chunk`` (frames, or
+samples in waveform mode) are split into equal chunks whose embeddings are
+averaged with frame weights. Batches run eagerly under
+``torch.inference_mode()`` on the extractor's device.
+
+Output: an in-memory dict and/or a Kaldi vector ark/scp.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .features.config import FbankOptions
+from .features.functional import cmvn_utterance
+from .features.fused_fbank import fused_fbank
+from .io.kaldi import ArkScpWriter
+
+
+@dataclasses.dataclass
+class ExtractConfig:
+    buckets: Sequence[int] = (200, 400, 800, 1600, 3200, 6400, 10000)
+    max_chunk: int = 10000
+    default_batch: int = 32
+
+
+# waveform-mode buckets (samples @16 kHz): 2 s .. 100 s
+WAVE_BUCKETS = (32000, 64000, 128000, 256000, 512000, 1024000, 1600000)
+
+
+def make_wave_embed_fn(model_apply: Callable, fbank_opts: Optional[FbankOptions] = None,
+                       dtype: Optional[torch.dtype] = None) -> Callable:
+    """Build embed_fn(wave [B, S], mask [B, S]) -> [B, E]: fused fbank
+    kernel (bf16 DFT, no energy) + masked CMVN + model, on the tensors'
+    device. Padded frames are zeroed after CMVN, as in feature mode."""
+    opts = fbank_opts or FbankOptions()
+    shift, win = opts.frame_opts.window_shift, opts.frame_opts.window_size
+
+    def embed(wave: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        feats, _ = fused_fbank(wave, opts, dft_dtype=torch.bfloat16, with_energy=False)
+        n_samples = mask.sum(1)
+        n_frames = torch.clamp_min((n_samples - win) // shift + 1, 1)
+        t = feats.shape[1]
+        fmask = torch.arange(t, device=feats.device)[None, :] < n_frames[:, None]
+        feats = cmvn_utterance(feats, mask=fmask)
+        # fbank of padding is log(eps), not zero: zero it, as feature-mode
+        # bucketing (and conv zero padding) would
+        feats = feats * fmask[..., None]
+        if dtype is not None:
+            feats = feats.to(dtype)
+        return model_apply(feats, fmask)
+
+    return embed
+
+
+def _bucket_for(length: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if length <= b:
+            return b
+    return buckets[-1]
+
+
+def _chunk(feats: np.ndarray, max_chunk: int) -> Tuple[List[np.ndarray], List[float]]:
+    """Equal-chunk split + frame weights (reference framework.py:27-52)."""
+    t = feats.shape[0]
+    if t <= max_chunk:
+        return [feats], [1.0]
+    num_split = -(-t // max_chunk)
+    length = t // num_split
+    chunks = [feats[i * length : (i + 1) * length] for i in range(num_split)]
+    weights = [float(length)] * num_split
+    remainder = t - num_split * length
+    if remainder > 0:
+        chunks.append(feats[t - length :])
+        weights.append(float(remainder))
+    s = sum(weights)
+    return chunks, [w / s for w in weights]
+
+
+class Extractor:
+    """Batched bucketed embedding extractor.
+
+    embed_fn(x [B, T, D] or wave [B, S], mask) -> [B, embd], e.g.
+    ``make_wave_embed_fn(lambda x, m: model(x, m))``. Runs on ``device``:
+    the CUDA card unless ``device="cpu"``; raises without a card.
+    """
+
+    def __init__(self, embed_fn: Callable, config: ExtractConfig = ExtractConfig(),
+                 device: Any = None):
+        self.config = config
+        self.device = resolve_device(device)
+        self._embed = embed_fn
+        self._stats = {"utts": 0, "frames": 0, "batches": 0, "device_s": 0.0}
+
+    def extract_iter(self, items: Iterable[Tuple[str, np.ndarray]]) -> Iterator[Tuple[str, np.ndarray]]:
+        """items: (key, feats [T, D] or wave [S]). Yields (key, embedding)
+        in completion order (bucketed batches flush when full; the tail
+        flushes at the end)."""
+        cfg = self.config
+        pending: Dict[int, List] = {b: [] for b in cfg.buckets}
+        acc: Dict[str, List] = {}
+        expected: Dict[str, int] = {}
+
+        def flush(bucket: int):
+            batch = pending[bucket]
+            if not batch:
+                return []
+            keys = [k for k, _, _ in batch]
+            weights = [w for _, _, w in batch]
+            feats = [f for _, f, _ in batch]
+            lens = np.asarray([f.shape[0] for f in feats])
+            x = np.zeros((len(feats), bucket) + feats[0].shape[1:], np.float32)
+            for i, f in enumerate(feats):
+                x[i, : f.shape[0]] = f
+            mask = np.arange(bucket)[None, :] < lens[:, None]
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                embs = self._embed(torch.from_numpy(x).to(self.device),
+                                   torch.from_numpy(mask).to(self.device))
+                embs = embs.float().cpu().numpy()
+            self._stats["device_s"] += time.perf_counter() - t0
+            self._stats["batches"] += 1
+            self._stats["frames"] += int(lens.sum())
+            pending[bucket] = []
+            out = []
+            for key, w, e in zip(keys, weights, embs):
+                acc.setdefault(key, []).append(w * e)
+                if len(acc[key]) == expected[key]:
+                    out.append((key, np.sum(acc.pop(key), axis=0)))
+                    expected.pop(key)
+                    self._stats["utts"] += 1
+            return out
+
+        for key, feats in items:
+            chunks, weights = _chunk(np.asarray(feats, np.float32), cfg.max_chunk)
+            expected[key] = len(chunks)
+            for c, w in zip(chunks, weights):
+                b = _bucket_for(c.shape[0], cfg.buckets)
+                pending[b].append((key, c, w))
+                if len(pending[b]) >= cfg.default_batch:
+                    yield from flush(b)
+        for b in cfg.buckets:
+            yield from flush(b)
+
+    def extract_to_ark(self, items: Iterable[Tuple[str, np.ndarray]], ark_path: str,
+                       scp_path: Optional[str] = None) -> Dict:
+        """Extract all and write a Kaldi vector ark/scp; returns stats."""
+        t0 = time.perf_counter()
+        with ArkScpWriter(ark_path, scp_path) as w:
+            for key, emb in self.extract_iter(items):
+                w.write(key, emb)
+        s = dict(self._stats)
+        s["wall_s"] = time.perf_counter() - t0
+        return s
+
+    def extract_all(self, items) -> Dict[str, np.ndarray]:
+        return dict(self.extract_iter(items))

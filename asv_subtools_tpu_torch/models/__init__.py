@@ -1,0 +1,12 @@
+from .ecapa import EcapaAttentiveStatsPool, EcapaTdnn, Res2NetBlock, SEConnect, SERes2Block
+from .framework import chunk_utterance, l2_norm
+
+__all__ = [
+    "EcapaAttentiveStatsPool",
+    "EcapaTdnn",
+    "Res2NetBlock",
+    "SEConnect",
+    "SERes2Block",
+    "chunk_utterance",
+    "l2_norm",
+]

@@ -1,0 +1,213 @@
+"""ECAPA-TDNN x-vector at inference (counterpart: asv_subtools_tpu/models/ecapa.py:26-379).
+
+Emphasized Channel Attention, Propagation and Aggregation TDNN
+(https://arxiv.org/abs/2005.07143), eval mode, with the ECAPA attentive
+statistics pooling. Module and parameter names follow the flax modules,
+so weights.py maps a JAX variable tree onto this state_dict by rule.
+
+Layout: the public input is channels-last ``[B, T, D]`` with a ``[B, T]``
+mask (True = valid). The model transposes once to ``[B, C, T]``, the
+layout of ``F.conv1d``, and holds it to the pooling, which receives a
+``[B, T, C]`` view of that memory (no copy).
+
+Padding semantics are the JAX model's: layers do not zero padded frames
+between them; only SEConnect, the attentive pooling (and, before the
+model, CMVN) see the mask. Dropout and the other poolings come later.
+
+Convolutions, 1x1 products and the SE/BN/fc tail are plain PyTorch
+(``F.conv1d``, ``torch.matmul``), as the JAX package leaves them to XLA.
+In float32 on the card, PyTorch runs cuDNN convolutions in TF32 by default
+(``torch.backends.cudnn.allow_tf32`` is True) and matrix products in full
+float32 (``torch.backends.cuda.matmul.allow_tf32`` is False). A float32
+comparison sets both to False, as chip_smoke.py does.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import resolve_device
+from ..nn.fused_att_pooling import fused_attentive_stats_pool
+from ..nn.norm import BatchNorm
+from ..nn.tdnn import ReluBatchNormTdnnLayer
+
+
+SCALE = 8  # Res2Net groups, ECAPA's
+
+
+class Res2NetBlock(nn.Module):
+    """Res2Net multi-scale conv block: group 0 passes through; group i+1
+    is convolved (k=3, dilated) after adding the previous group's output."""
+
+    def __init__(self, channels: int, dilation: int = 1):
+        super().__init__()
+        if channels % SCALE:
+            raise ValueError(f"channels ({channels}) must be a multiple of {SCALE}")
+        hidden = channels // SCALE
+        context = (-dilation, 0, dilation)
+        self.blocks = [ReluBatchNormTdnnLayer(hidden, hidden, context) for _ in range(SCALE - 1)]
+        for i, block in enumerate(self.blocks):
+            self.add_module(f"block_{i}", block)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        parts = torch.chunk(x, SCALE, dim=1)
+        outs = [parts[0]]
+        sp = None
+        for i, block in enumerate(self.blocks):
+            sp = parts[i + 1] if i == 0 else sp + parts[i + 1]
+            sp = block(sp)
+            outs.append(sp)
+        return torch.cat(outs, dim=1)
+
+
+class SEConnect(nn.Module):
+    """Bottlenecked SE gate over the masked global time mean."""
+
+    def __init__(self, channels: int, bottleneck: int = 128):
+        super().__init__()
+        self.fc1 = nn.Linear(channels, bottleneck)
+        self.fc2 = nn.Linear(bottleneck, channels)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, C, T]; the gate reads the mean over valid frames, in x's type."""
+        if mask is None:
+            s = x.mean(dim=-1)
+        else:
+            m = mask.to(x.dtype)[:, None, :]
+            s = (x * m).sum(-1) / torch.clamp_min(m.sum(-1), 1.0)
+        s = torch.relu(self.fc1(s))
+        s = torch.sigmoid(self.fc2(s))
+        return x * s[..., None]
+
+
+class SERes2Block(nn.Module):
+    """1x1 conv -> Res2Net -> 1x1 conv -> SE, with residual (in = out
+    channels, as in every ECAPA block)."""
+
+    def __init__(self, channels: int, dilation: int = 1):
+        super().__init__()
+        self.conv1 = ReluBatchNormTdnnLayer(channels, channels)
+        self.res2net = Res2NetBlock(channels, dilation=dilation)
+        self.conv2 = ReluBatchNormTdnnLayer(channels, channels)
+        self.se = SEConnect(channels)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        y = self.conv2(self.res2net(self.conv1(x)))
+        return self.se(y, mask) + x
+
+
+class _SplitGlobalConv(nn.Module):
+    """1x1 conv over [x; mean; std] without building the concatenation.
+
+    Owns ``kernel [1, 3C, F]`` and ``bias [F]``, the flax layout of a conv
+    over the concatenation. y = Wx^T x + (mean @ Wm + std @ Ws + b).
+    """
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(1, 3 * in_channels, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        nn.init.normal_(self.kernel, std=(3 * in_channels) ** -0.5)
+
+    def forward(self, x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+        """x [B, C, T], mean/std [B, C] -> [B, F, T]."""
+        d = x.shape[1]
+        k = self.kernel[0]
+        glob = mean @ k[d:2 * d] + std @ k[2 * d:] + self.bias
+        return torch.matmul(k[:d].t(), x) + glob[..., None]
+
+
+class EcapaAttentiveStatsPool(nn.Module):
+    """ECAPA channel-wise attentive statistics pooling with global context.
+
+    x [B, T, C] -> [B, 2C]. ``fused_inference=True`` runs the whole pooling
+    through the fused kernel (nn/fused_att_pooling.py), as the JAX module's
+    ``fused_inference`` branch does; the default is the unfused path.
+    """
+
+    def __init__(self, channels: int, bottleneck: int = 128, fused_inference: bool = False):
+        super().__init__()
+        self.fused_inference = fused_inference
+        self.att1 = _SplitGlobalConv(channels, bottleneck)
+        self.att_bn = BatchNorm(bottleneck)
+        self.att2 = nn.Conv1d(bottleneck, channels, 1)
+
+    def _fused(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        d = x.shape[-1]
+        k = self.att1.kernel[0]  # [3C, K]
+        bn_s, bn_t = self.att_bn.folded()
+        return fused_attentive_stats_pool(
+            x, k[:d], k[d:2 * d], k[2 * d:], self.att1.bias, bn_s, bn_t,
+            self.att2.weight[..., 0].t(), self.att2.bias, mask=mask,
+        ).to(x.dtype)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.fused_inference:
+            return self._fused(x, mask)
+        xc = x.transpose(1, 2)  # [B, C, T]
+        # global std uses the unbiased variance (ddof=1), the reference's
+        # torch.var default
+        if mask is not None:
+            m = mask.to(x.dtype)[:, None, :]
+            count = torch.clamp_min(m.sum(-1, keepdim=True), 1.0)
+            mean = (xc * m).sum(-1, keepdim=True) / count
+            var = ((xc - mean) ** 2 * m).sum(-1, keepdim=True) / torch.clamp_min(count - 1.0, 1.0)
+        else:
+            mean = xc.mean(-1, keepdim=True)
+            var = xc.var(-1, keepdim=True, unbiased=True)
+        std = torch.sqrt(var + 1e-5)
+        a = self.att1(xc, mean[..., 0], std[..., 0])
+        a = torch.tanh(self.att_bn(torch.relu(a)))
+        a = self.att2(a)  # [B, C, T] per-channel time logits
+        if mask is not None:
+            a = a.masked_fill(~mask[:, None, :], float("-inf"))
+        alpha = torch.softmax(a, dim=-1)
+        mean = (alpha * xc).sum(-1)
+        var = (alpha * xc * xc).sum(-1) - mean ** 2
+        std = torch.sqrt(torch.clamp_min(var, 1e-5))
+        return torch.cat([mean, std], dim=-1)
+
+
+class EcapaTdnn(nn.Module):
+    """ECAPA-TDNN backbone -> speaker embedding (the "near" position: fc2
+    affine, relu, BN). C1024 is ``channels=1024``, the voxceleb recipe's.
+
+    Built on ``device`` (the CUDA card unless ``device="cpu"``; raises
+    without a card). Cast with ``.to(torch.bfloat16)`` for serving.
+    """
+
+    def __init__(
+        self,
+        input_dim: int = 80,
+        channels: int = 1024,
+        embd_dim: int = 192,
+        mfa_conv: int = 1536,
+        device: Any = None,
+    ):
+        super().__init__()
+        c = channels
+        self.layer1 = ReluBatchNormTdnnLayer(input_dim, c, context=(-2, -1, 0, 1, 2))
+        self.layer2 = SERes2Block(c, dilation=2)
+        self.layer3 = SERes2Block(c, dilation=3)
+        self.layer4 = SERes2Block(c, dilation=4)
+        self.mfa = ReluBatchNormTdnnLayer(3 * c, mfa_conv)
+        self.stats = EcapaAttentiveStatsPool(mfa_conv)
+        self.bn_stats = BatchNorm(2 * mfa_conv)
+        self.fc2_affine = nn.Linear(2 * mfa_conv, embd_dim)
+        self.fc2_bn = BatchNorm(embd_dim)
+        self.eval()
+        self.to(resolve_device(device))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, T, D] (channels-last), mask [B, T] -> embedding [B, embd_dim]."""
+        h = self.layer1(x.transpose(1, 2))
+        x1 = self.layer2(h, mask)
+        x2 = self.layer3(h + x1, mask)
+        x3 = self.layer4(h + x1 + x2, mask)
+        y = self.mfa(torch.cat([x1, x2, x3], dim=1))
+        stats = self.bn_stats(self.stats(y.transpose(1, 2), mask))
+        return self.fc2_bn(F.relu(self.fc2_affine(stats)))

@@ -1,0 +1,127 @@
+"""Carry ECAPA weights between a JAX variable tree and the port's state_dict.
+
+The JAX model's variables ``{"params": ..., "batch_stats": ...}`` arrive as
+nested dicts of numpy arrays (this module imports nothing of JAX). The
+port's modules carry the flax module names, so each leaf maps by rule:
+
+* a flax Conv ``kernel [k, in, out]`` -> ``<path>.weight [out, in, k]``;
+* a flax Dense ``kernel [in, out]`` -> ``<path>.weight [out, in]``;
+* the ``_SplitGlobalConv`` kernel (module ``att1``) keeps ``[1, 3C, K]``
+  as ``<path>.kernel``;
+* ``bias``, BN ``scale`` (params) and ``mean``, ``var`` (batch_stats) map
+  one to one.
+
+Every leaf is consumed exactly once; a leaf no rule takes raises, and
+:func:`load_ecapa_variables` raises on any port parameter left unset.
+"""
+
+from __future__ import annotations
+
+import math
+from collections.abc import Mapping
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_SPLIT_CONV = "att1"
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(value)
+
+
+def _to_port(collection: str, path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarray]:
+    *mods, leaf = path
+    key = lambda name: ".".join((*mods, name))
+    if collection == "batch_stats" and leaf in ("mean", "var"):
+        return key(leaf), value
+    if collection == "params":
+        if leaf in ("bias", "scale"):
+            return key(leaf), value
+        if leaf == "kernel" and mods and mods[-1] == _SPLIT_CONV and value.ndim == 3:
+            return key("kernel"), value
+        if leaf == "kernel" and value.ndim == 3:
+            return key("weight"), value.transpose(2, 1, 0)
+        if leaf == "kernel" and value.ndim == 2:
+            return key("weight"), value.T
+    raise ValueError(f"no rule maps {collection}/{'/'.join(path)} {value.shape}")
+
+
+def ecapa_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``{"params", "batch_stats"}`` tree (numpy leaves) -> port state_dict."""
+    extra = set(variables) - {"params", "batch_stats"}
+    if extra:
+        raise ValueError(f"unexpected variable collections {sorted(extra)}")
+    out: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _leaves(variables.get(collection, {})):
+            key, arr = _to_port(collection, path, value)
+            if key in out:
+                raise ValueError(f"two leaves map to {key}")
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def ecapa_state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+    """The inverse: port state_dict -> JAX ``{"params", "batch_stats"}`` tree of numpy arrays."""
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, tensor in state_dict.items():
+        *mods, leaf = key.split(".")
+        value = tensor.detach().cpu().numpy()
+        if leaf in ("mean", "var"):
+            collection, name = "batch_stats", leaf
+        elif leaf in ("bias", "scale", "kernel"):
+            collection, name = "params", leaf
+        elif leaf == "weight" and value.ndim == 3:
+            collection, name, value = "params", "kernel", value.transpose(2, 1, 0)
+        elif leaf == "weight" and value.ndim == 2:
+            collection, name, value = "params", "kernel", value.T
+        else:
+            raise ValueError(f"no rule maps state_dict key {key} {value.shape}")
+        node = out[collection]
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(value)
+    return out
+
+
+def load_ecapa_variables(model: nn.Module, variables: Mapping) -> nn.Module:
+    """Load a JAX variable tree into ``model`` (in place, keeping its device
+    and types). Raises on unconsumed leaves, unset parameters and shape
+    mismatches."""
+    state = ecapa_variables_to_state_dict(variables)
+    expected = model.state_dict()
+    missing = sorted(set(expected) - set(state))
+    unexpected = sorted(set(state) - set(expected))
+    if missing or unexpected:
+        raise ValueError(f"weights do not match the model: missing {missing}, unconsumed {unexpected}")
+    for key, value in state.items():
+        if tuple(value.shape) != tuple(expected[key].shape):
+            raise ValueError(f"{key}: shape {tuple(value.shape)} != {tuple(expected[key].shape)}")
+    model.load_state_dict(
+        {k: v.to(device=expected[k].device, dtype=expected[k].dtype) for k, v in state.items()})
+    return model
+
+
+def init_ecapa_weights_(model: nn.Module, seed: int) -> nn.Module:
+    """Seeded random weights in the flax initialisers' scale: kernels
+    normal with std 1/sqrt(fan_in) (lecun), biases 0, BN scale 1."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("weight", "kernel"):
+                fan_in = math.prod(p.shape[1:]) if leaf == "weight" else math.prod(p.shape[:-1])
+                w = torch.randn(p.shape, generator=gen) * fan_in ** -0.5
+                p.copy_(w.to(device=p.device, dtype=p.dtype))
+            elif leaf == "bias":
+                p.zero_()
+            elif leaf == "scale":
+                p.fill_(1.0)
+    return model

@@ -1,0 +1,404 @@
+"""Chip smoke test of asv_subtools_tpu_torch on one NVIDIA GPU (written for the H100).
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+  1. device and build: the card's name and power limit; both CUDA kernels
+     built from asv_subtools_tpu_torch/csrc with nvcc.
+  2. K1 fused fbank against its plain version on the card: f32 and bf16 DFT
+     at [128, 160000] with 80 bins, a ragged [3, 20480] batch with 23 bins
+     (and the log-energy); kernel and plain times.
+  3. K2 fused attentive pooling against its plain version and the unfused
+     module at x [128, 998, 1536] (bf16 and f32, lengths 200..998), and a
+     case whose logits exceed 80 against the unfused path; times.
+  4. the served path at full width: ECAPA-TDNN C1024 (seeded random
+     weights, bf16) behind make_wave_embed_fn on one [128, 160000] batch,
+     timed, and its embeddings held against the same model fed by the plain
+     front end (bf16) and an f32 model fed by the f32 plain front end; then
+     an Extractor over 48 seeded utterances of 1.5-25 s writing a vector
+     ark/scp, cosine scoring and EER; and one C1024 pooling through
+     EcapaAttentiveStatsPool(fused_inference=True) on the model's MFA
+     output. The launch counters are zeroed just before this phase and
+     must be above zero after it.
+  5. a "kernels" JSON line, then the device JSON as the last line.
+
+f32 comparisons run in true f32: this script sets
+torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+to False (PyTorch's default for cuDNN convolutions is TF32).
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+SEED = 0
+BATCH, SAMPLES = 128, 160000  # bench.py:196-198: B=128 x 10 s at 16 kHz
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # H100 SXM dense; f32 outside the tensor cores
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def median_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
+    """Median of per-call CUDA-event times after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def cosine(a, b):
+    a, b = a.float(), b.float()
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+
+
+def phase_device(torch):
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"device: {name} | nvidia-smi: {smi}", flush=True)
+    from asv_subtools_tpu_torch.kernels import _build
+
+    secs = _build.build()
+    print(f"build: {secs:.1f} s for {', '.join(_build.SOURCES)}", flush=True)
+    return name, smi
+
+
+def phase_fbank(torch):
+    from asv_subtools_tpu_torch.features import FbankOptions, MelOptions, fused_fbank, fused_fbank_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    opts80 = FbankOptions(mel_opts=MelOptions(num_bins=80))
+    wave = torch.randn((BATCH, SAMPLES), generator=gen, device=dev) * 1000.0
+    # tolerance: both sides sum the same f32 (or bf16-rounded) products in
+    # f32, in another order; log-mel values move by ~1e-5
+    tol = 1e-3
+    errs = {}
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        k, _ = fused_fbank(wave, opts80, dft_dtype=dt, with_energy=False)
+        p, _ = fused_fbank_plain(wave, opts80, dft_dtype=dt, with_energy=False)
+        torch.cuda.synchronize()
+        check(k.shape == (BATCH, 998, 80), f"fbank shape {tuple(k.shape)}")
+        errs[label] = max_abs(k, p)
+        print(f"K1 fbank {label} [128,160000]x80: max abs err {errs[label]:.3e} (tol {tol})", flush=True)
+        check(errs[label] <= tol, f"K1 {label} disagrees with its plain version")
+    ragged = torch.randn((3, 20480), generator=gen, device=dev) * 1000.0
+    k, ke = fused_fbank(ragged, FbankOptions(), dft_dtype=torch.float32, with_energy=True)
+    p, pe = fused_fbank_plain(ragged, FbankOptions(), dft_dtype=torch.float32, with_energy=True)
+    e1, e2 = max_abs(k, p), max_abs(ke, pe)
+    print(f"K1 fbank f32 [3,20480]x23: max abs err {e1:.3e}, log-energy {e2:.3e} (tol {tol})", flush=True)
+    t_ragged = FbankOptions().frame_opts.num_frames(20480)
+    check(k.shape == (3, t_ragged, 23) and e1 <= tol and e2 <= tol, "K1 ragged case disagrees")
+
+    run_k = lambda: fused_fbank(wave, opts80, dft_dtype=torch.bfloat16, with_energy=False)
+    run_p = lambda: fused_fbank_plain(wave, opts80, dft_dtype=torch.bfloat16, with_energy=False)
+    ms_p1, ms_k1, ms_k2, ms_p2 = (median_ms(torch, f) for f in (run_p, run_k, run_k, run_p))
+    from asv_subtools_tpu_torch.features.fused_fbank import folded_dft, mel_bands
+
+    fo = opts80.frame_opts
+    t = fo.num_frames(SAMPLES)
+    nnz = mel_bands(opts80)[1].size
+    flops = 2.0 * BATCH * t * (fo.window_size * 2 * (fo.padded_window_size // 2) + nnz)
+    nbytes = 4 * wave.numel() + 4 * BATCH * t * 80 + 2 * folded_dft(opts80).size
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bf16"]) * 1e3
+    print(f"K1 bf16 times (ms): plain {ms_p1:.3f} kernel {ms_k1:.3f} kernel {ms_k2:.3f} plain {ms_p2:.3f}; "
+          f"bound {bound:.4f} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+    return {
+        "name": "fused_fbank", "route": "cuda",
+        "source": "asv_subtools_tpu_torch/csrc/fbank.cu",
+        "replaces": "asv_subtools_tpu/features/pallas_fbank.py:228",
+        "max_abs_err": errs["bf16"], "ms": min(ms_k1, ms_k2), "plain_ms": min(ms_p1, ms_p2),
+        "bound_ms": bound,
+        "bound_by": "operations" if flops / PEAK_FLOPS["bf16"] > nbytes / HBM_BYTES_PER_S else "bytes",
+        "library_ms": None,
+    }
+
+
+def _pool_module(torch, channels, dtype, seed):
+    from asv_subtools_tpu_torch.models import EcapaAttentiveStatsPool
+    from asv_subtools_tpu_torch.weights import init_ecapa_weights_
+
+    mod = EcapaAttentiveStatsPool(channels)
+    init_ecapa_weights_(mod, seed)
+    gen = torch.Generator().manual_seed(seed)
+    mod.att_bn.mean.copy_(torch.randn(mod.att_bn.mean.shape, generator=gen) * 0.1)
+    mod.att_bn.var.copy_(torch.rand(mod.att_bn.var.shape, generator=gen) * 1.5 + 0.5)
+    mod.att1.bias.data.copy_(torch.randn(mod.att1.bias.shape, generator=gen) * 0.1)
+    return mod.to(device="cuda", dtype=dtype).eval()
+
+
+def _pool_args(mod, x):
+    d = x.shape[-1]
+    k = mod.att1.kernel[0]
+    s, t = mod.att_bn.folded()
+    return (x, k[:d], k[d:2 * d], k[2 * d:], mod.att1.bias, s, t,
+            mod.att2.weight[..., 0].t().contiguous(), mod.att2.bias)
+
+
+def phase_att_pooling(torch):
+    from asv_subtools_tpu_torch.nn import fused_attentive_stats_pool, fused_attentive_stats_pool_plain
+
+    dev = torch.device("cuda")
+    b, t, c = BATCH, 998, 1536
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x32 = torch.randn((b, t, c), generator=gen, device=dev)
+    lengths = torch.linspace(200, t, b, device=dev).round().long()
+    mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+    # tolerance: f32 sums in another order (2e-4, the JAX tests' bound);
+    # with bf16 inputs both sides round the hidden h to bf16, and another
+    # summation order can move a value across a rounding boundary
+    tols = {"f32": 2e-4, "bf16": 2e-2}
+    errs = {}
+    with torch.inference_mode():
+        for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            mod = _pool_module(torch, c, dt, SEED)
+            x = x32.to(dt)
+            args = _pool_args(mod, x)
+            k = fused_attentive_stats_pool(*args, mask=mask)
+            p = fused_attentive_stats_pool_plain(*args, mask=mask)
+            u = mod(x, mask)  # unfused module path
+            torch.cuda.synchronize()
+            errs[label] = max_abs(k, p)
+            eu = max_abs(k, u)
+            print(f"K2 att pooling {label} [128,998,1536] lengths 200..998: max abs err vs plain "
+                  f"{errs[label]:.3e} (tol {tols[label]}), vs unfused module {eu:.3e}", flush=True)
+            check(errs[label] <= tols[label], f"K2 {label} disagrees with its plain version")
+            close = (eu <= tols["f32"] if label == "f32"
+                     else torch.allclose(k.float(), u.float(), atol=0.05, rtol=0.05))
+            check(close, f"K2 {label} disagrees with the unfused path")
+        mod = _pool_module(torch, c, torch.float32, SEED)
+        mod.att2.weight.mul_(400.0)
+        args = _pool_args(mod, x32)
+        h = torch.tanh(torch.relu(x32[:2] @ args[1] + args[4]))
+        peak = float((h @ args[7]).abs().max())
+        mod.fused_inference = True
+        k = mod(x32, mask)
+        mod.fused_inference = False
+        u = mod(x32, mask)
+        e_big = max_abs(k, u)
+        # tolerance: logits of several hundred carry their f32 rounding
+        # (~1e-4) into the softmax weights
+        print(f"K2 large-logit case (|logit| up to ~{peak:.0f}): max abs err vs unfused {e_big:.3e} "
+              f"(tol 1e-3)", flush=True)
+        check(peak > 80 and e_big <= 1e-3, "K2 large-logit case disagrees with the unfused path")
+
+        mod = _pool_module(torch, c, torch.bfloat16, SEED)
+        xb = x32.to(torch.bfloat16)
+        full = torch.ones((b, t), dtype=torch.bool, device=dev)
+        args = _pool_args(mod, xb)
+        run_k = lambda: fused_attentive_stats_pool(*args, mask=full)
+        run_p = lambda: fused_attentive_stats_pool_plain(*args, mask=full)
+        ms_p1, ms_k1, ms_k2, ms_p2 = (median_ms(torch, f) for f in (run_p, run_k, run_k, run_p))
+    kk = args[1].shape[1]
+    flops = 2.0 * 2 * b * t * c * kk
+    nbytes = 2 * xb.numel() + 2 * 4 * c * kk + b * t + 4 * 2 * b * c  # x, 4 weights, mask, f32 out
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bf16"]) * 1e3
+    print(f"K2 bf16 times (ms): plain {ms_p1:.3f} kernel {ms_k1:.3f} kernel {ms_k2:.3f} plain {ms_p2:.3f}; "
+          f"bound {bound:.4f} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+    return {
+        "name": "fused_attentive_stats_pool", "route": "cuda",
+        "source": "asv_subtools_tpu_torch/csrc/att_pooling.cu",
+        "replaces": "asv_subtools_tpu/nn/pallas_att_pooling.py:132",
+        "max_abs_err": errs["bf16"], "ms": min(ms_k1, ms_k2), "plain_ms": min(ms_p1, ms_p2),
+        "bound_ms": bound,
+        "bound_by": "operations" if flops / PEAK_FLOPS["bf16"] > nbytes / HBM_BYTES_PER_S else "bytes",
+        "library_ms": None,
+    }
+
+
+def profile_served_batch(torch, run, top: int = 12) -> None:
+    """One served batch under torch.profiler: device time by kernel, and
+    the device's idle share of the batch's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+
+    kernels = {}  # device-side kernel events only: the aten ops that launch them are not counted again
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    if busy_ms == 0:
+        print("profile: the profiler recorded no device time (not measured)", flush=True)
+        return
+    print(f"profile of one served batch: wall {wall_ms:.2f} ms (profiled), kernels {busy_ms:.2f} ms "
+          f"in {sum(n for _, n in kernels.values())} launches, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}",
+          flush=True)
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)[:top]:
+        print(f"  {ms:8.3f} ms {ms / busy_ms:6.1%} x{n:<4d} {name[:100]}", flush=True)
+
+
+def _plain_embed(torch, model, opts, dft_dtype, dtype):
+    """make_wave_embed_fn's computation with the plain front end (reference)."""
+    from asv_subtools_tpu_torch.features import cmvn_utterance, fused_fbank_plain
+
+    shift, win = opts.frame_opts.window_shift, opts.frame_opts.window_size
+
+    def embed(wave, mask):
+        feats, _ = fused_fbank_plain(wave, opts, dft_dtype=dft_dtype, with_energy=False)
+        n_frames = torch.clamp_min((mask.sum(1) - win) // shift + 1, 1)
+        fmask = torch.arange(feats.shape[1], device=feats.device)[None, :] < n_frames[:, None]
+        feats = cmvn_utterance(feats, mask=fmask) * fmask[..., None]
+        return model(feats.to(dtype), fmask)
+
+    return embed
+
+
+def phase_served(torch, kernels, device_label):
+    from asv_subtools_tpu_torch.backend import compute_eer, cosine_score_matrix
+    from asv_subtools_tpu_torch.extract import WAVE_BUCKETS, ExtractConfig, Extractor, make_wave_embed_fn
+    from asv_subtools_tpu_torch.features import FbankOptions, MelOptions, fused_fbank
+    from asv_subtools_tpu_torch.models import EcapaAttentiveStatsPool, EcapaTdnn
+    from asv_subtools_tpu_torch.nn import fused_attentive_stats_pool
+    from asv_subtools_tpu_torch.weights import init_ecapa_weights_
+
+    dev = torch.device("cuda")
+    opts = FbankOptions(mel_opts=MelOptions(num_bins=80))  # recipes/voxceleb/run.py:90
+    model32 = init_ecapa_weights_(EcapaTdnn(80, channels=1024, embd_dim=192, mfa_conv=1536), SEED)
+    model16 = copy.deepcopy(model32).to(torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    wave = torch.randn((BATCH, SAMPLES), generator=gen, device=dev) * 1000.0
+    mask = torch.ones((BATCH, SAMPLES), dtype=torch.bool, device=dev)
+    embed = make_wave_embed_fn(lambda x, m: model16(x, m), opts, dtype=torch.bfloat16)
+
+    with torch.inference_mode():
+        ref16 = _plain_embed(torch, model16, opts, torch.bfloat16, torch.bfloat16)(wave, mask)
+        ref32 = _plain_embed(torch, model32, opts, torch.float32, torch.float32)(wave, mask)
+        waves = [wave * (1.0 + 1e-4 * i) for i in range(12)]
+        torch.cuda.synchronize()
+
+        # the main path: counters from zero
+        fused_fbank.launches = 0
+        fused_attentive_stats_pool.launches = 0
+        emb = embed(waves[0], mask)
+        torch.cuda.synchronize()
+        check(tuple(emb.shape) == (BATCH, 192) and bool(torch.isfinite(emb.float()).all()),
+              "served embeddings not finite or of the wrong shape")
+        c16, c32 = float(cosine(emb, ref16).min()), float(cosine(emb, ref32).min())
+        print(f"served C1024 bf16: min per-utterance cosine vs plain front end (bf16) {c16:.6f} "
+              f"(>= 0.9999), vs f32 model + f32 plain front end {c32:.6f} (>= 0.999)", flush=True)
+        check(c16 >= 0.9999 and c32 >= 0.999, "served embeddings disagree with the references")
+        embed(waves[1], mask)  # warm-up
+        torch.cuda.synchronize()
+        iters = 10
+        t0 = time.perf_counter()
+        for i in range(iters):
+            embed(waves[2 + i], mask)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rate = BATCH * SAMPLES / 16000.0 * iters / wall
+        print(f"served C1024 bf16 [128,160000]: {wall / iters * 1e3:.2f} ms/batch, "
+              f"{rate:.0f} audio-s/s on {device_label}", flush=True)
+        profile_served_batch(torch, lambda: embed(waves[0], mask))
+
+        # one C1024 pooling through the fused kernel on the model's MFA output
+        seen = {}
+        hook = model16.stats.register_forward_hook(
+            lambda mod, args, out: seen.update(x=args[0], mask=args[1], out=out))
+        embed(waves[0], mask)
+        hook.remove()
+        pool = EcapaAttentiveStatsPool(1536, fused_inference=True).to(device=dev, dtype=torch.bfloat16)
+        pool.load_state_dict(model16.stats.state_dict())
+        fused = pool(seen["x"], seen["mask"])
+        e_pool = max_abs(fused, seen["out"])
+        # the unfused bf16 path rounds every step to bf16: the JAX bf16
+        # pooling test's bound, atol = rtol = 0.05
+        close = torch.allclose(fused.float(), seen["out"].float(), atol=0.05, rtol=0.05)
+        print(f"C1024 pooling on the MFA output, fused vs unfused (bf16): max abs err {e_pool:.3e} "
+              f"(atol = rtol = 0.05)", flush=True)
+        check(close, "fused pooling disagrees with the model's pooling")
+
+    # server run: bucketed Extractor over seeded utterances of 1.5..25 s
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(24000, 400001, size=48)
+    items = [(f"utt{i:02d}", (rng.standard_normal(n) * 1000.0).astype(np.float32))
+             for i, n in enumerate(lengths)]
+    ex = Extractor(embed, ExtractConfig(buckets=WAVE_BUCKETS, default_batch=32, max_chunk=WAVE_BUCKETS[-1]))
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = ex.extract_to_ark(items, f"{tmp}/xvector.ark", f"{tmp}/xvector.scp")
+        with open(f"{tmp}/xvector.scp") as f:
+            keys = [line.split()[0] for line in f if line.strip()]
+    check(sorted(keys) == [k for k, _ in items], f"scp holds {len(keys)} keys, expected 48")
+    embs = ex.extract_all(items[:16])
+    enroll = torch.as_tensor(np.stack([embs[f"utt{i:02d}"] for i in range(8)]), device=dev)
+    test = torch.as_tensor(np.stack([embs[f"utt{i:02d}"] for i in range(8, 16)]), device=dev)
+    scores = cosine_score_matrix(enroll, test).cpu().numpy().ravel()
+    labels = rng.integers(0, 2, size=scores.size)
+    labels[:2] = (0, 1)
+    eer, _ = compute_eer(scores, labels)
+    print(f"server run: {stats['utts']} utterances in {stats['batches']} batches, "
+          f"{stats['wall_s']:.2f} s wall, {stats['device_s']:.2f} s device; ark/scp keys {len(keys)}; "
+          f"EER on random trials {eer:.3f} (random weights: not gated)", flush=True)
+
+    kernels["fused_fbank"]["launches"] = fused_fbank.launches
+    kernels["fused_attentive_stats_pool"]["launches"] = fused_attentive_stats_pool.launches
+    for name, k in kernels.items():
+        check(k["launches"] > 0, f"{name} was not launched on the main path")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import asv_subtools_tpu_torch  # noqa: F401
+    except ImportError:
+        print("chip_smoke: run from the repository root (asv_subtools_tpu_torch not found)", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    name, smi = phase_device(torch)
+    kernels = {"fused_fbank": phase_fbank(torch), "fused_attentive_stats_pool": phase_att_pooling(torch)}
+    phase_served(torch, kernels, smi)
+    order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")
+    print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": [{k: v[k] for k in order} for v in kernels.values()]}))
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

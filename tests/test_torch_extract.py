@@ -1,0 +1,191 @@
+"""Port extraction service, io and backend against the JAX package, plus the
+port's isolation from JAX and its device rule.
+
+The same seeded waves and weights go through the JAX
+make_wave_embed_fn + Extractor (fused fbank kernel in interpret mode) and
+the port's (plain fbank version on CPU). Per-utterance cosine >= 0.9999:
+both sides round the DFT operands to bf16 and sum in f32, in other orders.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from asv_subtools_tpu import extract as jex
+from asv_subtools_tpu.backend.metrics import compute_eer as jax_compute_eer
+from asv_subtools_tpu.backend.score_norm import cosine_score_matrix as jax_cosine
+from asv_subtools_tpu.features import FbankOptions as JaxFbankOptions
+from asv_subtools_tpu.io import read_vec_flt_scp
+from asv_subtools_tpu.io.wav import read_wav as jax_read_wav
+from asv_subtools_tpu.io.wav import write_wav
+from asv_subtools_tpu.models.ecapa import EcapaTdnn as JaxEcapa
+from asv_subtools_tpu.models.framework import chunk_utterance as jax_chunk_utterance
+from asv_subtools_tpu.models.framework import l2_norm as jax_l2_norm
+from asv_subtools_tpu_torch import extract as tex
+from asv_subtools_tpu_torch.backend import compute_eer, cosine_score_matrix
+from asv_subtools_tpu_torch.device import resolve_device
+from asv_subtools_tpu_torch.features import FbankOptions
+from asv_subtools_tpu_torch.io import read_wav
+from asv_subtools_tpu_torch.models import EcapaTdnn, chunk_utterance, l2_norm
+from asv_subtools_tpu_torch.weights import load_ecapa_variables
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+SMALL = dict(channels=64, mfa_conv=96, embd_dim=16)
+# buckets and max_chunk in samples: utt 3 (50000 samples) is chunked
+LENGTHS = (9000, 20000, 31000, 50000, 14000)
+CONFIG = dict(buckets=(16000, 32000), default_batch=2, max_chunk=24000)
+
+
+def _waves(seed=0):
+    rng = np.random.default_rng(seed)
+    return [(f"u{i}", (rng.standard_normal(n) * 1000).astype(np.float32)) for i, n in enumerate(LENGTHS)]
+
+
+@pytest.fixture(scope="module")
+def extracted(tmp_path_factory):
+    waves = _waves()
+    jm = JaxEcapa(**SMALL)
+    v = jm.init({"params": jax.random.PRNGKey(0)}, jnp.ones((1, 50, 23)), train=False)
+    v = jax.tree_util.tree_map(np.array, v)
+    rng = np.random.default_rng(1)
+    for name in ("bn_stats", "fc2_bn"):
+        v["batch_stats"][name]["mean"] = rng.normal(size=v["batch_stats"][name]["mean"].shape).astype(np.float32) * 0.1
+    jax_embed = jex.make_wave_embed_fn(lambda x, m: jm.apply(v, x, mask=m, train=False), JaxFbankOptions())
+    ref = jex.Extractor(jax_embed, jex.ExtractConfig(**CONFIG)).extract_all(iter(waves))
+
+    port = EcapaTdnn(input_dim=23, device="cpu", **SMALL)
+    load_ecapa_variables(port, v)
+    embed = tex.make_wave_embed_fn(lambda x, m: port(x, m), FbankOptions())
+    ex = tex.Extractor(embed, tex.ExtractConfig(**CONFIG), device="cpu")
+    out = tmp_path_factory.mktemp("ark")
+    stats = ex.extract_to_ark(iter(waves), str(out / "x.ark"), str(out / "x.scp"))
+    got = ex.extract_all(iter(waves))
+    return ref, got, stats, out
+
+
+def test_extractor_matches_jax(extracted):
+    ref, got, _, _ = extracted
+    assert set(got) == set(ref) == {f"u{i}" for i in range(len(LENGTHS))}
+    for key in ref:
+        a, b = got[key], np.asarray(ref[key])
+        cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+        assert cos >= 0.9999, (key, cos)
+
+
+def test_ark_scp_reads_back_through_jax_io(extracted):
+    _, got, stats, out = extracted
+    back = dict(read_vec_flt_scp(str(out / "x.scp")))
+    assert set(back) == set(got)
+    for key, emb in back.items():
+        assert emb.dtype == np.float32
+        np.testing.assert_array_equal(emb, got[key].astype(np.float32))
+    assert stats["utts"] == len(LENGTHS) and stats["device_s"] > 0
+
+
+def test_chunked_utterance_was_split():
+    chunks, weights = tex._chunk(np.zeros(50000, np.float32), CONFIG["max_chunk"])
+    assert len(chunks) == 4 and abs(sum(weights) - 1.0) < 1e-12
+
+
+@pytest.mark.parametrize("t", [30, 100, 250, 251])
+def test_chunking_matches_jax(t):
+    feats = np.arange(t * 2, dtype=np.float32).reshape(t, 2)
+    a, wa = tex._chunk(feats, 100)
+    b, wb = jex._chunk(feats, 100)
+    assert wa == wb and all(np.array_equal(x, y) for x, y in zip(a, b))
+    ca, cwa = chunk_utterance(feats, 100)
+    cb, cwb = jax_chunk_utterance(feats, 100)
+    np.testing.assert_array_equal(ca, cb)
+    np.testing.assert_array_equal(cwa, cwb)
+    for length in (1, 16000, 16001, 99999999):
+        assert tex._bucket_for(length, tex.WAVE_BUCKETS) == jex._bucket_for(length, jex.WAVE_BUCKETS)
+
+
+def test_scoring_and_eer_match_jax():
+    rng = np.random.default_rng(3)
+    e = rng.normal(size=(6, 16)).astype(np.float32)
+    t = rng.normal(size=(9, 16)).astype(np.float32)
+    got = cosine_score_matrix(torch.from_numpy(e), torch.from_numpy(t)).numpy()
+    ref = np.asarray(jax_cosine(jnp.asarray(e), jnp.asarray(t)))
+    np.testing.assert_allclose(got, ref, atol=1e-6)
+    raw = cosine_score_matrix(torch.from_numpy(e), torch.from_numpy(t), normalize=False).numpy()
+    np.testing.assert_allclose(raw, e @ t.T, rtol=1e-5)
+    labels = rng.integers(0, 2, size=got.size)
+    assert compute_eer(got.ravel(), labels) == jax_compute_eer(got.ravel(), labels)
+    np.testing.assert_allclose(l2_norm(torch.from_numpy(e)).numpy(),
+                               np.asarray(jax_l2_norm(jnp.asarray(e))), atol=1e-7)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_read_wav_matches_jax(tmp_path, channels):
+    rng = np.random.default_rng(4)
+    samples = np.round(rng.normal(size=(channels, 3000)) * 3000).astype(np.float32)
+    path = str(tmp_path / "a.wav")
+    write_wav(path, samples[0] if channels == 1 else samples, 16000)
+    got, sr = read_wav(path)
+    ref, sr_ref = jax_read_wav(path)
+    assert sr == sr_ref == 16000
+    np.testing.assert_array_equal(got, ref)
+    with open(path, "rb") as f:
+        np.testing.assert_array_equal(read_wav(f.read())[0], ref)
+
+
+def _port_modules():
+    pkg = REPO / "asv_subtools_tpu_torch"
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in pkg.rglob("*.py")
+    )
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, imported in a fresh interpreter, pulls in
+    neither JAX nor the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'asv_subtools_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('asv_subtools_tpu_torch')]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= len(_port_modules())
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add((node.module or "").split(".")[0])
+    assert not names & {"jax", "jaxlib", "flax", "optax", "asv_subtools_tpu"}, names
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is the card")
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        EcapaTdnn(input_dim=23, **SMALL)
+    with pytest.raises(RuntimeError):
+        tex.Extractor(lambda x, m: x)
+    assert resolve_device("cpu") == torch.device("cpu")

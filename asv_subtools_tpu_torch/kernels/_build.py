@@ -24,7 +24,7 @@ from typing import Dict, Sequence
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("fbank", "att_pooling")
+SOURCES = ("fbank", "att_pooling", "res2_chain", "stats_pooling")
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

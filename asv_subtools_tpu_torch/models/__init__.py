@@ -1,10 +1,12 @@
 from .ecapa import EcapaAttentiveStatsPool, EcapaTdnn, Res2NetBlock, SEConnect, SERes2Block
 from .framework import chunk_utterance, l2_norm
+from .resnet_xvector import ResNetXvector
 
 __all__ = [
     "EcapaAttentiveStatsPool",
     "EcapaTdnn",
     "Res2NetBlock",
+    "ResNetXvector",
     "SEConnect",
     "SERes2Block",
     "chunk_utterance",

@@ -32,6 +32,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn.fused_att_pooling import fused_attentive_stats_pool
+from ..nn.fused_res2 import fused_res2_chain
 from ..nn.norm import BatchNorm
 from ..nn.tdnn import ReluBatchNormTdnnLayer
 
@@ -41,10 +42,17 @@ SCALE = 8  # Res2Net groups, ECAPA's
 
 class Res2NetBlock(nn.Module):
     """Res2Net multi-scale conv block: group 0 passes through; group i+1
-    is convolved (k=3, dilated) after adding the previous group's output."""
+    is convolved (k=3, dilated) after adding the previous group's output.
 
-    def __init__(self, channels: int, dilation: int = 1):
+    ``fused_inference=True`` runs the whole chain through the fused kernel
+    (nn/fused_res2.py), with each stage's BN folded from its running
+    statistics; the default is the unfused path, one conv per stage.
+    """
+
+    def __init__(self, channels: int, dilation: int = 1, fused_inference: bool = False):
         super().__init__()
+        self.dilation = dilation
+        self.fused_inference = fused_inference
         if channels % SCALE:
             raise ValueError(f"channels ({channels}) must be a multiple of {SCALE}")
         hidden = channels // SCALE
@@ -53,7 +61,24 @@ class Res2NetBlock(nn.Module):
         for i, block in enumerate(self.blocks):
             self.add_module(f"block_{i}", block)
 
+    def chain_args(self):
+        """(w [stage, tap, in, out], b, bn_scale, bn_shift) of the fused
+        chain: the seven convs' weights and each stage's BN folded from its
+        running statistics."""
+        convs = [blk.affine.conv for blk in self.blocks]
+        folded = [blk.act_bn.bn.folded() for blk in self.blocks]
+        return (torch.stack([c.weight.permute(2, 1, 0) for c in convs]),
+                torch.stack([c.bias for c in convs]),
+                torch.stack([s for s, _ in folded]), torch.stack([t for _, t in folded]))
+
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        y = fused_res2_chain(x.transpose(1, 2), *self.chain_args(), dilation=self.dilation)
+        return y.transpose(1, 2)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, C, T] -> [B, C, T]."""
+        if self.fused_inference:
+            return self._fused(x)
         parts = torch.chunk(x, SCALE, dim=1)
         outs = [parts[0]]
         sp = None

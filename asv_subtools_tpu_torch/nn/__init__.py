@@ -1,12 +1,31 @@
 from .fused_att_pooling import fused_attentive_stats_pool, fused_attentive_stats_pool_plain
+from .fused_res2 import fused_res2_chain, fused_res2_chain_plain
+from .fused_stats_pooling import fused_stats_pooling, fused_stats_pooling_plain
 from .norm import BatchNorm
-from .tdnn import ActivationBatchNorm, ReluBatchNormTdnnLayer, TdnnAffine
+from .pooling import POOLINGS, FreeStatisticsPooling, StatisticsPooling
+from .resnet import BasicBlock, Bottleneck, ResNet, resnet18, resnet34, resnet50, resnet101
+from .tdnn import ActivationBatchNorm, ReluBatchNormTdnnLayer, SEBlock2D, TdnnAffine
 
 __all__ = [
     "ActivationBatchNorm",
+    "BasicBlock",
     "BatchNorm",
+    "Bottleneck",
+    "FreeStatisticsPooling",
+    "POOLINGS",
     "ReluBatchNormTdnnLayer",
+    "ResNet",
+    "SEBlock2D",
+    "StatisticsPooling",
     "TdnnAffine",
     "fused_attentive_stats_pool",
     "fused_attentive_stats_pool_plain",
+    "fused_res2_chain",
+    "fused_res2_chain_plain",
+    "fused_stats_pooling",
+    "fused_stats_pooling_plain",
+    "resnet18",
+    "resnet34",
+    "resnet50",
+    "resnet101",
 ]

@@ -1,0 +1,107 @@
+"""Fused masked statistics pooling: the wrapper of kernel K4 and its plain
+version.
+
+Replaces asv_subtools_tpu/nn/pallas_pooling.py `fused_stats_pooling` (the
+Pallas kernel at :52/:70). The CUDA source is csrc/stats_pooling.cu; its
+header note gives the design and the bound on an H100.
+
+x [B, T, D], mask [B, T] (True = valid) -> [B, 2D] float32: the mean over
+valid frames followed by the biased std ``sqrt(max(E[x^2] - mean^2, eps))``
+with ``count = max(sum(mask), 1)``, from one pass over x. The sums are
+taken of ``x - x[:, 0]`` (per row and feature): the first frame stands in
+for the mean, so the one-pass variance does not cancel when
+``|mean| >> std``. Any shift gives the same function; a row with no valid
+frame gives mean 0 and std ``sqrt(eps)``, as the JAX kernel does.
+
+x is read once in its own type (float32 or bfloat16); the sums and the
+result are float32, as the JAX kernel returns them (the module casts to
+x's type). On CPU tensors the wrapper runs the plain version; on CUDA
+tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..kernels import _build
+
+_EPS = 1.0e-10
+_TARGET_BLOCKS = 1056  # 8 blocks for each of an H100's 132 SMs
+_SIGNATURES = {
+    "asv_stats_pool_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
+                              + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+}
+
+
+def fused_stats_pooling_plain(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                              eps: float = _EPS) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same shifted sums in f32."""
+    xf = x.to(torch.float32)
+    valid = (torch.ones(x.shape[:2], dtype=torch.bool, device=x.device) if mask is None
+             else mask.to(torch.bool))[..., None]
+    raw = valid.sum(1).to(torch.float32)  # [B, 1]
+    cnt = torch.clamp_min(raw, 1.0)
+    shift = torch.where(raw > 0, xf[:, 0, :], 0.0)
+    delta = torch.where(valid, xf - shift[:, None, :], 0.0)
+    mu = delta.sum(1) / cnt
+    var = (delta * delta).sum(1) / cnt - mu * mu
+    return torch.cat([shift + mu, torch.sqrt(torch.clamp_min(var, eps))], dim=-1)
+
+
+def _t_splits(b: int, t: int, d: int, vec: int) -> int:
+    """Blocks over T for one (row, D tile): enough blocks to fill the card
+    when B x D tiles alone are few, with at least 32 frames each."""
+    d_tiles = -(-d // (32 * vec))
+    want = -(-_TARGET_BLOCKS // (b * d_tiles))
+    return max(1, min(want, t // 32))
+
+
+def _launch_kernel(x: torch.Tensor, mask: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    b, t, d = x.shape
+    dev = x.device
+    if x.stride(2) != 1:
+        x = x.contiguous()
+    full = 16 // x.element_size()  # elements in one 16-byte load
+    aligned = (d % full == 0 and x.stride(0) % full == 0 and x.stride(1) % full == 0
+               and x.data_ptr() % 16 == 0)
+    vec = full if aligned else 1
+    m = None if mask is None else mask.to(device=dev, dtype=torch.uint8).contiguous()
+    splits = _t_splits(b, t, d, vec)
+    out = torch.empty((b, 2 * d), dtype=torch.float32, device=dev)
+    part = torch.empty((b, splits, 2, d), dtype=torch.float32, device=dev) if splits > 1 else None
+    lib = _build.load("stats_pooling", _SIGNATURES)
+    with torch.cuda.device(dev):
+        code = lib.asv_stats_pool_launch(
+            x.data_ptr(), None if m is None else m.data_ptr(),
+            None if part is None else part.data_ptr(), out.data_ptr(),
+            x.stride(0), x.stride(1), b, t, d, splits, vec, int(x.dtype == torch.bfloat16),
+            float(eps), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, code, "statistics pooling kernel")
+    fused_stats_pooling.launches += 1
+    return out
+
+
+def fused_stats_pooling(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                        eps: float = _EPS) -> torch.Tensor:
+    """x [B, T, D] (any batch and time strides, D contiguous or copied),
+    mask [B, T] True = valid -> [B, 2D] float32 (mean ++ biased std).
+    ``fused_stats_pooling.launches`` counts kernel launches (one per call;
+    the call runs one CUDA kernel, or two when T is split across blocks)."""
+    if x.dim() != 3 or x.shape[1] == 0:
+        raise ValueError(f"x must be [B, T, D] with T > 0, got shape {tuple(x.shape)}")
+    if mask is not None and tuple(mask.shape) != tuple(x.shape[:2]):
+        raise ValueError(f"mask must be [B, T] = {tuple(x.shape[:2])}, got {tuple(mask.shape)}")
+    if x.device.type == "cpu":
+        return fused_stats_pooling_plain(x, mask, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_stats_pooling runs on cpu or cuda tensors, got {x.device}")
+    return _launch_kernel(x, mask, eps)
+
+
+fused_stats_pooling.launches = 0

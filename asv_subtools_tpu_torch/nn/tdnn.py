@@ -1,4 +1,4 @@
-"""TDNN building blocks (counterpart: asv_subtools_tpu/nn/tdnn.py:44-206).
+"""TDNN building blocks (counterpart: asv_subtools_tpu/nn/tdnn.py:44-206, 362-376).
 
 Inside the port's model activations are ``[B, C, T]``, the layout of
 ``F.conv1d``, so a layer needs no transpose. ``TdnnAffine`` covers evenly
@@ -72,3 +72,19 @@ class ReluBatchNormTdnnLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.act_bn(self.affine(x))
+
+
+class SEBlock2D(nn.Module):
+    """Squeeze-and-excitation over (T, F) maps for the 2-D backbones.
+    x [B, C, T, F]: the gate reads the mean over T and F."""
+
+    def __init__(self, channels: int, ratio: int = 16):
+        super().__init__()
+        self.fc1 = nn.Linear(channels, max(1, channels // ratio))
+        self.fc2 = nn.Linear(max(1, channels // ratio), channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.mean(dim=(-2, -1))
+        s = torch.relu(self.fc1(s))
+        s = torch.sigmoid(self.fc2(s))
+        return x * s[..., None, None]

@@ -1,10 +1,12 @@
-"""Carry ECAPA weights between a JAX variable tree and the port's state_dict.
+"""Carry model weights between a JAX variable tree and the port's state_dict.
 
 The JAX model's variables ``{"params": ..., "batch_stats": ...}`` arrive as
 nested dicts of numpy arrays (this module imports nothing of JAX). The
 port's modules carry the flax module names, so each leaf maps by rule:
 
-* a flax Conv ``kernel [k, in, out]`` -> ``<path>.weight [out, in, k]``;
+* a flax 1-D Conv ``kernel [k, in, out]`` -> ``<path>.weight [out, in, k]``;
+* a flax 2-D Conv ``kernel [kh, kw, in, out]`` -> ``<path>.weight
+  [out, in, kh, kw]`` (the port's maps are ``[B, C, T, F]``: H = T, W = F);
 * a flax Dense ``kernel [in, out]`` -> ``<path>.weight [out, in]``;
 * the ``_SplitGlobalConv`` kernel (module ``att1``) keeps ``[1, 3C, K]``
   as ``<path>.kernel``;
@@ -12,7 +14,9 @@ port's modules carry the flax module names, so each leaf maps by rule:
   one to one.
 
 Every leaf is consumed exactly once; a leaf no rule takes raises, and
-:func:`load_ecapa_variables` raises on any port parameter left unset.
+:func:`load_variables` raises on any port parameter left unset. The rules
+hold for every ported family (ECAPA-TDNN, ResNet x-vector); the ``*ecapa*``
+names are the original ones and stay as aliases.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ def _to_port(collection: str, path: Tuple[str, ...], value: np.ndarray) -> Tuple
             return key(leaf), value
         if leaf == "kernel" and mods and mods[-1] == _SPLIT_CONV and value.ndim == 3:
             return key("kernel"), value
+        if leaf == "kernel" and value.ndim == 4:
+            return key("weight"), value.transpose(3, 2, 0, 1)
         if leaf == "kernel" and value.ndim == 3:
             return key("weight"), value.transpose(2, 1, 0)
         if leaf == "kernel" and value.ndim == 2:
@@ -53,7 +59,7 @@ def _to_port(collection: str, path: Tuple[str, ...], value: np.ndarray) -> Tuple
     raise ValueError(f"no rule maps {collection}/{'/'.join(path)} {value.shape}")
 
 
-def ecapa_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+def variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     """JAX ``{"params", "batch_stats"}`` tree (numpy leaves) -> port state_dict."""
     extra = set(variables) - {"params", "batch_stats"}
     if extra:
@@ -68,7 +74,7 @@ def ecapa_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]
     return out
 
 
-def ecapa_state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
     """The inverse: port state_dict -> JAX ``{"params", "batch_stats"}`` tree of numpy arrays."""
     out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for key, tensor in state_dict.items():
@@ -78,6 +84,8 @@ def ecapa_state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> Dic
             collection, name = "batch_stats", leaf
         elif leaf in ("bias", "scale", "kernel"):
             collection, name = "params", leaf
+        elif leaf == "weight" and value.ndim == 4:
+            collection, name, value = "params", "kernel", value.transpose(2, 3, 1, 0)
         elif leaf == "weight" and value.ndim == 3:
             collection, name, value = "params", "kernel", value.transpose(2, 1, 0)
         elif leaf == "weight" and value.ndim == 2:
@@ -91,11 +99,11 @@ def ecapa_state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> Dic
     return out
 
 
-def load_ecapa_variables(model: nn.Module, variables: Mapping) -> nn.Module:
+def load_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     """Load a JAX variable tree into ``model`` (in place, keeping its device
     and types). Raises on unconsumed leaves, unset parameters and shape
     mismatches."""
-    state = ecapa_variables_to_state_dict(variables)
+    state = variables_to_state_dict(variables)
     expected = model.state_dict()
     missing = sorted(set(expected) - set(state))
     unexpected = sorted(set(state) - set(expected))
@@ -109,7 +117,7 @@ def load_ecapa_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     return model
 
 
-def init_ecapa_weights_(model: nn.Module, seed: int) -> nn.Module:
+def init_weights_(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights in the flax initialisers' scale: kernels
     normal with std 1/sqrt(fan_in) (lecun), biases 0, BN scale 1."""
     gen = torch.Generator().manual_seed(seed)
@@ -125,3 +133,9 @@ def init_ecapa_weights_(model: nn.Module, seed: int) -> nn.Module:
             elif leaf == "scale":
                 p.fill_(1.0)
     return model
+
+
+ecapa_variables_to_state_dict = variables_to_state_dict
+ecapa_state_dict_to_variables = state_dict_to_variables
+load_ecapa_variables = load_variables
+init_ecapa_weights_ = init_weights_

@@ -3,24 +3,41 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. device and build: the card's name and power limit; both CUDA kernels
-     built from asv_subtools_tpu_torch/csrc with nvcc.
+  1. device and build: the card's name and power limit; the four CUDA
+     kernels built from asv_subtools_tpu_torch/csrc with nvcc, one process
+     per source, all started together.
   2. K1 fused fbank against its plain version on the card: f32 and bf16 DFT
      at [128, 160000] with 80 bins, a ragged [3, 20480] batch with 23 bins
      (and the log-energy); kernel and plain times.
   3. K2 fused attentive pooling against its plain version and the unfused
      module at x [128, 998, 1536] (bf16 and f32, lengths 200..998), and a
      case whose logits exceed 80 against the unfused path; times.
-  4. the served path at full width: ECAPA-TDNN C1024 (seeded random
+  4. K3 fused Res2Net chain against its plain version and the unfused
+     Res2NetBlock at x [128, 998, 1024] for dilation 2, 3, 4 (bf16 and
+     f32), a ragged case (T = 197, h = 16, B = 3) and a case that shows
+     frames past T do not leak into valid ones; times.
+  5. K4 fused statistics pooling against its plain version and the unfused
+     StatisticsPooling at [128, 125, 2560] and [64, 1000, 1536] (bf16 and
+     f32, lengths T/7..T, and without a mask); times, and torch.std_mean's.
+  6. the served path at full width: ECAPA-TDNN C1024 (seeded random
      weights, bf16) behind make_wave_embed_fn on one [128, 160000] batch,
      timed, and its embeddings held against the same model fed by the plain
      front end (bf16) and an f32 model fed by the f32 plain front end; then
      an Extractor over 48 seeded utterances of 1.5-25 s writing a vector
      ark/scp, cosine scoring and EER; and one C1024 pooling through
      EcapaAttentiveStatsPool(fused_inference=True) on the model's MFA
-     output. The launch counters are zeroed just before this phase and
-     must be above zero after it.
-  5. a "kernels" JSON line, then the device JSON as the last line.
+     output; then the same batch with the three Res2NetBlocks switched to
+     the fused chain, held against the unfused bf16 model and timed.
+  7. the ResNet34 x-vector served at full width and depth (base32, layers
+     3-4-6-3, embedding 512, seeded random weights, bf16) behind
+     make_wave_embed_fn on one [128, 160000] batch with the fused
+     statistics pooling on, held against the same model with the flag off
+     fed by the plain front end and against an f32 model on the f32 plain
+     front end; timed with the flag on and off; one batch profiled; then the Extractor run as in 6.
+     The launch counters are zeroed just before each of the two main paths
+     (6 and 7) drives the port and read just after; every kernel of a path
+     must have been launched in it.
+  8. a "kernels" JSON line, then the device JSON as the last line.
 
 f32 comparisons run in true f32: this script sets
 torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
@@ -65,8 +82,25 @@ def median_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
     return float(np.median(times))
 
 
+def turns_ms(torch, run_plain, run_kernel, **kw):
+    """(plain, kernel) times, the best of two turns in the order plain,
+    kernel, kernel, plain."""
+    p1, k1, k2, p2 = (median_ms(torch, f, **kw) for f in (run_plain, run_kernel, run_kernel, run_plain))
+    return min(p1, p2), min(k1, k2)
+
+
 def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def close(torch, a, b, atol: float, rtol: float) -> bool:
+    return bool(torch.allclose(a.float(), b.float(), atol=atol, rtol=rtol))
+
+
+def bound_ms(nbytes: float, flops: float, peak: str = "bf16"):
+    """The least time for the work, and which of the two times sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[peak]
+    return max(t_bytes, t_ops) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
 def cosine(a, b):
@@ -231,6 +265,164 @@ def phase_att_pooling(torch):
     }
 
 
+def _res2_block(torch, dilation, dtype, seed):
+    """A C1024 Res2NetBlock with seeded weights and non-trivial BN statistics."""
+    from asv_subtools_tpu_torch.models import Res2NetBlock
+    from asv_subtools_tpu_torch.weights import init_weights_
+
+    block = init_weights_(Res2NetBlock(1024, dilation=dilation), seed)
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda n, scale: torch.randn(n, generator=gen) * scale
+    for stage in block.blocks:
+        bn, conv = stage.act_bn.bn, stage.affine.conv
+        bn.mean.copy_(r(128, 0.1))
+        bn.var.copy_(torch.rand(128, generator=gen) * 1.5 + 0.5)
+        bn.scale.data.copy_(1.0 + r(128, 0.1))
+        bn.bias.data.copy_(r(128, 0.1))
+        conv.bias.data.copy_(r(128, 0.1))
+    return block.to(device="cuda", dtype=dtype).eval()
+
+
+def phase_res2(torch):
+    from asv_subtools_tpu_torch.nn import fused_res2_chain, fused_res2_chain_plain
+
+    dev = torch.device("cuda")
+    b, t, c, h, n = BATCH, 998, 1024, 128, 7
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    x_ct32 = torch.randn((b, c, t), generator=gen, device=dev)  # the model's [B, C, T] memory
+    # tolerance: f32, the same products summed in another order; bf16, one
+    # bf16 ulp where such a sum crosses a rounding boundary, carried on by
+    # the later stages (atol = rtol)
+    tols = {"f32": 1e-4, "bf16": 2e-2}
+    errs = {"f32": 0.0, "bf16": 0.0}
+    times = {}
+    with torch.inference_mode():
+        for d in (2, 3, 4):
+            for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                block = _res2_block(torch, d, dt, SEED + d)
+                x_ct = x_ct32.to(dt)
+                x = x_ct.transpose(1, 2)  # [B, T, C] view, as the model hands it over
+                args = block.chain_args()
+                k = fused_res2_chain(x, *args, dilation=d)
+                route = fused_res2_chain.last_route
+                check(route == ("tensor_core" if label == "bf16" else "cuda_core"),
+                      f"K3 {label} dilation {d} ran the {route} kernel")
+                p = fused_res2_chain_plain(x, *args, dilation=d)
+                u = block(x_ct).transpose(1, 2)  # the unfused module: one conv per stage
+                torch.cuda.synchronize()
+                e, eu = max_abs(k, p), max_abs(k, u)
+                errs[label] = max(errs[label], e)
+                print(f"K3 res2 chain {label} [128,998,1024] dilation {d}: max abs err vs plain {e:.3e} "
+                      f"(atol = rtol = {tols[label]}), vs unfused module {eu:.3e}", flush=True)
+                check(tuple(k.shape) == (b, t, c) and k.dtype == dt, "K3 output shape or type")
+                check(close(torch, k, p, tols[label], tols[label]), f"K3 {label} dilation {d} disagrees with its plain version")
+                # the unfused bf16 module rounds each conv's output to bf16:
+                # the JAX kernel test's scale, 0.06
+                tol_u = 1e-3 if label == "f32" else 0.06
+                check(close(torch, k, u, tol_u, tol_u), f"K3 {label} dilation {d} disagrees with the unfused module")
+            # bf16 times at this dilation: block, x_ct, x, args are the bf16 ones
+            run_k = lambda: fused_res2_chain(x, *args, dilation=d)
+            run_p = lambda: fused_res2_chain_plain(x, *args, dilation=d)
+            ms_p, ms_k = turns_ms(torch, run_p, run_k, iters=10)
+            ms_u = median_ms(torch, lambda: block(x_ct), iters=10)
+            block.fused_inference = True
+            ms_m = median_ms(torch, lambda: block(x_ct), iters=10)
+            times[d] = (ms_k, ms_p, ms_u, ms_m)
+            print(f"K3 bf16 dilation {d} times (ms): kernel {ms_k:.3f} plain {ms_p:.3f} "
+                  f"unfused Res2NetBlock {ms_u:.3f} Res2NetBlock with the flag on {ms_m:.3f}", flush=True)
+        w_numel = args[0].numel()
+
+        # ragged: T = 197 (two tiles), h = 16 (half a warp of channels), B = 3
+        r = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale
+        ragged = (r(3, 197, 128), r(n, 3, 16, 16, scale=48 ** -0.5), r(n, 16, scale=0.1),
+                  1.0 + r(n, 16, scale=0.1), r(n, 16, scale=0.1))
+        e = max_abs(fused_res2_chain(*ragged, dilation=4), fused_res2_chain_plain(*ragged, dilation=4))
+        print(f"K3 res2 chain f32 [3,197,128] h=16 dilation 4: max abs err {e:.3e} (tol 1e-4)", flush=True)
+        check(e <= 1e-4, "K3 ragged case disagrees")
+        # frames past T read as zero at every stage: 16 more frames leave the head unchanged
+        args4 = _res2_block(torch, 4, torch.float32, SEED).chain_args()
+        x1 = r(1, 197, 1024)
+        full = fused_res2_chain(x1, *args4, dilation=4)
+        full2 = fused_res2_chain(torch.cat([x1, r(1, 16, 1024)], dim=1), *args4, dilation=4)
+        e = max_abs(full[:, :150], full2[:, :150])
+        print(f"K3 isolation: frames 0..149 with 16 frames appended, max abs diff {e:.3e} (tol 1e-6)", flush=True)
+        check(e <= 1e-6, "K3 leaks frames past T into valid frames")
+
+    flops = 2.0 * b * t * n * 3 * h * h
+    nbytes = 2 * 2 * b * t * c + 2 * w_numel + 3 * 4 * n * h  # x in and out, weights, the three f32 vectors
+    bound, by = bound_ms(nbytes, flops)
+    mean = lambda i: float(np.mean([times[d][i] for d in (2, 3, 4)]))
+    print(f"K3 bf16 mean over dilations (ms): kernel {mean(0):.3f} plain {mean(1):.3f} unfused module {mean(2):.3f}; "
+          f"bound {bound:.4f} by {by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+    return {
+        "name": "fused_res2_chain", "route": "cuda",
+        "source": "asv_subtools_tpu_torch/csrc/res2_chain.cu",
+        "replaces": "asv_subtools_tpu/nn/pallas_res2.py:80",
+        "max_abs_err": errs["bf16"], "ms": mean(0), "plain_ms": mean(1),
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+    }
+
+
+def phase_stats_pooling(torch):
+    from asv_subtools_tpu_torch.nn import StatisticsPooling, fused_stats_pooling, fused_stats_pooling_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    pool = StatisticsPooling()
+    # tolerance: both sides read the same values and sum in f32, in another
+    # order. The unfused module works in x's type: in bf16 it rounds every
+    # step, hence 0.05 (the bf16 bound of the attentive pooling)
+    rtol, atol = 1e-4, 1e-5
+    err_main = None
+    results = {}
+    with torch.inference_mode():
+        for b, t, d in ((BATCH, 125, 2560), (64, 1000, 1536)):
+            x32 = torch.randn((b, t, d), generator=gen, device=dev) + 0.5
+            lengths = torch.linspace(t / 7, t, b, device=dev).round().long()
+            mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+            for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                x = x32.to(dt)
+                for m, what in ((mask, f"lengths {int(lengths[0])}..{t}"), (None, "no mask")):
+                    k = fused_stats_pooling(x, m)
+                    p = fused_stats_pooling_plain(x, m)
+                    u = pool(x, m)
+                    torch.cuda.synchronize()
+                    e, eu = max_abs(k, p), max_abs(k, u)
+                    print(f"K4 stats pooling {label} [{b},{t},{d}] {what}: max abs err vs plain {e:.3e} "
+                          f"(rtol {rtol}, atol {atol}), vs unfused module {eu:.3e}", flush=True)
+                    check(tuple(k.shape) == (b, 2 * d) and k.dtype == torch.float32, "K4 output shape or type")
+                    check(close(torch, k, p, atol, rtol), f"K4 {label} disagrees with its plain version")
+                    ok = close(torch, k, u, atol, rtol) if label == "f32" else close(torch, k, u, 0.05, 0.05)
+                    check(ok, f"K4 {label} disagrees with the unfused module")
+                    if (b, label) == (BATCH, "bf16") and m is not None:
+                        err_main = e
+            # bf16 times with a full mask; torch.std_mean and the eps floor
+            # compute the same function there
+            full = torch.ones((b, t), dtype=torch.bool, device=dev)
+            run_k = lambda: fused_stats_pooling(x, full)
+            run_p = lambda: fused_stats_pooling_plain(x, full)
+
+            def run_lib():
+                std, mean = torch.std_mean(x, dim=1, correction=0)
+                return mean, torch.clamp_min(std, 1e-5)
+
+            ms_p, ms_k = turns_ms(torch, run_p, run_k)
+            ms_l = median_ms(torch, run_lib)
+            nbytes = x.element_size() * x.numel() + b * t + 4 * 2 * b * d  # x, mask, f32 out
+            bound, by = bound_ms(nbytes, 4.0 * b * t * d, peak="f32")
+            results[(b, t, d)] = (ms_k, ms_p, ms_l, bound, by)
+            print(f"K4 bf16 [{b},{t},{d}] times (ms): kernel {ms_k:.4f} plain {ms_p:.4f} torch.std_mean {ms_l:.4f}; "
+                  f"bound {bound:.4f} by {by} ({nbytes / 1e6:.1f} MB)", flush=True)
+    ms_k, ms_p, ms_l, bound, by = results[(BATCH, 125, 2560)]
+    return {
+        "name": "fused_stats_pooling", "route": "cuda",
+        "source": "asv_subtools_tpu_torch/csrc/stats_pooling.cu",
+        "replaces": "asv_subtools_tpu/nn/pallas_pooling.py:52",
+        "max_abs_err": err_main, "ms": ms_k, "plain_ms": ms_p,
+        "bound_ms": bound, "bound_by": by, "library_ms": ms_l,
+    }
+
+
 def profile_served_batch(torch, run, top: int = 12) -> None:
     """One served batch under torch.profiler: device time by kernel, and
     the device's idle share of the batch's wall time."""
@@ -277,12 +469,76 @@ def _plain_embed(torch, model, opts, dft_dtype, dtype):
     return embed
 
 
-def phase_served(torch, kernels, device_label):
+def _wrappers():
+    """The four kernels' wrappers by name: each counts its launches."""
+    from asv_subtools_tpu_torch.features import fused_fbank
+    from asv_subtools_tpu_torch.nn import fused_attentive_stats_pool, fused_res2_chain, fused_stats_pooling
+
+    return {"fused_fbank": fused_fbank, "fused_attentive_stats_pool": fused_attentive_stats_pool,
+            "fused_res2_chain": fused_res2_chain, "fused_stats_pooling": fused_stats_pooling}
+
+
+def zero_launches() -> None:
+    for wrapper in _wrappers().values():
+        wrapper.launches = 0
+
+
+def read_launches(path: str, expected) -> dict:
+    """The counts of one main path's run; every kernel of the path must
+    have been launched in it."""
+    counts = {name: wrapper.launches for name, wrapper in _wrappers().items()}
+    print(f"launches on the {path} path: {counts}", flush=True)
+    for name in expected:
+        check(counts[name] > 0, f"{name} was not launched on the {path} path")
+    return counts
+
+
+def timed_batches(torch, embed, waves, mask, iters: int) -> float:
+    """ms per served batch: host clock around `iters` batches, after one warm-up."""
+    embed(waves[0], mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        embed(waves[1 + i % (len(waves) - 1)], mask)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def server_run(torch, embed, what: str) -> None:
+    """Bucketed Extractor over 48 seeded utterances of 1.5..25 s to a
+    vector ark/scp, then cosine scoring and EER on random trials."""
     from asv_subtools_tpu_torch.backend import compute_eer, cosine_score_matrix
-    from asv_subtools_tpu_torch.extract import WAVE_BUCKETS, ExtractConfig, Extractor, make_wave_embed_fn
-    from asv_subtools_tpu_torch.features import FbankOptions, MelOptions, fused_fbank
-    from asv_subtools_tpu_torch.models import EcapaAttentiveStatsPool, EcapaTdnn
-    from asv_subtools_tpu_torch.nn import fused_attentive_stats_pool
+    from asv_subtools_tpu_torch.extract import WAVE_BUCKETS, ExtractConfig, Extractor
+
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(24000, 400001, size=48)
+    items = [(f"utt{i:02d}", (rng.standard_normal(n) * 1000.0).astype(np.float32))
+             for i, n in enumerate(lengths)]
+    ex = Extractor(embed, ExtractConfig(buckets=WAVE_BUCKETS, default_batch=32, max_chunk=WAVE_BUCKETS[-1]))
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = ex.extract_to_ark(items, f"{tmp}/xvector.ark", f"{tmp}/xvector.scp")
+        with open(f"{tmp}/xvector.scp") as f:
+            keys = [line.split()[0] for line in f if line.strip()]
+    check(sorted(keys) == [k for k, _ in items], f"scp holds {len(keys)} keys, expected 48")
+    embs = ex.extract_all(items[:16])
+    check(all(np.all(np.isfinite(e)) for e in embs.values()), f"{what}: extracted embeddings not finite")
+    dev = torch.device("cuda")
+    enroll = torch.as_tensor(np.stack([embs[f"utt{i:02d}"] for i in range(8)]), device=dev)
+    test = torch.as_tensor(np.stack([embs[f"utt{i:02d}"] for i in range(8, 16)]), device=dev)
+    scores = cosine_score_matrix(enroll, test).cpu().numpy().ravel()
+    labels = rng.integers(0, 2, size=scores.size)
+    labels[:2] = (0, 1)
+    eer, _ = compute_eer(scores, labels)
+    print(f"{what} server run: {stats['utts']} utterances in {stats['batches']} batches, "
+          f"{stats['wall_s']:.2f} s wall, {stats['device_s']:.2f} s device; ark/scp keys {len(keys)}; "
+          f"EER on random trials {eer:.3f} (random weights: not gated)", flush=True)
+
+
+def phase_served(torch, device_label):
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.features import FbankOptions, MelOptions
+    from asv_subtools_tpu_torch.models import EcapaAttentiveStatsPool, EcapaTdnn, Res2NetBlock
+    from asv_subtools_tpu_torch.nn import fused_res2_chain
     from asv_subtools_tpu_torch.weights import init_ecapa_weights_
 
     dev = torch.device("cuda")
@@ -297,12 +553,11 @@ def phase_served(torch, kernels, device_label):
     with torch.inference_mode():
         ref16 = _plain_embed(torch, model16, opts, torch.bfloat16, torch.bfloat16)(wave, mask)
         ref32 = _plain_embed(torch, model32, opts, torch.float32, torch.float32)(wave, mask)
-        waves = [wave * (1.0 + 1e-4 * i) for i in range(12)]
+        waves = [wave * (1.0 + 1e-4 * i) for i in range(7)]
         torch.cuda.synchronize()
 
         # the main path: counters from zero
-        fused_fbank.launches = 0
-        fused_attentive_stats_pool.launches = 0
+        zero_launches()
         emb = embed(waves[0], mask)
         torch.cuda.synchronize()
         check(tuple(emb.shape) == (BATCH, 192) and bool(torch.isfinite(emb.float()).all()),
@@ -311,17 +566,9 @@ def phase_served(torch, kernels, device_label):
         print(f"served C1024 bf16: min per-utterance cosine vs plain front end (bf16) {c16:.6f} "
               f"(>= 0.9999), vs f32 model + f32 plain front end {c32:.6f} (>= 0.999)", flush=True)
         check(c16 >= 0.9999 and c32 >= 0.999, "served embeddings disagree with the references")
-        embed(waves[1], mask)  # warm-up
-        torch.cuda.synchronize()
-        iters = 10
-        t0 = time.perf_counter()
-        for i in range(iters):
-            embed(waves[2 + i], mask)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        rate = BATCH * SAMPLES / 16000.0 * iters / wall
-        print(f"served C1024 bf16 [128,160000]: {wall / iters * 1e3:.2f} ms/batch, "
-              f"{rate:.0f} audio-s/s on {device_label}", flush=True)
+        ms = timed_batches(torch, embed, waves, mask, iters=6)
+        print(f"served C1024 bf16 [128,160000]: {ms:.2f} ms/batch, "
+              f"{BATCH * SAMPLES / 16.0 / ms:.0f} audio-s/s on {device_label}", flush=True)
         profile_served_batch(torch, lambda: embed(waves[0], mask))
 
         # one C1024 pooling through the fused kernel on the model's MFA output
@@ -341,32 +588,86 @@ def phase_served(torch, kernels, device_label):
               f"(atol = rtol = 0.05)", flush=True)
         check(close, "fused pooling disagrees with the model's pooling")
 
-    # server run: bucketed Extractor over seeded utterances of 1.5..25 s
-    rng = np.random.default_rng(SEED)
-    lengths = rng.integers(24000, 400001, size=48)
-    items = [(f"utt{i:02d}", (rng.standard_normal(n) * 1000.0).astype(np.float32))
-             for i, n in enumerate(lengths)]
-    ex = Extractor(embed, ExtractConfig(buckets=WAVE_BUCKETS, default_batch=32, max_chunk=WAVE_BUCKETS[-1]))
-    with tempfile.TemporaryDirectory() as tmp:
-        stats = ex.extract_to_ark(items, f"{tmp}/xvector.ark", f"{tmp}/xvector.scp")
-        with open(f"{tmp}/xvector.scp") as f:
-            keys = [line.split()[0] for line in f if line.strip()]
-    check(sorted(keys) == [k for k, _ in items], f"scp holds {len(keys)} keys, expected 48")
-    embs = ex.extract_all(items[:16])
-    enroll = torch.as_tensor(np.stack([embs[f"utt{i:02d}"] for i in range(8)]), device=dev)
-    test = torch.as_tensor(np.stack([embs[f"utt{i:02d}"] for i in range(8, 16)]), device=dev)
-    scores = cosine_score_matrix(enroll, test).cpu().numpy().ravel()
-    labels = rng.integers(0, 2, size=scores.size)
-    labels[:2] = (0, 1)
-    eer, _ = compute_eer(scores, labels)
-    print(f"server run: {stats['utts']} utterances in {stats['batches']} batches, "
-          f"{stats['wall_s']:.2f} s wall, {stats['device_s']:.2f} s device; ark/scp keys {len(keys)}; "
-          f"EER on random trials {eer:.3f} (random weights: not gated)", flush=True)
+        # the same served batch with the three Res2NetBlocks on the fused chain
+        fused16 = copy.deepcopy(model16)
+        chains = [m for m in fused16.modules() if isinstance(m, Res2NetBlock)]
+        check(len(chains) == 3, f"expected 3 Res2NetBlocks, found {len(chains)}")
+        for m in chains:
+            m.fused_inference = True
+        embed_f = make_wave_embed_fn(lambda x, m: fused16(x, m), opts, dtype=torch.bfloat16)
+        emb_f = embed_f(waves[0], mask)
+        torch.cuda.synchronize()
+        check(tuple(emb_f.shape) == (BATCH, 192) and bool(torch.isfinite(emb_f.float()).all()),
+              "embeddings with the fused chains not finite or of the wrong shape")
+        cu, c32 = float(cosine(emb_f, emb).min()), float(cosine(emb_f, ref32).min())
+        # tolerance: the two bf16 paths round at other places (the unfused
+        # one rounds every conv's output to bf16, the chain keeps f32 to the
+        # stage's end); 0.999 is the bar of bf16 against f32
+        print(f"served C1024 bf16 with the fused Res2 chains: min per-utterance cosine vs the unfused bf16 "
+              f"model {cu:.6f} (>= 0.999), vs f32 model + f32 plain front end {c32:.6f} (>= 0.999)", flush=True)
+        check(cu >= 0.999 and c32 >= 0.999, "embeddings with the fused Res2 chains disagree")
+        check(fused_res2_chain.last_route == "tensor_core", "the served Res2 chains left the tensor-core kernel")
+        ms_off1 = timed_batches(torch, embed, waves, mask, iters=3)
+        ms_on1 = timed_batches(torch, embed_f, waves, mask, iters=3)
+        ms_on2 = timed_batches(torch, embed_f, waves, mask, iters=3)
+        ms_off2 = timed_batches(torch, embed, waves, mask, iters=3)
+        print(f"served C1024 bf16 [128,160000] ms/batch: Res2 chains unfused {min(ms_off1, ms_off2):.2f}, "
+              f"fused {min(ms_on1, ms_on2):.2f} (turns off {ms_off1:.2f} on {ms_on1:.2f} on {ms_on2:.2f} "
+              f"off {ms_off2:.2f})", flush=True)
 
-    kernels["fused_fbank"]["launches"] = fused_fbank.launches
-    kernels["fused_attentive_stats_pool"]["launches"] = fused_attentive_stats_pool.launches
-    for name, k in kernels.items():
-        check(k["launches"] > 0, f"{name} was not launched on the main path")
+    server_run(torch, embed, "ECAPA C1024")
+    return read_launches("ECAPA C1024", ("fused_fbank", "fused_attentive_stats_pool", "fused_res2_chain"))
+
+
+def phase_served_resnet(torch, device_label):
+    """ResNet34 base32 x-vector at full width and depth, with the fused
+    statistics pooling on."""
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.features import FbankOptions, MelOptions
+    from asv_subtools_tpu_torch.models import ResNetXvector
+    from asv_subtools_tpu_torch.weights import init_weights_
+
+    dev = torch.device("cuda")
+    opts = FbankOptions(mel_opts=MelOptions(num_bins=80))
+    model32 = init_weights_(ResNetXvector(80), SEED + 10)  # base32, layers 3-4-6-3, embd 512
+    off16 = copy.deepcopy(model32).to(torch.bfloat16)
+    on16 = copy.deepcopy(off16)
+    on16.head.stats.fused_inference = True
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    wave = torch.randn((BATCH, SAMPLES), generator=gen, device=dev) * 1000.0
+    mask = torch.ones((BATCH, SAMPLES), dtype=torch.bool, device=dev)
+    wrap = lambda model: make_wave_embed_fn(lambda x, m: model(x, m), opts, dtype=torch.bfloat16)
+    embed_on, embed_off = wrap(on16), wrap(off16)
+
+    with torch.inference_mode():
+        ref16 = _plain_embed(torch, off16, opts, torch.bfloat16, torch.bfloat16)(wave, mask)
+        ref32 = _plain_embed(torch, model32, opts, torch.float32, torch.float32)(wave, mask)
+        waves = [wave * (1.0 + 1e-4 * i) for i in range(4)]
+        torch.cuda.synchronize()
+
+        # the main path: counters from zero
+        zero_launches()
+        emb = embed_on(waves[0], mask)
+        torch.cuda.synchronize()
+        check(tuple(emb.shape) == (BATCH, 512) and bool(torch.isfinite(emb.float()).all()),
+              "served ResNet34 embeddings not finite or of the wrong shape")
+        c16, c32 = float(cosine(emb, ref16).min()), float(cosine(emb, ref32).min())
+        print(f"served ResNet34 bf16, fused pooling: min per-utterance cosine vs flag off + plain front end "
+              f"(bf16) {c16:.6f} (>= 0.9999), vs f32 model + f32 plain front end {c32:.6f} (>= 0.999)", flush=True)
+        check(c16 >= 0.9999 and c32 >= 0.999, "served ResNet34 embeddings disagree with the references")
+        ms_off1 = timed_batches(torch, embed_off, waves, mask, iters=3)
+        ms_on1 = timed_batches(torch, embed_on, waves, mask, iters=3)
+        ms_on2 = timed_batches(torch, embed_on, waves, mask, iters=3)
+        ms_off2 = timed_batches(torch, embed_off, waves, mask, iters=3)
+        ms_on, ms_off = min(ms_on1, ms_on2), min(ms_off1, ms_off2)
+        audio_s = BATCH * SAMPLES / 16.0  # audio-milliseconds per batch over ms = audio-s/s
+        print(f"served ResNet34 bf16 [128,160000] ms/batch: fused pooling {ms_on:.2f} ({audio_s / ms_on:.0f} "
+              f"audio-s/s), unfused {ms_off:.2f} ({audio_s / ms_off:.0f} audio-s/s) on {device_label} "
+              f"(turns off {ms_off1:.2f} on {ms_on1:.2f} on {ms_on2:.2f} off {ms_off2:.2f})", flush=True)
+        profile_served_batch(torch, lambda: embed_on(waves[0], mask))
+
+    server_run(torch, embed_on, "ResNet34")
+    return read_launches("ResNet34", ("fused_fbank", "fused_stats_pooling"))
 
 
 def main() -> int:
@@ -388,8 +689,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     name, smi = phase_device(torch)
-    kernels = {"fused_fbank": phase_fbank(torch), "fused_attentive_stats_pool": phase_att_pooling(torch)}
-    phase_served(torch, kernels, smi)
+    kernels = {"fused_fbank": phase_fbank(torch), "fused_attentive_stats_pool": phase_att_pooling(torch),
+               "fused_res2_chain": phase_res2(torch), "fused_stats_pooling": phase_stats_pooling(torch)}
+    torch.cuda.empty_cache()
+    paths = [phase_served(torch, smi)]
+    torch.cuda.empty_cache()
+    paths.append(phase_served_resnet(torch, smi))
+    for kernel_name, k in kernels.items():
+        k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)

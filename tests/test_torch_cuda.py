@@ -9,14 +9,29 @@ tests/conftest.py imports it, so run them as:
 Tolerances: log-mel 1e-3 and pooling 2e-4 (f32): both sides sum the same
 products in f32, in another order. Pooling 2e-2 with bf16 inputs: both
 sides round the attention hidden h to bf16, and another summation order
-can move a value across a bf16 rounding boundary.
+can move a value across a bf16 rounding boundary. Res2 chain 1e-4 (f32)
+and 2e-2 (bf16: one bf16 ulp where a sum in another order crosses a
+rounding boundary, which the next stages carry on; bf16 at h = 16, 32, 64,
+128 runs the tensor-core kernel, everything else the CUDA-core one). Statistics pooling
+rtol 1e-4 / atol 1e-5, for f32 and bf16 inputs alike (both sides read the
+same values and sum in f32).
 """
 
 import pytest
 import torch
 
 from asv_subtools_tpu_torch.features import FbankOptions, FrameOptions, MelOptions, fused_fbank, fused_fbank_plain
-from asv_subtools_tpu_torch.nn import fused_attentive_stats_pool, fused_attentive_stats_pool_plain
+from asv_subtools_tpu_torch.models import Res2NetBlock
+from asv_subtools_tpu_torch.nn import (
+    StatisticsPooling,
+    fused_attentive_stats_pool,
+    fused_attentive_stats_pool_plain,
+    fused_res2_chain,
+    fused_res2_chain_plain,
+    fused_stats_pooling,
+    fused_stats_pooling_plain,
+)
+from asv_subtools_tpu_torch.weights import init_weights_
 
 pytestmark = pytest.mark.cuda
 
@@ -115,3 +130,145 @@ def test_att_pooling_kernel_raises_on_mixed_types(card):
     args, _ = _pool_inputs(card, 1, 10, 128, 64, torch.float32, None)
     with pytest.raises(ValueError):
         fused_attentive_stats_pool(args[0].bfloat16(), *args[1:])
+
+
+def _chain_inputs(card, b, t, h, dtype, seed=0, n=7):
+    g = torch.Generator(device=card).manual_seed(seed)
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g, device=card) * scale
+    x = r(b, t, (n + 1) * h).to(dtype)
+    w = r(n, 3, h, h, scale=(3 * h) ** -0.5).to(dtype)
+    return x, w, r(n, h, scale=0.1), 1.0 + r(n, h, scale=0.1), r(n, h, scale=0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,dilation,n", [
+    (3, 197, 16, 4, 7),     # ragged: two tiles, h below a warp
+    (2, 200, 128, 2, 7),    # the ECAPA width
+    (2, 64, 128, 4, 7),
+    (1, 1500, 64, 3, 7),    # T above the TPU kernel's limit: 11 tiles
+    (2, 5, 32, 4, 7),       # T shorter than the dilation's reach
+    (2, 300, 40, 1, 3),     # another scale, h not a multiple of 32
+    (2, 170, 8, 12, 7),     # a wide halo: tiles of 48 frames
+    (1, 120, 128, 14, 7),   # the widest halo the tile plan takes: the most shared memory
+])
+def test_res2_chain_kernel_matches_plain(card, dtype, b, t, h, dilation, n):
+    args = _chain_inputs(card, b, t, h, dtype, n=n)
+    before = fused_res2_chain.launches
+    out = fused_res2_chain(*args, dilation=dilation)
+    ref = fused_res2_chain_plain(*args, dilation=dilation)
+    torch.cuda.synchronize()
+    assert fused_res2_chain.launches == before + 1
+    on_tensor_cores = dtype == torch.bfloat16 and h in (16, 32, 64, 128)
+    assert fused_res2_chain.last_route == ("tensor_core" if on_tensor_cores else "cuda_core")
+    assert out.shape == ref.shape and out.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert float((out.float() - ref.float()).abs().mean()) < 1e-3
+
+
+def test_res2_chain_kernel_row_padding_isolated(card):
+    """Frames past T read as zero at every stage: 16 more frames appended
+    leave the head unchanged (tests/test_pallas_res2.py:54-67)."""
+    args = _chain_inputs(card, 1, 197, 128, torch.float32, seed=1)
+    more = torch.randn((1, 16, 1024), generator=torch.Generator(device=card).manual_seed(2), device=card)
+    full = fused_res2_chain(*args, dilation=4)
+    full2 = fused_res2_chain(torch.cat([args[0], more], dim=1), *args[1:], dilation=4)
+    torch.testing.assert_close(full[:, :150], full2[:, :150], atol=1e-6, rtol=0)
+
+
+def test_res2_chain_kernel_takes_the_models_layout(card):
+    """The model hands over a [B, T, C] view of [B, C, T] memory and gets
+    the same layout back."""
+    args = _chain_inputs(card, 2, 100, 32, torch.float32)
+    x_ct = args[0].transpose(1, 2).contiguous()
+    out = fused_res2_chain(x_ct.transpose(1, 2), *args[1:], dilation=2)
+    ref = fused_res2_chain(*args, dilation=2)
+    assert out.stride() == x_ct.transpose(1, 2).stride()
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.06)])
+def test_res2net_block_fused_matches_unfused(card, dtype, tol):
+    block = init_weights_(Res2NetBlock(256, dilation=3), 0)
+    g = torch.Generator().manual_seed(1)
+    for blk in block.blocks:
+        blk.act_bn.bn.mean.copy_(torch.randn(32, generator=g) * 0.1)
+        blk.act_bn.bn.var.copy_(torch.rand(32, generator=g) * 1.5 + 0.5)
+        blk.affine.conv.bias.data.copy_(torch.randn(32, generator=g) * 0.1)
+    block = block.to(device=card, dtype=dtype).eval()
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.randn((2, 256, 300), generator=torch.Generator(device=card).manual_seed(3), device=card).to(dtype)
+    with torch.inference_mode():
+        off = block(x)
+        block.fused_inference = True
+        on = block(x)
+    assert on.shape == off.shape and float((on.float() - off.float()).abs().max()) <= tol
+
+
+def test_res2_chain_kernel_raises_on_what_it_does_not_take(card):
+    args = _chain_inputs(card, 1, 50, 16, torch.float32)
+    with pytest.raises(ValueError):
+        fused_res2_chain(args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError):
+        fused_res2_chain(*args, dilation=15)
+    with pytest.raises(ValueError):
+        fused_res2_chain(*_chain_inputs(card, 1, 20, 160, torch.float32))
+    with pytest.raises(ValueError):
+        fused_res2_chain(args[0].double(), args[1].double(), *args[2:])
+
+
+def _lengths_mask(card, b, t, lengths):
+    if lengths is None:
+        return None
+    return torch.arange(t, device=card)[None, :] < torch.tensor(lengths, device=card)[:, None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d,lengths", [
+    (3, 700, 200, (700, 350, 100)),
+    (3, 65, 30, (65, 32, 9)),          # D not a multiple of the vector: scalar loads
+    (2, 300, 64, None),
+    (16, 125, 2560, tuple(range(18, 126, 7))),
+    (4, 1000, 1536, (1000, 900, 143, 1)),   # T split across blocks
+    (2, 64, 8, (64, 0)),               # a row without valid frames
+    (1, 5000, 8, (4321,)),
+])
+def test_stats_pooling_kernel_matches_plain(card, dtype, b, t, d, lengths):
+    g = torch.Generator(device=card).manual_seed(0)
+    x = (torch.randn((b, t, d), generator=g, device=card) + 0.5).to(dtype)
+    mask = _lengths_mask(card, b, t, lengths)
+    before = fused_stats_pooling.launches
+    out = fused_stats_pooling(x, mask)
+    ref = fused_stats_pooling_plain(x, mask)
+    torch.cuda.synchronize()
+    assert fused_stats_pooling.launches == before + 1
+    assert out.shape == (b, 2 * d) and out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-4)
+
+
+def test_stats_pooling_kernel_matches_two_pass_at_a_shifted_mean(card):
+    x = torch.randn((4, 1000, 256), generator=torch.Generator(device=card).manual_seed(1), device=card) + 10.0
+    mask = _lengths_mask(card, 4, 1000, (1000, 600, 300, 40))
+    ref = StatisticsPooling()(x.double(), mask).float()
+    torch.testing.assert_close(fused_stats_pooling(x, mask), ref, atol=1e-5, rtol=0)
+
+
+def test_stats_pooling_kernel_takes_strided_views(card):
+    """A [B, T, F*C] view of channels-last maps (16-byte loads), and a
+    view whose strides force scalar loads, against a packed copy."""
+    g = torch.Generator(device=card).manual_seed(2)
+    maps = torch.randn((3, 32, 40, 5), generator=g, device=card).contiguous(memory_format=torch.channels_last)
+    x = maps.permute(0, 2, 3, 1).reshape(3, 40, 160)
+    assert x.data_ptr() == maps.data_ptr()
+    torch.testing.assert_close(fused_stats_pooling(x), fused_stats_pooling(x.clone()), atol=0, rtol=0)
+    wide = torch.randn((2, 50, 70), generator=g, device=card)
+    view = wide[:, :, 3:67]
+    torch.testing.assert_close(fused_stats_pooling(view), fused_stats_pooling_plain(view.contiguous()),
+                               atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(fused_stats_pooling(wide.transpose(1, 2)),
+                               fused_stats_pooling_plain(wide.transpose(1, 2).contiguous()), atol=1e-5, rtol=1e-4)
+
+
+def test_stats_pooling_kernel_raises_on_other_types(card):
+    with pytest.raises(ValueError):
+        fused_stats_pooling(torch.zeros((1, 4, 8), dtype=torch.float16, device=card))

@@ -188,6 +188,26 @@ def test_batchnorm_matches_jax():
     np.testing.assert_allclose(got.transpose(1, 2).numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
+def test_batchnorm_on_4d_maps_matches_jax():
+    """The eval BN broadcasts over [B, C, T, F] maps (features on dim 1);
+    the JAX module takes them channels-last."""
+    x = np.random.default_rng(8).normal(size=(2, 9, 7, 6)).astype(np.float32) * 3  # [B, T, F, C]
+    jm = JaxBatchNorm()
+    v = _variables(jm, x, train=False)
+    port = BatchNorm(6)
+    load_ecapa_variables(port, v)
+    ref = np.asarray(jm.apply(v, jnp.asarray(x), train=False))
+    maps = torch.from_numpy(x).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        for xt in (maps.contiguous(), maps.contiguous(memory_format=torch.channels_last)):
+            got = port(xt)
+            assert got.stride() == xt.stride()  # the memory format is kept
+            np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref, atol=1e-5, rtol=1e-5)
+        got16 = port(maps.bfloat16())
+    assert got16.dtype == torch.bfloat16
+    np.testing.assert_allclose(got16.float().permute(0, 2, 3, 1).numpy(), ref, atol=0.05, rtol=0.02)
+
+
 def test_res2net_block_matches_jax():
     x = np.random.default_rng(6).normal(size=(2, 50, 64)).astype(np.float32)
     got, ref = _layer_case(JaxRes2Net(64, dilation=3), Res2NetBlock(64, dilation=3), x, train=False)

@@ -29,13 +29,14 @@ from asv_subtools_tpu.io.wav import write_wav
 from asv_subtools_tpu.models.ecapa import EcapaTdnn as JaxEcapa
 from asv_subtools_tpu.models.framework import chunk_utterance as jax_chunk_utterance
 from asv_subtools_tpu.models.framework import l2_norm as jax_l2_norm
+from asv_subtools_tpu.models.resnet_xvector import ResNetXvector as JaxResNetXvector
 from asv_subtools_tpu_torch import extract as tex
 from asv_subtools_tpu_torch.backend import compute_eer, cosine_score_matrix
 from asv_subtools_tpu_torch.device import resolve_device
 from asv_subtools_tpu_torch.features import FbankOptions
 from asv_subtools_tpu_torch.io import read_wav
-from asv_subtools_tpu_torch.models import EcapaTdnn, chunk_utterance, l2_norm
-from asv_subtools_tpu_torch.weights import load_ecapa_variables
+from asv_subtools_tpu_torch.models import EcapaTdnn, ResNetXvector, chunk_utterance, l2_norm
+from asv_subtools_tpu_torch.weights import load_ecapa_variables, load_variables
 
 torch.set_num_threads(2)
 
@@ -78,6 +79,42 @@ def test_extractor_matches_jax(extracted):
     assert set(got) == set(ref) == {f"u{i}" for i in range(len(LENGTHS))}
     for key in ref:
         a, b = got[key], np.asarray(ref[key])
+        cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+        assert cos >= 0.9999, (key, cos)
+
+
+RESNET_SMALL = dict(layers=(1, 1, 1, 1), base_planes=8, embd_dim=16)
+
+
+@pytest.fixture(scope="module")
+def extracted_resnet():
+    """End to end: the same wavs and weights through the JAX
+    Extractor and the port's, with the ResNet x-vector behind
+    make_wave_embed_fn, the pooling unfused and fused."""
+    waves = _waves(2)
+    jm = JaxResNetXvector(**RESNET_SMALL)
+    v = jm.init({"params": jax.random.PRNGKey(1)}, jnp.ones((1, 50, 23)), mask=jnp.ones((1, 50), bool), train=False)
+    v = jax.tree_util.tree_map(np.array, v)
+    rng = np.random.default_rng(2)
+    bn = v["batch_stats"]["head"]["fc2_bn"]
+    bn["mean"] = rng.normal(size=bn["mean"].shape).astype(np.float32) * 0.1
+    jax_embed = jex.make_wave_embed_fn(lambda x, m: jm.apply(v, x, mask=m, train=False), JaxFbankOptions())
+    ref = jex.Extractor(jax_embed, jex.ExtractConfig(**CONFIG)).extract_all(iter(waves))
+    got = {}
+    for fused in (False, True):
+        port = ResNetXvector(23, device="cpu", pooling_params={"fused_inference": fused}, **RESNET_SMALL)
+        load_variables(port, v)
+        embed = tex.make_wave_embed_fn(lambda x, m: port(x, m), FbankOptions())
+        got[fused] = tex.Extractor(embed, tex.ExtractConfig(**CONFIG), device="cpu").extract_all(iter(waves))
+    return ref, got
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_resnet_extractor_matches_jax(extracted_resnet, fused):
+    ref, got = extracted_resnet
+    assert set(got[fused]) == set(ref) == {f"u{i}" for i in range(len(LENGTHS))}
+    for key in ref:
+        a, b = got[fused][key], np.asarray(ref[key])
         cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
         assert cos >= 0.9999, (key, cos)
 
@@ -186,6 +223,8 @@ def test_entry_points_raise_without_cuda():
         resolve_device("cuda")
     with pytest.raises(RuntimeError):
         EcapaTdnn(input_dim=23, **SMALL)
+    with pytest.raises(RuntimeError):
+        ResNetXvector(23, **RESNET_SMALL)
     with pytest.raises(RuntimeError):
         tex.Extractor(lambda x, m: x)
     assert resolve_device("cpu") == torch.device("cpu")

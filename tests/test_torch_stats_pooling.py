@@ -1,0 +1,208 @@
+"""Port statistics pooling (kernel K4's plain version, and the port's
+StatisticsPooling fused and unfused) against the JAX Pallas
+`fused_stats_pooling` (interpret mode) and the JAX modules.
+
+Inputs are made with numpy from a seed. Tolerances: rtol 1e-4, atol 1e-5
+(tests/test_pallas_pooling.py:23), f32 sums in another order.
+
+The shifted-mean case states what the one-pass variance costs: at mean 10,
+std 1, T = 1000 in f32 the JAX kernel's E[x^2] - mean^2 is 2.2e-5 off the
+two-pass StatisticsPooling (max abs, measured on the CPU), and the port's
+version, which sums x - x[:, 0], 2.9e-6.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from asv_subtools_tpu.nn.pallas_pooling import fused_stats_pooling as jax_fused
+from asv_subtools_tpu.nn.pooling import POOLINGS as JAX_POOLINGS
+from asv_subtools_tpu.nn.pooling import FreeStatisticsPooling as JaxFreePool
+from asv_subtools_tpu.nn.pooling import StatisticsPooling as JaxPool
+from asv_subtools_tpu_torch.nn import (
+    POOLINGS,
+    FreeStatisticsPooling,
+    StatisticsPooling,
+    fused_stats_pooling,
+    fused_stats_pooling_plain,
+)
+from asv_subtools_tpu_torch.nn.fused_stats_pooling import _t_splits
+
+torch.set_num_threads(2)
+
+SHAPES = [(700, 200), (512, 128), (65, 30), (1500, 80)]  # tests/test_pallas_pooling.py:13
+
+
+def _inputs(t, d, seed=0, loc=0.0):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(3, t, d)) + loc).astype(np.float32)
+    lengths = np.asarray([t, max(1, t // 2), max(1, t // 7)])
+    return x, np.arange(t)[None, :] < lengths[:, None]
+
+
+def _jax_module(mod, x, mask):
+    return np.asarray(mod.apply({}, jnp.asarray(x), mask=None if mask is None else jnp.asarray(mask)))
+
+
+def _port(path, x, mask):
+    xt = torch.from_numpy(x)
+    m = None if mask is None else torch.from_numpy(mask)
+    with torch.inference_mode():
+        if path == "plain":
+            return fused_stats_pooling_plain(xt, m).numpy()
+        if path == "wrapper":
+            return fused_stats_pooling(xt, m).numpy()
+        return StatisticsPooling(fused_inference=path == "fused")(xt, m).numpy()
+
+
+PATHS = ["plain", "wrapper", "fused", "unfused"]
+
+
+@pytest.mark.parametrize("path", PATHS)
+@pytest.mark.parametrize("t,d", SHAPES)
+def test_matches_jax_kernel(t, d, path):
+    x, mask = _inputs(t, d)
+    ref = np.asarray(jax_fused(jnp.asarray(x), jnp.asarray(mask), interpret=True))
+    np.testing.assert_allclose(_port(path, x, mask), ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("path", PATHS)
+@pytest.mark.parametrize("t,d", SHAPES)
+def test_matches_jax_module(t, d, path):
+    x, mask = _inputs(t, d, seed=1)
+    np.testing.assert_allclose(_port(path, x, mask), _jax_module(JaxPool(), x, mask),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_no_mask(path):
+    x = np.random.default_rng(1).normal(size=(2, 300, 64)).astype(np.float32)
+    ref = np.asarray(jax_fused(jnp.asarray(x), interpret=True))
+    got = _port(path, x, None)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got[:, :64], x.mean(axis=1), rtol=1e-5, atol=1e-5)
+
+
+def test_shifted_mean_deviation_from_two_pass():
+    """mean 10, std 1: the one-pass E[x^2] - mean^2 loses digits in f32;
+    summing x - x[:, 0] keeps them."""
+    x, mask = _inputs(1000, 64, seed=2, loc=10.0)
+    two_pass = _jax_module(JaxPool(), x, mask)
+    exact = np.concatenate([
+        np.stack([x[i, m].astype(np.float64).mean(0) for i, m in enumerate(mask)]),
+        np.stack([x[i, m].astype(np.float64).std(0) for i, m in enumerate(mask)])], axis=-1)
+    dev_jax_kernel = np.abs(np.asarray(jax_fused(jnp.asarray(x), jnp.asarray(mask), interpret=True)) - two_pass).max()
+    dev_port = np.abs(_port("plain", x, mask) - two_pass).max()
+    assert np.abs(two_pass - exact).max() < 5e-6
+    assert dev_port < 5e-6, dev_port          # measured 2.9e-6
+    assert dev_jax_kernel < 2e-4, dev_jax_kernel  # measured 2.2e-5: the cancellation
+    assert dev_port <= dev_jax_kernel
+    np.testing.assert_allclose(_port("plain", x, mask), exact, rtol=0, atol=5e-6)
+
+
+@pytest.mark.parametrize("kw", [dict(stddev=False), dict(unbiased=True), dict(eps=1e-3),
+                                dict(stddev=True, unbiased=True, eps=1e-6)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_module_options_match_jax(kw, masked):
+    x, mask = _inputs(120, 24, seed=3)
+    x[2] *= 1e-3  # a small-variance row, so eps matters
+    m = mask if masked else None
+    with torch.inference_mode():
+        got = StatisticsPooling(**kw)(torch.from_numpy(x), None if m is None else torch.from_numpy(m)).numpy()
+    np.testing.assert_allclose(got, _jax_module(JaxPool(**kw), x, m), rtol=1e-5, atol=1e-6)
+
+
+def test_free_statistics_pooling_ignores_the_mask():
+    x, mask = _inputs(90, 16, seed=4)
+    with torch.inference_mode():
+        got = FreeStatisticsPooling()(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, _jax_module(JaxFreePool(), x, mask), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, _jax_module(JaxPool(), x, None), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("path", ["plain", "fused"])
+def test_bf16_input_is_read_in_its_own_type_and_summed_in_f32(path):
+    x, mask = _inputs(400, 48, seed=5)
+    xb = torch.from_numpy(x).bfloat16()
+    m = torch.from_numpy(mask)
+    ref = _jax_module(JaxPool(), xb.float().numpy(), mask)
+    with torch.inference_mode():
+        if path == "plain":
+            got = fused_stats_pooling_plain(xb, m)
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
+        else:
+            got = StatisticsPooling(fused_inference=True)(xb, m)
+            assert got.dtype == torch.bfloat16  # the module casts to x's type
+            np.testing.assert_allclose(got.float().numpy(), ref, rtol=1e-2, atol=1e-2)  # one bf16 rounding
+
+
+def test_row_without_valid_frames_gives_zero_mean_and_floor_std():
+    x, _ = _inputs(64, 8, seed=6, loc=3.0)
+    mask = np.zeros((3, 64), bool)
+    mask[0] = True
+    got = _port("plain", x, mask)
+    ref = np.asarray(jax_fused(jnp.asarray(x), jnp.asarray(mask), interpret=True))
+    np.testing.assert_allclose(got[1:], np.tile(np.r_[np.zeros(8), np.full(8, 1e-5)], (2, 1)), atol=1e-9)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
+
+
+def test_masked_frames_may_hold_anything():
+    x, mask = _inputs(50, 8, seed=7)
+    ref = _port("plain", x, mask)
+    x[~mask] = np.inf
+    np.testing.assert_array_equal(_port("plain", x, mask), ref)
+
+
+def test_takes_a_strided_view():
+    """The ResNet trunk hands over a [B, T, F*C] view of channels-last maps."""
+    maps = torch.from_numpy(np.random.default_rng(8).normal(size=(2, 6, 30, 5)).astype(np.float32))
+    maps = maps.contiguous(memory_format=torch.channels_last)  # [B, C, T, F]
+    x = maps.permute(0, 2, 3, 1).reshape(2, 30, 30)
+    assert x.data_ptr() == maps.data_ptr()
+    np.testing.assert_allclose(fused_stats_pooling(x).numpy(),
+                               fused_stats_pooling_plain(x.contiguous().clone()).numpy(), atol=0)
+
+
+@pytest.mark.parametrize("name", sorted(set(JAX_POOLINGS) - {"statistics", "free-statistics"}))
+def test_queued_poolings_raise_by_name(name):
+    assert name in POOLINGS
+    with pytest.raises(NotImplementedError, match=name):
+        POOLINGS[name]()
+
+
+def test_pooling_table_has_the_jax_names():
+    assert set(POOLINGS) == set(JAX_POOLINGS)
+    assert POOLINGS["statistics"] is StatisticsPooling
+    assert POOLINGS["free-statistics"] is FreeStatisticsPooling
+
+
+@pytest.mark.parametrize("kw", [dict(stddev=False), dict(unbiased=True)])
+def test_fused_inference_takes_mean_and_biased_std_only(kw):
+    with pytest.raises(ValueError):
+        StatisticsPooling(fused_inference=True, **kw)(torch.zeros(1, 4, 2))
+
+
+def test_fused_inference_is_off_by_default():
+    assert StatisticsPooling().fused_inference is False
+
+
+def test_wrapper_checks_shapes():
+    with pytest.raises(ValueError):
+        fused_stats_pooling(torch.zeros(4, 8))
+    with pytest.raises(ValueError):
+        fused_stats_pooling(torch.zeros(2, 0, 8))
+    with pytest.raises(ValueError):
+        fused_stats_pooling(torch.zeros(2, 5, 8), torch.ones(2, 4, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("b,t,d,vec,want", [
+    (128, 125, 2560, 8, 1),    # the served ResNet34 batch: 1280 blocks without a split
+    (64, 1000, 1536, 8, 3),    # long T, few (row, D tile) pairs
+    (1, 1000, 256, 8, 31),     # one row: at least 32 frames a span
+    (3, 20, 64, 4, 1),         # T below 32 is never split
+])
+def test_time_split_plan(b, t, d, vec, want):
+    assert _t_splits(b, t, d, vec) == want

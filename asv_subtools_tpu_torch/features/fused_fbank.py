@@ -15,8 +15,17 @@ tile choice are layout devices of that chip and have no counterpart here.
 and the folded matrix to bf16 and sums their products in f32, as the TPU
 kernel does; the plain version reproduces the same rounding points.
 
+Two kernels share the source. The bf16 mode runs on the tensor cores
+(``mma.sync``) when the frame shift is a multiple of 8 samples (so that a
+frame's row starts on a 16-byte boundary of the bf16 span) and the tile's
+shared memory fits; it reads the folded matrix from a second constant,
+:func:`mma_matrix_index`'s reordering of the same bf16 values. The f32
+mode, and bf16 with another frame shift, run the CUDA-core kernel, which
+takes a shift that is a multiple of 4. ``fused_fbank.last_route`` says
+which kernel the last launch ran.
+
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -32,11 +41,15 @@ from ..kernels import _build
 from .config import EPSILON, FbankOptions
 from .functional import check_extraction_options, dft_matrices, feature_window, mel_banks
 
-_CHUNK = 16  # folded-matrix rows per shared-memory chunk in csrc/fbank.cu
+_CHUNK = 16      # folded-matrix rows per shared-memory chunk of the CUDA-core kernel in csrc/fbank.cu
+_MMA_CHUNK = 32  # rows per ring stage of the tensor-core kernel (kKC there)
 _SIGNATURES = {
     "asv_fbank_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_size_t),
     "asv_fbank_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
                          ctypes.c_int),
+    "asv_fbank_mma_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_size_t),
+    "asv_fbank_mma_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
+                             ctypes.c_int),
 }
 
 
@@ -71,6 +84,35 @@ def folded_dft(opts: FbankOptions) -> np.ndarray:
     return eff
 
 
+def interleaved_columns(keep: int) -> np.ndarray:
+    """Column order of the tensor-core kernel's matrix: column 2c is cos of
+    bin c and column 2c + 1 sin of bin c (columns c and keep + c of
+    [cos | sin]), so one accumulator fragment holds re and im of a bin."""
+    n = np.arange(2 * keep)
+    return np.where(n % 2 == 0, n // 2, keep + n // 2)
+
+
+def mma_matrix_index(rows: int, keep: int = 256) -> np.ndarray:
+    """The folded matrix as the tensor-core kernel reads it: for each
+    element of [rows/16 k-steps][8 warps][4 quarters][32 lanes][4 registers]
+    [2 halves], the flat index ``k * 2 * keep + column`` into [cos | sin].
+
+    A warp owns 64 interleaved columns, 8 tiles of 8. Lane ``4 g + tg`` of a
+    ``mma.sync.m16n8k16`` holds of a B tile the column ``g`` and the rows
+    ``2 tg, 2 tg + 1`` (register 0) and ``2 tg + 8, 2 tg + 9`` (register 1);
+    quarter ``j4`` packs both registers of the tiles ``2 j4`` and
+    ``2 j4 + 1`` into the 16 bytes a lane loads at once. A chunk of 32 rows
+    is then 32 KB of contiguous memory."""
+    if rows % 16 or 2 * keep != 512:
+        raise ValueError(f"the tensor-core layout takes rows in 16s and 512 columns, got {rows} x {2 * keep}")
+    kst, w, j4, lane, r, h = np.meshgrid(np.arange(rows // 16), np.arange(8), np.arange(4),
+                                         np.arange(32), np.arange(4), np.arange(2), indexing="ij")
+    g, tg = lane >> 2, lane & 3
+    k = 16 * kst + 2 * tg + h + 8 * (r & 1)
+    n = 64 * w + 8 * (2 * j4 + (r >> 1)) + g
+    return (k * 2 * keep + interleaved_columns(keep)[n]).ravel()
+
+
 @functools.lru_cache(maxsize=None)
 def mel_bands(opts: FbankOptions) -> Tuple[np.ndarray, np.ndarray]:
     """Each mel filter's band of non-zero weights: meta [nb, 3] int32 =
@@ -95,6 +137,18 @@ def _constants(opts: FbankOptions, dft_bf16: bool, device: torch.device):
     mel = torch.as_tensor(mel_banks(opts.mel_opts, opts.frame_opts), device=device)
     return (eff, torch.as_tensor(meta, device=device),
             torch.as_tensor(weights, device=device), mel)
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_matrix(opts: FbankOptions, device: torch.device) -> torch.Tensor:
+    """The bf16 folded matrix in the tensor-core kernel's order, rows padded
+    with zeros to a multiple of 32."""
+    eff = folded_dft(opts)
+    rows = -(-opts.frame_opts.window_size // _MMA_CHUNK) * _MMA_CHUNK
+    padded = np.zeros((rows, eff.shape[1]), np.float32)
+    padded[:eff.shape[0]] = eff  # folded_dft pads to 16 rows, never past 32
+    flat = torch.as_tensor(padded, device=device).to(torch.bfloat16).reshape(-1)
+    return flat[torch.as_tensor(mma_matrix_index(rows, eff.shape[1] // 2), device=device)].contiguous()
 
 
 def _num_frames(wave: torch.Tensor, opts: FbankOptions) -> int:
@@ -151,29 +205,48 @@ def _launch_kernel(wave, opts, bf16, with_energy, t):
     if keep != 256:
         raise ValueError(
             f"the fbank kernel takes a padded window of 512 samples, got {fo.padded_window_size}")
-    if fo.window_shift % 4:
-        raise ValueError(f"the fbank kernel needs a frame shift that is a multiple of 4, got {fo.window_shift}")
     if wave.dtype != torch.float32:
         raise ValueError(f"wave must be float32, got {wave.dtype}")
     wave = wave.contiguous()
-    eff, meta, weights, _ = _constants(opts, bf16, wave.device)
-    nb = opts.mel_opts.num_bins
+    dev = wave.device
+    eff, meta, weights, _ = _constants(opts, bf16, dev)
+    nb, nnz = opts.mel_opts.num_bins, weights.numel()
     lib = _build.load("fbank", _SIGNATURES)
-    smem = lib.asv_fbank_smem_bytes(fo.window_shift, eff.shape[0], nb, weights.numel())
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"frame geometry needs {smem} bytes of shared memory, above {_build.SMEM_LIMIT}")
-    out = torch.empty((b, t, nb), dtype=torch.float32, device=wave.device)
-    energy = torch.empty((b, t), dtype=torch.float32, device=wave.device) if with_energy else None
-    with torch.cuda.device(wave.device):
-        code = lib.asv_fbank_launch(
-            wave.data_ptr(), eff.data_ptr(), meta.data_ptr(), weights.data_ptr(),
-            out.data_ptr(), energy.data_ptr() if with_energy else None,
-            b, s, t, fo.window_shift, fo.window_size, eff.shape[0], nb, weights.numel(),
-            int(opts.use_power), int(opts.use_log_fbank), int(fo.remove_dc_offset), int(bf16),
-            torch.cuda.current_stream(wave.device).cuda_stream,
-        )
+    out = torch.empty((b, t, nb), dtype=torch.float32, device=dev)
+    energy = torch.empty((b, t), dtype=torch.float32, device=dev) if with_energy else None
+    tail = (out.data_ptr(), energy.data_ptr() if with_energy else None)
+    flags = (int(opts.use_power), int(opts.use_log_fbank), int(fo.remove_dc_offset))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    window_pad = -(-fo.window_size // _MMA_CHUNK) * _MMA_CHUNK
+    if (bf16 and fo.window_shift % 8 == 0
+            and lib.asv_fbank_mma_smem_bytes(fo.window_shift, window_pad, nb, nnz) <= _build.SMEM_LIMIT):
+        # rows of the waveform start on 16-byte boundaries: the kernel brings
+        # a tile's samples in with one bulk copy
+        if s % 4:
+            wave = torch.nn.functional.pad(wave, (0, -s % 4))
+        elif wave.data_ptr() % 16:
+            wave = wave.clone()
+        with torch.cuda.device(dev):
+            code = lib.asv_fbank_mma_launch(
+                wave.data_ptr(), _mma_matrix(opts, dev).data_ptr(), meta.data_ptr(), weights.data_ptr(),
+                *tail, b, wave.shape[1], t, fo.window_shift, fo.window_size, window_pad, nb, nnz,
+                *flags, _build.sm_count(dev), stream)
+        route = "tensor_core"
+    else:
+        if fo.window_shift % 4:
+            raise ValueError(f"the fbank kernel needs a frame shift that is a multiple of 4, got {fo.window_shift}")
+        smem = lib.asv_fbank_smem_bytes(fo.window_shift, eff.shape[0], nb, nnz)
+        if smem > _build.SMEM_LIMIT:
+            raise ValueError(f"frame geometry needs {smem} bytes of shared memory, above {_build.SMEM_LIMIT}")
+        with torch.cuda.device(dev):
+            code = lib.asv_fbank_launch(
+                wave.data_ptr(), eff.data_ptr(), meta.data_ptr(), weights.data_ptr(), *tail,
+                b, s, t, fo.window_shift, fo.window_size, eff.shape[0], nb, nnz, *flags, int(bf16), stream)
+        route = "cuda_core"
     _build.check(lib, code, "fbank kernel")
     fused_fbank.launches += 1
+    fused_fbank.last_route = route
     return out, energy
 
 
@@ -187,7 +260,9 @@ def fused_fbank(
 
     dither=0, snip_edges=True semantics; raises otherwise. On a CPU tensor
     this is :func:`fused_fbank_plain`; on a CUDA tensor it launches
-    csrc/fbank.cu. ``fused_fbank.launches`` counts kernel launches.
+    csrc/fbank.cu. ``fused_fbank.launches`` counts kernel launches and
+    ``fused_fbank.last_route`` names the last one's kernel ("tensor_core"
+    or "cuda_core").
     """
     if wave.device.type == "cpu":
         return fused_fbank_plain(wave, opts, dft_dtype, with_energy)
@@ -197,3 +272,4 @@ def fused_fbank(
 
 
 fused_fbank.launches = 0
+fused_fbank.last_route = None

@@ -3,9 +3,10 @@
 Each source ``asv_subtools_tpu_torch/csrc/<name>.cu`` has a plain C
 interface. It is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``asv_subtools_tpu_torch/build/lib<name>.so`` (listed in ``.gitignore``)
-and loaded with ``ctypes``. A library is rebuilt when its source is newer
-than it. Every launch function returns ``cudaGetLastError()``; the
-wrappers pass it to :func:`check`, which raises if it is not 0.
+and loaded with ``ctypes``. A library is rebuilt when its source, or a
+shared header (``csrc/*.cuh``), is newer than it. Every launch function
+returns ``cudaGetLastError()``; the wrappers pass it to :func:`check`,
+which raises if it is not 0.
 
 Nothing here runs at import: the CPU tests import every module, and a
 CPU-only install has no ``nvcc``.
@@ -50,8 +51,10 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """A library is stale when its source, or any shared header, is newer."""
     lib = _lib_path(name)
-    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return not lib.exists() or lib.stat().st_mtime < max(f.stat().st_mtime for f in sources)
 
 
 def build(names: Sequence[str] = SOURCES) -> float:
@@ -98,6 +101,14 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _libs[name] = lib
     return lib
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device: the persistent kernels
+    size their grids by it."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -6,9 +6,12 @@ Phases (any failure raises and the script exits non-zero):
   1. device and build: the card's name and power limit; the four CUDA
      kernels built from asv_subtools_tpu_torch/csrc with nvcc, one process
      per source, all started together.
-  2. K1 fused fbank against its plain version on the card: f32 and bf16 DFT
-     at [128, 160000] with 80 bins, a ragged [3, 20480] batch with 23 bins
-     (and the log-energy); kernel and plain times.
+  2. K1 fused fbank against its plain version on the card: the f32 DFT (the
+     CUDA-core kernel) and the bf16 DFT (the tensor-core kernel) at
+     [128, 160000] with 80 bins, a ragged [3, 20480] batch with 23 bins and
+     the log-energy through both, a bf16 batch whose length is not a
+     multiple of 4 samples, and a frame shift the tensor-core kernel hands
+     to the CUDA-core one; kernel and plain times.
   3. K2 fused attentive pooling against its plain version and the unfused
      module at x [128, 998, 1536] (bf16 and f32, lengths 200..998), and a
      case whose logits exceed 80 against the unfused path; times.
@@ -18,7 +21,10 @@ Phases (any failure raises and the script exits non-zero):
      frames past T do not leak into valid ones; times.
   5. K4 fused statistics pooling against its plain version and the unfused
      StatisticsPooling at [128, 125, 2560] and [64, 1000, 1536] (bf16 and
-     f32, lengths T/7..T, and without a mask); times, and torch.std_mean's.
+     f32, lengths T/7..T, and without a mask), and a mask that is not a
+     prefix, whose frame 0 is masked and holds inf; times of the ring kernel,
+     the direct kernel, the plain version and torch.std_mean on three
+     clocks (see "Clocks" below).
   6. the served path at full width: ECAPA-TDNN C1024 (seeded random
      weights, bf16) behind make_wave_embed_fn on one [128, 160000] batch,
      timed, and its embeddings held against the same model fed by the plain
@@ -38,6 +44,19 @@ Phases (any failure raises and the script exits non-zero):
      (6 and 7) drives the port and read just after; every kernel of a path
      must have been launched in it.
   8. a "kernels" JSON line, then the device JSON as the last line.
+
+Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
+line) is device time over many launches back to back: one CUDA event, N
+calls, one event, divided by N; the median of five such runs after
+warm-up, in plain / kernel / kernel / plain turns. The inputs are larger
+than the 50 MB L2 (K1's wave and K4's x at [128, 125, 2560] are 82 MB, K4's
+x at [64, 1000, 1536] 197 MB, K2's and K3's x 392 and 262 MB), so calls
+that follow each other still read from device memory. Back to back is not
+enough where the host takes longer to enqueue a call than the card takes
+to run it: for K4 and torch.std_mean (tens of microseconds) the kernels'
+own durations are also read from torch.profiler, summed per call; that is
+the kernels line's time for K4, and the per-call time (events around one
+call on an idle card: what a lone caller waits) is printed beside it.
 
 f32 comparisons run in true f32: this script sets
 torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
@@ -59,6 +78,9 @@ SEED = 0
 BATCH, SAMPLES = 128, 160000  # bench.py:196-198: B=128 x 10 s at 16 kHz
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # H100 SXM dense; f32 outside the tensor cores
+# the __global__ functions of asv_subtools_tpu_torch/csrc, as the profiler's kernel names hold them
+OWN_KERNELS = ("fbank_kernel", "fbank_mma_kernel", "stats_kernel", "stats_ring_kernel", "combine_kernel",
+               "res2_kernel", "res2_mma_kernel", "glob_kernel", "attend_kernel")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -67,7 +89,8 @@ def check(cond: bool, msg: str) -> None:
 
 
 def median_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median of per-call CUDA-event times after warm-up."""
+    """Median of per-call CUDA-event times after warm-up: what one caller
+    waits on an idle card, the host's enqueue included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -82,11 +105,45 @@ def median_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
     return float(np.median(times))
 
 
-def turns_ms(torch, run_plain, run_kernel, **kw):
-    """(plain, kernel) times, the best of two turns in the order plain,
-    kernel, kernel, plain."""
-    p1, k1, k2, p2 = (median_ms(torch, f, **kw) for f in (run_plain, run_kernel, run_kernel, run_plain))
+def device_ms(torch, fn, n: int, warmup: int = 3, runs: int = 5) -> float:
+    """ms per call over n calls back to back between two CUDA events: the
+    median of `runs` such runs after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return float(np.median(times))
+
+
+def turns_ms(torch, run_plain, run_kernel, n: int):
+    """(plain, kernel) back-to-back device times, the best of two turns in
+    the order plain, kernel, kernel, plain."""
+    p1, k1, k2, p2 = (device_ms(torch, f, n) for f in (run_plain, run_kernel, run_kernel, run_plain))
     return min(p1, p2), min(k1, k2)
+
+
+def profiled_ms(torch, fn, n: int = 20):
+    """ms per call of the kernels' own device durations, summed over n
+    calls under torch.profiler; None if the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return total_us / 1e3 / n if total_us > 0 else None
 
 
 def max_abs(a, b) -> float:
@@ -123,53 +180,75 @@ def phase_device(torch):
 
 
 def phase_fbank(torch):
-    from asv_subtools_tpu_torch.features import FbankOptions, MelOptions, fused_fbank, fused_fbank_plain
+    from asv_subtools_tpu_torch.features import (FbankOptions, FrameOptions, MelOptions, fused_fbank,
+                                                 fused_fbank_plain)
+    from asv_subtools_tpu_torch.features.fused_fbank import folded_dft, mel_bands
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     opts80 = FbankOptions(mel_opts=MelOptions(num_bins=80))
     wave = torch.randn((BATCH, SAMPLES), generator=gen, device=dev) * 1000.0
-    # tolerance: both sides sum the same f32 (or bf16-rounded) products in
-    # f32, in another order; log-mel values move by ~1e-5
+    # tolerance: both sides multiply the same f32 (or bf16-rounded) values
+    # and sum in f32, in another order (the tensor cores also align the
+    # products of a k-step before adding them); log-mel values move by ~1e-5
     tol = 1e-3
+    routes = {"f32": "cuda_core", "bf16": "tensor_core"}
+    dtypes = (("f32", torch.float32), ("bf16", torch.bfloat16))
     errs = {}
-    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    for label, dt in dtypes:
         k, _ = fused_fbank(wave, opts80, dft_dtype=dt, with_energy=False)
+        check(fused_fbank.last_route == routes[label], f"K1 {label} ran the {fused_fbank.last_route} kernel")
         p, _ = fused_fbank_plain(wave, opts80, dft_dtype=dt, with_energy=False)
         torch.cuda.synchronize()
         check(k.shape == (BATCH, 998, 80), f"fbank shape {tuple(k.shape)}")
         errs[label] = max_abs(k, p)
-        print(f"K1 fbank {label} [128,160000]x80: max abs err {errs[label]:.3e} (tol {tol})", flush=True)
+        print(f"K1 fbank {label} ({routes[label]}) [128,160000]x80: max abs err {errs[label]:.3e} (tol {tol})",
+              flush=True)
         check(errs[label] <= tol, f"K1 {label} disagrees with its plain version")
+    # ragged: T = 126 (a tile edge inside a row, the last tile of 62 frames),
+    # 23 bins, with the log-energy, through both kernels; then a length that
+    # is not a multiple of 4 samples, and a frame shift of 124 samples, which
+    # the tensor-core kernel hands to the CUDA-core one
     ragged = torch.randn((3, 20480), generator=gen, device=dev) * 1000.0
-    k, ke = fused_fbank(ragged, FbankOptions(), dft_dtype=torch.float32, with_energy=True)
-    p, pe = fused_fbank_plain(ragged, FbankOptions(), dft_dtype=torch.float32, with_energy=True)
-    e1, e2 = max_abs(k, p), max_abs(ke, pe)
-    print(f"K1 fbank f32 [3,20480]x23: max abs err {e1:.3e}, log-energy {e2:.3e} (tol {tol})", flush=True)
     t_ragged = FbankOptions().frame_opts.num_frames(20480)
-    check(k.shape == (3, t_ragged, 23) and e1 <= tol and e2 <= tol, "K1 ragged case disagrees")
+    for label, dt in dtypes:
+        k, ke = fused_fbank(ragged, FbankOptions(), dft_dtype=dt, with_energy=True)
+        check(fused_fbank.last_route == routes[label], f"K1 ragged {label} ran the {fused_fbank.last_route} kernel")
+        p, pe = fused_fbank_plain(ragged, FbankOptions(), dft_dtype=dt, with_energy=True)
+        e1, e2 = max_abs(k, p), max_abs(ke, pe)
+        print(f"K1 fbank {label} [3,20480]x23 ({t_ragged} frames): max abs err {e1:.3e}, log-energy {e2:.3e} "
+              f"(tol {tol})", flush=True)
+        check(k.shape == (3, t_ragged, 23) and e1 <= tol and e2 <= tol, f"K1 ragged {label} case disagrees")
+    odd = torch.randn((2, 48077), generator=gen, device=dev) * 1000.0
+    shift124 = FbankOptions(frame_opts=FrameOptions(frame_shift_ms=7.75), mel_opts=MelOptions(num_bins=40))
+    for what, w, o, route in (("[2,48077]x80", odd, opts80, "tensor_core"),
+                              ("[3,20480]x40 shift 124", ragged, shift124, "cuda_core")):
+        k, _ = fused_fbank(w, o, dft_dtype=torch.bfloat16, with_energy=False)
+        check(fused_fbank.last_route == route, f"K1 bf16 {what} ran the {fused_fbank.last_route} kernel")
+        p, _ = fused_fbank_plain(w, o, dft_dtype=torch.bfloat16, with_energy=False)
+        e = max_abs(k, p)
+        print(f"K1 fbank bf16 {what} ({route}): max abs err {e:.3e} (tol {tol})", flush=True)
+        check(k.shape == p.shape and e <= tol, f"K1 bf16 {what} disagrees")
 
     run_k = lambda: fused_fbank(wave, opts80, dft_dtype=torch.bfloat16, with_energy=False)
     run_p = lambda: fused_fbank_plain(wave, opts80, dft_dtype=torch.bfloat16, with_energy=False)
-    ms_p1, ms_k1, ms_k2, ms_p2 = (median_ms(torch, f) for f in (run_p, run_k, run_k, run_p))
-    from asv_subtools_tpu_torch.features.fused_fbank import folded_dft, mel_bands
-
+    ms_p, ms_k = turns_ms(torch, run_p, run_k, n=10)
+    ms_f32 = device_ms(torch, lambda: fused_fbank(wave, opts80, dft_dtype=torch.float32, with_energy=False), n=5)
     fo = opts80.frame_opts
     t = fo.num_frames(SAMPLES)
     nnz = mel_bands(opts80)[1].size
     flops = 2.0 * BATCH * t * (fo.window_size * 2 * (fo.padded_window_size // 2) + nnz)
     nbytes = 4 * wave.numel() + 4 * BATCH * t * 80 + 2 * folded_dft(opts80).size
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bf16"]) * 1e3
-    print(f"K1 bf16 times (ms): plain {ms_p1:.3f} kernel {ms_k1:.3f} kernel {ms_k2:.3f} plain {ms_p2:.3f}; "
-          f"bound {bound:.4f} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+    bound, by = bound_ms(nbytes, flops)
+    print(f"K1 bf16 times (ms, 10 launches back to back): tensor-core kernel {ms_k:.4f} plain {ms_p:.4f}; "
+          f"the f32 CUDA-core kernel {ms_f32:.4f}; bound {bound:.4f} by {by} ({flops / 1e9:.1f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB)", flush=True)
     return {
         "name": "fused_fbank", "route": "cuda",
         "source": "asv_subtools_tpu_torch/csrc/fbank.cu",
         "replaces": "asv_subtools_tpu/features/pallas_fbank.py:228",
-        "max_abs_err": errs["bf16"], "ms": min(ms_k1, ms_k2), "plain_ms": min(ms_p1, ms_p2),
-        "bound_ms": bound,
-        "bound_by": "operations" if flops / PEAK_FLOPS["bf16"] > nbytes / HBM_BYTES_PER_S else "bytes",
-        "library_ms": None,
+        "max_abs_err": errs["bf16"], "ms": ms_k, "plain_ms": ms_p,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
     }
 
 
@@ -247,21 +326,19 @@ def phase_att_pooling(torch):
         args = _pool_args(mod, xb)
         run_k = lambda: fused_attentive_stats_pool(*args, mask=full)
         run_p = lambda: fused_attentive_stats_pool_plain(*args, mask=full)
-        ms_p1, ms_k1, ms_k2, ms_p2 = (median_ms(torch, f) for f in (run_p, run_k, run_k, run_p))
+        ms_p, ms_k = turns_ms(torch, run_p, run_k, n=5)
     kk = args[1].shape[1]
     flops = 2.0 * 2 * b * t * c * kk
     nbytes = 2 * xb.numel() + 2 * 4 * c * kk + b * t + 4 * 2 * b * c  # x, 4 weights, mask, f32 out
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bf16"]) * 1e3
-    print(f"K2 bf16 times (ms): plain {ms_p1:.3f} kernel {ms_k1:.3f} kernel {ms_k2:.3f} plain {ms_p2:.3f}; "
-          f"bound {bound:.4f} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+    bound, by = bound_ms(nbytes, flops)
+    print(f"K2 bf16 times (ms, 5 launches back to back): kernel {ms_k:.3f} plain {ms_p:.3f}; "
+          f"bound {bound:.4f} by {by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
     return {
         "name": "fused_attentive_stats_pool", "route": "cuda",
         "source": "asv_subtools_tpu_torch/csrc/att_pooling.cu",
         "replaces": "asv_subtools_tpu/nn/pallas_att_pooling.py:132",
-        "max_abs_err": errs["bf16"], "ms": min(ms_k1, ms_k2), "plain_ms": min(ms_p1, ms_p2),
-        "bound_ms": bound,
-        "bound_by": "operations" if flops / PEAK_FLOPS["bf16"] > nbytes / HBM_BYTES_PER_S else "bytes",
-        "library_ms": None,
+        "max_abs_err": errs["bf16"], "ms": ms_k, "plain_ms": ms_p,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
     }
 
 
@@ -323,12 +400,12 @@ def phase_res2(torch):
             # bf16 times at this dilation: block, x_ct, x, args are the bf16 ones
             run_k = lambda: fused_res2_chain(x, *args, dilation=d)
             run_p = lambda: fused_res2_chain_plain(x, *args, dilation=d)
-            ms_p, ms_k = turns_ms(torch, run_p, run_k, iters=10)
-            ms_u = median_ms(torch, lambda: block(x_ct), iters=10)
+            ms_p, ms_k = turns_ms(torch, run_p, run_k, n=5)
+            ms_u = device_ms(torch, lambda: block(x_ct), n=5)
             block.fused_inference = True
-            ms_m = median_ms(torch, lambda: block(x_ct), iters=10)
+            ms_m = device_ms(torch, lambda: block(x_ct), n=5)
             times[d] = (ms_k, ms_p, ms_u, ms_m)
-            print(f"K3 bf16 dilation {d} times (ms): kernel {ms_k:.3f} plain {ms_p:.3f} "
+            print(f"K3 bf16 dilation {d} times (ms, 5 launches back to back): kernel {ms_k:.3f} plain {ms_p:.3f} "
                   f"unfused Res2NetBlock {ms_u:.3f} Res2NetBlock with the flag on {ms_m:.3f}", flush=True)
         w_numel = args[0].numel()
 
@@ -365,6 +442,7 @@ def phase_res2(torch):
 
 def phase_stats_pooling(torch):
     from asv_subtools_tpu_torch.nn import StatisticsPooling, fused_stats_pooling, fused_stats_pooling_plain
+    from asv_subtools_tpu_torch.nn.fused_stats_pooling import _launch_kernel
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -384,6 +462,7 @@ def phase_stats_pooling(torch):
                 x = x32.to(dt)
                 for m, what in ((mask, f"lengths {int(lengths[0])}..{t}"), (None, "no mask")):
                     k = fused_stats_pooling(x, m)
+                    check(fused_stats_pooling.last_route == "ring", "K4 left the ring kernel at a served shape")
                     p = fused_stats_pooling_plain(x, m)
                     u = pool(x, m)
                     torch.cuda.synchronize()
@@ -396,36 +475,64 @@ def phase_stats_pooling(torch):
                     check(ok, f"K4 {label} disagrees with the unfused module")
                     if (b, label) == (BATCH, "bf16") and m is not None:
                         err_main = e
-            # bf16 times with a full mask; torch.std_mean and the eps floor
-            # compute the same function there
+            # a mask that is not a prefix; frame 0 is masked and, like every
+            # masked frame, holds inf (x is the bf16 one)
+            holes = torch.rand((b, t), generator=gen, device=dev) > 0.4
+            holes[:, 0] = False
+            xi = torch.where(holes[..., None], x, float("inf"))
+            p = fused_stats_pooling_plain(xi, holes)
+            for route in ("ring", "direct"):
+                k = _launch_kernel(xi, holes, 1e-10, route=route)
+                e = max_abs(k, p)
+                print(f"K4 {route} kernel bf16 [{b},{t},{d}], mask with holes, masked frames inf: "
+                      f"max abs err vs plain {e:.3e}", flush=True)
+                check(bool(torch.isfinite(k).all()) and close(torch, k, p, atol, rtol),
+                      f"K4 {route} kernel disagrees on a mask with holes")
+
+            # bf16 times with a full bool mask; torch.std_mean and the eps
+            # floor compute the same function there. Three clocks each.
             full = torch.ones((b, t), dtype=torch.bool, device=dev)
-            run_k = lambda: fused_stats_pooling(x, full)
-            run_p = lambda: fused_stats_pooling_plain(x, full)
 
             def run_lib():
                 std, mean = torch.std_mean(x, dim=1, correction=0)
                 return mean, torch.clamp_min(std, 1e-5)
 
-            ms_p, ms_k = turns_ms(torch, run_p, run_k)
-            ms_l = median_ms(torch, run_lib)
+            runs = {"kernel": lambda: fused_stats_pooling(x, full),
+                    "direct": lambda: _launch_kernel(x, full, 1e-10, route="direct"),
+                    "plain": lambda: fused_stats_pooling_plain(x, full),
+                    "library": run_lib}
+            ms_p, ms_k = turns_ms(torch, runs["plain"], runs["kernel"], n=50)
+            back = {"kernel": ms_k, "plain": ms_p, "direct": device_ms(torch, runs["direct"], n=50),
+                    "library": device_ms(torch, runs["library"], n=50)}
+            lone = {name: median_ms(torch, fn) for name, fn in runs.items()}
+            prof = {name: profiled_ms(torch, fn) for name, fn in runs.items()}
             nbytes = x.element_size() * x.numel() + b * t + 4 * 2 * b * d  # x, mask, f32 out
             bound, by = bound_ms(nbytes, 4.0 * b * t * d, peak="f32")
-            results[(b, t, d)] = (ms_k, ms_p, ms_l, bound, by)
-            print(f"K4 bf16 [{b},{t},{d}] times (ms): kernel {ms_k:.4f} plain {ms_p:.4f} torch.std_mean {ms_l:.4f}; "
-                  f"bound {bound:.4f} by {by} ({nbytes / 1e6:.1f} MB)", flush=True)
-    ms_k, ms_p, ms_l, bound, by = results[(BATCH, 125, 2560)]
+            fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+            for name, what in (("kernel", "ring kernel"), ("direct", "direct kernel"),
+                               ("library", "torch.std_mean"), ("plain", "plain version")):
+                print(f"K4 bf16 [{b},{t},{d}] {what} (ms): kernels' device durations {fmt(prof[name])}, "
+                      f"50 launches back to back {back[name]:.4f}, one call on an idle card {lone[name]:.4f}",
+                      flush=True)
+            print(f"K4 bf16 [{b},{t},{d}] bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB)", flush=True)
+            # the kernel's time is its device duration; back to back where
+            # the profiler saw nothing
+            results[(b, t, d)] = {name: prof[name] if prof[name] is not None else back[name] for name in runs}
+            results[(b, t, d)].update(bound=bound, by=by)
+    r = results[(BATCH, 125, 2560)]
     return {
         "name": "fused_stats_pooling", "route": "cuda",
         "source": "asv_subtools_tpu_torch/csrc/stats_pooling.cu",
         "replaces": "asv_subtools_tpu/nn/pallas_pooling.py:52",
-        "max_abs_err": err_main, "ms": ms_k, "plain_ms": ms_p,
-        "bound_ms": bound, "bound_by": by, "library_ms": ms_l,
+        "max_abs_err": err_main, "ms": r["kernel"], "plain_ms": r["plain"],
+        "bound_ms": r["bound"], "bound_by": r["by"], "library_ms": r["library"],
     }
 
 
 def profile_served_batch(torch, run, top: int = 12) -> None:
-    """One served batch under torch.profiler: device time by kernel, and
-    the device's idle share of the batch's wall time."""
+    """One served batch under torch.profiler: device time by kernel (the
+    `top` longest and every kernel of the port), and the device's idle
+    share of the batch's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -449,8 +556,10 @@ def profile_served_batch(torch, run, top: int = 12) -> None:
     print(f"profile of one served batch: wall {wall_ms:.2f} ms (profiled), kernels {busy_ms:.2f} ms "
           f"in {sum(n for _, n in kernels.values())} launches, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}",
           flush=True)
-    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)[:top]:
-        print(f"  {ms:8.3f} ms {ms / busy_ms:6.1%} x{n:<4d} {name[:100]}", flush=True)
+    ranked = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)
+    for rank, (name, (ms, n)) in enumerate(ranked):  # the longest, and the port's own wherever they rank
+        if rank < top or any(own in name for own in OWN_KERNELS):
+            print(f"  {ms:8.3f} ms {ms / busy_ms:6.1%} x{n:<4d} {name[:100]}", flush=True)
 
 
 def _plain_embed(torch, model, opts, dft_dtype, dtype):
@@ -702,8 +811,8 @@ def main() -> int:
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{k: v[k] for k in order} for v in kernels.values()]}))
     print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                              "count": torch.cuda.device_count()}}))
+    # the run used one card, whatever the host holds
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
     return 0
 
 

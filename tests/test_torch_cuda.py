@@ -7,7 +7,9 @@ tests/conftest.py imports it, so run them as:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: log-mel 1e-3 and pooling 2e-4 (f32): both sides sum the same
-products in f32, in another order. Pooling 2e-2 with bf16 inputs: both
+products in f32, in another order (the bf16 DFT runs on the tensor cores
+when the frame shift is a multiple of 8 samples, else on the CUDA cores
+like the f32 DFT). Pooling 2e-2 with bf16 inputs: both
 sides round the attention hidden h to bf16, and another summation order
 can move a value across a bf16 rounding boundary. Res2 chain 1e-4 (f32)
 and 2e-2 (bf16: one bf16 ulp where a sum in another order crosses a
@@ -51,6 +53,10 @@ def card():
     ((1, 32000), 40, 30.0, 15.0),
     ((2, 32000), 23, 32.0, 10.0),
     ((1, 400), 23, 25.0, 10.0),
+    ((2, 400 + 160 * 64), 80, 25.0, 10.0),   # 65 frames: one frame past a tile edge
+    ((3, 400 + 160 * 127), 23, 25.5, 10.0),  # 127 frames; a 408-sample window in 416 matrix rows
+    ((2, 12001), 40, 30.0, 7.5),             # shift 120: no spare pieces in the span; odd length
+    ((2, 16000), 23, 25.0, 7.75),            # shift 124: not a multiple of 8, the CUDA-core kernel in bf16 too
 ])
 def test_fbank_kernel_matches_plain(card, dft_dtype, shape, num_bins, length_ms, shift_ms):
     opts = FbankOptions(frame_opts=FrameOptions(frame_length_ms=length_ms, frame_shift_ms=shift_ms),
@@ -62,18 +68,21 @@ def test_fbank_kernel_matches_plain(card, dft_dtype, shape, num_bins, length_ms,
     p, pe = fused_fbank_plain(wave, opts, dft_dtype=dft_dtype)
     torch.cuda.synchronize()
     assert fused_fbank.launches == before + 1
+    on_tensor_cores = dft_dtype == torch.bfloat16 and opts.frame_opts.window_shift % 8 == 0
+    assert fused_fbank.last_route == ("tensor_core" if on_tensor_cores else "cuda_core")
     assert k.shape == p.shape == (shape[0], opts.frame_opts.num_frames(shape[1]), num_bins)
     torch.testing.assert_close(k, p, atol=1e-3, rtol=0)
     torch.testing.assert_close(ke, pe, atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("dft_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kw", [dict(use_power=False), dict(use_log_fbank=False),
                                 dict(frame_opts=FrameOptions(remove_dc_offset=False))])
-def test_fbank_kernel_options(card, kw):
+def test_fbank_kernel_options(card, kw, dft_dtype):
     opts = FbankOptions(**kw)
     wave = torch.randn((2, 8000), generator=torch.Generator(device=card).manual_seed(1), device=card) * 1000
-    k, ke = fused_fbank(wave, opts)
-    p, pe = fused_fbank_plain(wave, opts)
+    k, ke = fused_fbank(wave, opts, dft_dtype=dft_dtype)
+    p, pe = fused_fbank_plain(wave, opts, dft_dtype=dft_dtype)
     torch.testing.assert_close(k, p, atol=1e-3, rtol=1e-5)
     torch.testing.assert_close(ke, pe, atol=1e-3, rtol=0)
 
@@ -82,6 +91,9 @@ def test_fbank_kernel_raises_on_unsupported_geometry(card):
     wave = torch.zeros((1, 16000), device=card)
     with pytest.raises(ValueError):  # padded window 1024
         fused_fbank(wave, FbankOptions(frame_opts=FrameOptions(frame_length_ms=40.0)))
+    for dft_dtype in (torch.float32, torch.bfloat16):  # shift 125: neither kernel takes it
+        with pytest.raises(ValueError):
+            fused_fbank(wave, FbankOptions(frame_opts=FrameOptions(frame_shift_ms=7.8125)), dft_dtype=dft_dtype)
     with pytest.raises(ValueError):
         fused_fbank(wave.double())
 
@@ -232,6 +244,8 @@ def _lengths_mask(card, b, t, lengths):
     (4, 1000, 1536, (1000, 900, 143, 1)),   # T split across blocks
     (2, 64, 8, (64, 0)),               # a row without valid frames
     (1, 5000, 8, (4321,)),
+    (2, 1, 16, (1, 0)),                # T = 1
+    (3, 1, 30, None),
 ])
 def test_stats_pooling_kernel_matches_plain(card, dtype, b, t, d, lengths):
     g = torch.Generator(device=card).manual_seed(0)
@@ -242,8 +256,40 @@ def test_stats_pooling_kernel_matches_plain(card, dtype, b, t, d, lengths):
     ref = fused_stats_pooling_plain(x, mask)
     torch.cuda.synchronize()
     assert fused_stats_pooling.launches == before + 1
+    assert fused_stats_pooling.last_route == ("ring" if d % (16 // x.element_size()) == 0 else "direct")
     assert out.shape == (b, 2 * d) and out.dtype == torch.float32
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d", [(4, 125, 256), (3, 700, 200), (2, 300, 30), (2, 2000, 64)])
+def test_stats_pooling_kernel_takes_a_mask_with_holes(card, dtype, b, t, d):
+    """Not a prefix; frame 0 is masked and, like every masked frame, holds
+    inf. Both kernels where the input is aligned for the ring."""
+    from asv_subtools_tpu_torch.nn.fused_stats_pooling import _launch_kernel
+
+    g = torch.Generator(device=card).manual_seed(3)
+    mask = torch.rand((b, t), generator=g, device=card) > 0.4
+    mask[:, 0] = False
+    mask[-1, : t // 2] = False  # the first spans of the last row are empty
+    x = (torch.randn((b, t, d), generator=g, device=card) + 2.0).to(dtype)
+    x = torch.where(mask[..., None], x, float("inf"))
+    ref = fused_stats_pooling_plain(x, mask)
+    out = fused_stats_pooling(x, mask)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-4)
+    if fused_stats_pooling.last_route == "ring":
+        torch.testing.assert_close(_launch_kernel(x, mask, 1e-10, route="direct"), ref, atol=1e-5, rtol=1e-4)
+        assert fused_stats_pooling.last_route == "direct"
+
+
+def test_stats_pooling_kernel_takes_other_mask_types(card):
+    g = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn((3, 90, 64), generator=g, device=card)
+    mask = torch.rand((3, 90), generator=g, device=card) > 0.3
+    ref = fused_stats_pooling(x, mask)
+    for other in (mask.float() * 0.5, mask.to(torch.int64) * 3, mask.to(torch.uint8), mask.cpu()):
+        torch.testing.assert_close(fused_stats_pooling(x, other), ref, atol=0, rtol=0)
 
 
 def test_stats_pooling_kernel_matches_two_pass_at_a_shifted_mean(card):

@@ -122,3 +122,118 @@ def test_rejects_dither_and_short_waves():
         tf.fused_fbank(torch.zeros(1, 399))
     with pytest.raises(ValueError):
         tf.fused_fbank(torch.zeros(16000))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernel's plan (csrc/fbank.cu, fbank_mma_kernel), walked in
+# numpy: what the kernel does with addresses and fragments, on the CPU.
+
+from asv_subtools_tpu_torch.features.fused_fbank import (  # noqa: E402
+    _mma_matrix,
+    interleaved_columns,
+    mel_bands,
+    mma_matrix_index,
+)
+
+
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def _walk_tensor_core_plan(wave, opts):
+    """Tiles of 64 frames (the last ragged); frames as strided views of the
+    bf16 span, held in 16-byte pieces with a spare piece after every shift/8
+    when that is even; the matrix in fragment order, in ring chunks of 32
+    rows; re and im from neighbouring accumulator columns; mel over bands."""
+    fo = opts.frame_opts
+    shift, window = fo.window_shift, fo.window_size
+    assert shift % 8 == 0
+    n_b, n_s = wave.shape
+    t = fo.num_frames(n_s)
+    rows = -(-window // 32) * 32
+    matrix = _mma_matrix(opts, torch.device("cpu")).float().numpy()
+    p = shift // 8
+    pad = 0 if p % 2 else 1
+    n_span = 63 * shift + rows
+    pieces = n_span // 8
+    meta, weights = mel_bands(opts)
+    lane = np.arange(32)
+    g, tg = lane >> 2, lane & 3
+    # B tile [16 k, 8 n] from a lane's two registers of two halves
+    breg, half = np.meshgrid(np.arange(2), np.arange(2), indexing="ij")
+    kk = 2 * tg[:, None, None] + half[None] + 8 * breg[None]
+    nn = np.broadcast_to(g[:, None, None], kk.shape)
+    out = np.zeros((n_b, t, opts.mel_opts.num_bins), np.float32)
+    for b in range(n_b):
+        for t0 in range(0, t, 64):
+            start = t0 * shift
+            avail = min(n_span, n_s - start)
+            samples = np.zeros(n_span, np.float32)
+            samples[:avail] = wave[b, start:start + avail]
+            j = np.arange(pieces)
+            span = np.full((pieces + (pieces // p + 1) * pad, 8), np.nan, np.float32)  # spare pieces are never read
+            span[j + (j // p) * pad] = _bf16(samples).reshape(pieces, 8)
+            acc = np.zeros((64, 512), np.float32)
+            frames = np.arange(64)
+            for c in range(rows // 32):
+                chunk = matrix[c * 16384:(c + 1) * 16384].reshape(2, 8, 4, 32, 4, 2)
+                for ks in range(2):
+                    a = np.concatenate([span[frames * (p + pad) + kp + (kp // p) * pad]
+                                        for kp in (4 * c + 2 * ks, 4 * c + 2 * ks + 1)], axis=1)  # [64, 16]
+                    for w in range(8):
+                        for jt in range(8):
+                            tile = np.zeros((16, 8), np.float32)
+                            tile[kk, nn] = chunk[ks, w, jt // 2, :, 2 * (jt % 2):2 * (jt % 2) + 2, :]
+                            acc[:, 64 * w + 8 * jt:64 * w + 8 * jt + 8] += a @ tile
+            assert np.isfinite(acc).all()
+            re, im = acc[:, 0::2], acc[:, 1::2]  # a fragment holds columns 2 tg and 2 tg + 1
+            power = re * re + im * im
+            n_valid = min(64, t - t0)
+            for m, (lo, cnt, off) in enumerate(meta):
+                band = power[:n_valid, lo:lo + cnt] @ weights[off:off + cnt]
+                out[b, t0:t0 + n_valid, m] = np.log(np.maximum(band, np.float32(tf.EPSILON)))
+    return out
+
+
+@pytest.mark.parametrize("num_samples,num_bins,length_ms,shift_ms", [
+    (20480, 23, 25.0, 10.0),   # 126 frames: a full tile and a ragged one; shift/8 = 20, spare pieces
+    (10640, 80, 25.5, 10.0),   # 65 frames; a 408-sample window in 416 rows
+    (12001, 40, 30.0, 7.5),    # shift/8 = 15: no spare piece; a length that is not a multiple of 4
+])
+def test_tensor_core_plan_matches_plain(num_samples, num_bins, length_ms, shift_ms):
+    wave = _wave(num_samples, (2, num_samples))
+    opts = _opts(tf, num_bins, length_ms, shift_ms)
+    ref, _ = fused_fbank_plain(torch.from_numpy(wave), opts, dft_dtype=torch.bfloat16, with_energy=False)
+    got = _walk_tensor_core_plan(wave, opts)
+    np.testing.assert_allclose(got, ref.numpy(), atol=2e-5, rtol=1e-5)
+
+
+def test_interleaved_columns_pair_cos_and_sin_of_a_bin():
+    perm = interleaved_columns(256)
+    assert sorted(perm) == list(range(512))
+    c = np.arange(256)
+    np.testing.assert_array_equal(perm[2 * c], c)
+    np.testing.assert_array_equal(perm[2 * c + 1], 256 + c)
+
+
+@pytest.mark.parametrize("rows", [416, 480, 512])
+def test_fragment_order_is_a_permutation_in_contiguous_chunks(rows):
+    idx = mma_matrix_index(rows)
+    np.testing.assert_array_equal(np.sort(idx), np.arange(rows * 512))
+    k = (idx // 512).reshape(rows // 32, -1)  # a ring stage: 32 rows, 32 KB of bf16
+    assert k.shape[1] * 2 == 32768
+    assert (k.min(axis=1) == 32 * np.arange(rows // 32)).all() and (k.max(axis=1) == k.min(axis=1) + 31).all()
+    with pytest.raises(ValueError):
+        mma_matrix_index(408)
+
+
+def test_tensor_core_matrix_holds_the_plain_versions_values():
+    opts = _opts(tf, 23, 25.5, 10.0)  # 408-sample window: 416 rows, the last 8 zero
+    flat = _mma_matrix(opts, torch.device("cpu"))
+    assert flat.dtype == torch.bfloat16 and flat.shape == (416 * 512,)
+    restored = np.zeros(416 * 512, np.float32)
+    restored[mma_matrix_index(416)] = flat.float().numpy()
+    restored = restored.reshape(416, 512)
+    np.testing.assert_array_equal(restored[:408], _bf16(folded_dft(opts)[:408]))
+    assert not restored[408:].any()
+    assert _mma_matrix(tf.FbankOptions(), torch.device("cpu")).shape == (416 * 512,)  # 400 -> 416 rows

@@ -206,3 +206,128 @@ def test_wrapper_checks_shapes():
 ])
 def test_time_split_plan(b, t, d, vec, want):
     assert _t_splits(b, t, d, vec) == want
+
+
+# ---------------------------------------------------------------------------
+# The ring kernel's plan and the wrapper's mask handling, on the CPU.
+
+from asv_subtools_tpu_torch.nn.fused_stats_pooling import _direct_plan, _mask_bytes, _ring_plan  # noqa: E402
+
+RING_BLOCKS = 2 * 132  # two persistent blocks for each SM of an H100
+
+
+def _walk_ring_items(b, t, d, vec, blocks):
+    """csrc/stats_pooling.cu, stats_ring_kernel: block k takes items k,
+    k + grid, ...; an item is (pair, split), a pair (row, D tile); a span
+    goes through the ring in stages of 32 rows. Yields (block, row, D tile,
+    first frame, frames) per stage."""
+    splits, span_rows = _ring_plan(b, t, d, vec, blocks)
+    assert span_rows % 32 == 0 and (splits - 1) * span_rows < t <= splits * span_rows
+    d_tiles = -(-d // (32 * vec))
+    items = b * d_tiles * splits
+    grid = min(items, blocks)
+    for block in range(grid):
+        for item in range(block, items, grid):
+            pair, split = divmod(item, splits)
+            row, d_tile = divmod(pair, d_tiles)
+            tbeg = split * span_rows
+            tend = min(t, tbeg + span_rows)
+            for t0 in range(tbeg, tend, 32):
+                yield block, row, d_tile, t0, min(32, tend - t0)
+
+
+@pytest.mark.parametrize("b,t,d,vec,want_splits", [
+    (128, 125, 2560, 8, 1),   # the served ResNet34 batch: 1280 items on 264 blocks
+    (64, 1000, 1536, 8, 3),   # long T, few (row, D tile) pairs: spans of 11 stages
+    (3, 197, 200, 4, 7),      # ragged: the last stage of 5 frames, the last D tile of 72 features
+    (2, 1, 16, 8, 1),         # T = 1
+])
+def test_ring_plan_covers_every_stage_once(b, t, d, vec, want_splits):
+    assert _ring_plan(b, t, d, vec, RING_BLOCKS)[0] == want_splits
+    seen = {}
+    load = {}
+    for block, row, d_tile, t0, n in _walk_ring_items(b, t, d, vec, RING_BLOCKS):
+        assert t0 % 32 == 0 and 0 < n <= 32 and (row, d_tile, t0) not in seen
+        seen[(row, d_tile, t0)] = n
+        load[block] = load.get(block, 0) + 1
+    d_tiles = -(-d // (32 * vec))
+    assert set(seen) == {(r, dt, t0) for r in range(b) for dt in range(d_tiles) for t0 in range(0, t, 32)}
+    assert sum(n for (r, dt, _), n in seen.items() if (r, dt) == (b - 1, d_tiles - 1)) == t
+    assert max(load.values()) - min(load.values()) <= -(-t // 32)  # blocks differ by one item at most
+
+
+@pytest.mark.parametrize("b,t,d,vec", [(1, 5000, 8, 4), (64, 1000, 1536, 8), (3, 20, 64, 4), (1, 1000, 256, 1)])
+def test_direct_plan_has_no_empty_span(b, t, d, vec):
+    splits, span_rows = _direct_plan(b, t, d, vec)
+    assert splits <= _t_splits(b, t, d, vec) and (splits - 1) * span_rows < t <= splits * span_rows
+
+
+def test_spans_merge_to_the_plain_result():
+    """The merge kernel's arithmetic: each span's sums about its own first
+    valid frame, merged as (count, mean, M2) pairs."""
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=(2, 200, 6)) + 10.0).astype(np.float32)
+    mask = rng.random((2, 200)) > 0.3
+    mask[0, :70] = False  # the first span of row 0 is empty, the second starts masked
+    ref = _port("plain", x, mask)
+    got = np.zeros_like(ref)
+    for row in range(2):
+        n, mean, m2 = np.float32(0), np.zeros(6, np.float32), np.zeros(6, np.float32)
+        for tbeg in range(0, 200, 64):
+            xs, ms = x[row, tbeg:tbeg + 64], mask[row, tbeg:tbeg + 64]
+            ns = np.float32(ms.sum())
+            if ns == 0:
+                continue
+            delta = xs[ms] - xs[ms][0]
+            a1, a2 = delta.sum(0, dtype=np.float32), (delta * delta).sum(0, dtype=np.float32)
+            mean_s, m2_s = xs[ms][0] + a1 / ns, a2 - a1 * a1 / ns
+            tot, dm = n + ns, mean_s - mean
+            mean, m2, n = mean + dm * (ns / tot), m2 + m2_s + dm * dm * (n * ns / tot), tot
+        got[row] = np.r_[mean, np.sqrt(np.maximum(m2 / max(n, 1), 1e-10))]
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
+
+
+def test_bool_mask_reaches_the_kernel_without_a_copy():
+    dev = torch.device("cpu")
+    mask = torch.from_numpy(_inputs(40, 4)[1])
+    as_bytes = _mask_bytes(mask, dev)
+    assert as_bytes.dtype == torch.uint8 and as_bytes.data_ptr() == mask.data_ptr()
+    u8 = mask.to(torch.uint8)
+    assert _mask_bytes(u8, dev).data_ptr() == u8.data_ptr()
+    assert _mask_bytes(None, dev) is None
+
+
+@pytest.mark.parametrize("make", [lambda m: m.float() * 0.5, lambda m: m.to(torch.int64) * 3,
+                                  lambda m: m.t().contiguous().t()], ids=["float", "int64", "strided-bool"])
+def test_other_masks_are_converted_to_one_byte_a_frame(make):
+    mask = torch.from_numpy(_inputs(40, 4)[1])
+    other = make(mask)
+    as_bytes = _mask_bytes(other, torch.device("cpu"))
+    assert as_bytes.dtype == torch.uint8 and as_bytes.is_contiguous()
+    assert as_bytes.data_ptr() != other.data_ptr()
+    np.testing.assert_array_equal(as_bytes.numpy() != 0, mask.numpy())  # any non-zero value is valid
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_holes_in_the_mask_with_frame_0_masked_and_inf(path):
+    """The shift is the row's first valid frame: an inf in a masked frame
+    0 reaches nothing."""
+    x, _ = _inputs(50, 8, seed=9, loc=2.0)
+    mask = np.random.default_rng(9).random((3, 50)) > 0.4
+    mask[:, 0] = False
+    ref = np.concatenate([np.stack([x[i, m].astype(np.float64).mean(0) for i, m in enumerate(mask)]),
+                          np.stack([x[i, m].astype(np.float64).std(0) for i, m in enumerate(mask)])], axis=-1)
+    x[~mask] = np.inf
+    tol = dict(rtol=1e-4, atol=1e-5)
+    if path == "unfused":  # the two-pass module multiplies by the mask: it needs finite frames
+        x[~mask] = 1e6
+    np.testing.assert_allclose(_port(path, x, mask), ref, **tol)
+
+
+@pytest.mark.parametrize("path", ["plain", "wrapper", "fused"])
+def test_a_single_frame(path):
+    x = np.random.default_rng(10).normal(size=(2, 1, 8)).astype(np.float32)
+    mask = np.asarray([[True], [False]])
+    got = _port(path, x, mask)
+    np.testing.assert_allclose(got[0], np.r_[x[0, 0], np.full(8, 1e-5)], atol=1e-7)
+    np.testing.assert_allclose(got[1], np.r_[np.zeros(8), np.full(8, 1e-5)], atol=1e-9)

@@ -13,8 +13,12 @@ Phases (any failure raises and the script exits non-zero):
      multiple of 4 samples, and a frame shift the tensor-core kernel hands
      to the CUDA-core one; kernel and plain times.
   3. K2 fused attentive pooling against its plain version and the unfused
-     module at x [128, 998, 1536] (bf16 and f32, lengths 200..998), and a
-     case whose logits exceed 80 against the unfused path; times.
+     module at x [128, 998, 1536] (bf16 and f32, lengths 200..998; x as
+     the model hands it over, a [B, T, C] view of [B, C, T] memory, and
+     once as contiguous [B, T, C]), and a case whose logits exceed 80
+     against the unfused path; times on the model's layout beside the
+     plain version and the unfused module, the kernels' split by launch,
+     and once the old reading on contiguous x (the wrapper's copy in it).
   4. K3 fused Res2Net chain against its plain version and the unfused
      Res2NetBlock at x [128, 998, 1024] for dilation 2, 3, 4 (bf16 and
      f32), a ragged case (T = 197, h = 16, B = 3) and a case that shows
@@ -33,7 +37,10 @@ Phases (any failure raises and the script exits non-zero):
      ark/scp, cosine scoring and EER; and one C1024 pooling through
      EcapaAttentiveStatsPool(fused_inference=True) on the model's MFA
      output; then the same batch with the three Res2NetBlocks switched to
-     the fused chain, held against the unfused bf16 model and timed.
+     the fused chain, and with every flag on (the chains and the attentive
+     pooling fused), each held against the unfused bf16 model and the f32
+     model and timed in turns with the flags-off batch; the batch with
+     every flag on profiled.
   7. the ResNet34 x-vector served at full width and depth (base32, layers
      3-4-6-3, embedding 512, seeded random weights, bf16) behind
      make_wave_embed_fn on one [128, 160000] batch with the fused
@@ -80,7 +87,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # H100 SXM dense; f32 outside the tensor cores
 # the __global__ functions of asv_subtools_tpu_torch/csrc, as the profiler's kernel names hold them
 OWN_KERNELS = ("fbank_kernel", "fbank_mma_kernel", "stats_kernel", "stats_ring_kernel", "combine_kernel",
-               "res2_kernel", "res2_mma_kernel", "glob_kernel", "attend_kernel")
+               "res2_kernel", "res2_mma_kernel", "glob_kernel", "attend_kernel", "attend_mma_kernel",
+               "att_stats_kernel")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -130,9 +138,9 @@ def turns_ms(torch, run_plain, run_kernel, n: int):
     return min(p1, p2), min(k1, k2)
 
 
-def profiled_ms(torch, fn, n: int = 20):
-    """ms per call of the kernels' own device durations, summed over n
-    calls under torch.profiler; None if the profiler saw no device time."""
+def profiled_split(torch, fn, n: int = 20) -> dict:
+    """{kernel name: ms per call} of the kernels' own device durations over
+    n calls under torch.profiler; empty if the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -142,8 +150,27 @@ def profiled_ms(torch, fn, n: int = 20):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA)
-    return total_us / 1e3 / n if total_us > 0 else None
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.device_time_total > 0:
+            split[e.name] = split.get(e.name, 0.0) + e.device_time_total / 1e3 / n
+    return split
+
+
+def profiled_ms(torch, fn, n: int = 20):
+    """ms per call of the kernels' own device durations, summed over n
+    calls under torch.profiler; None if the profiler saw no device time."""
+    split = profiled_split(torch, fn, n)
+    return sum(split.values()) if split else None
+
+
+def print_split(what: str, split: dict) -> None:
+    """One line: each kernel's device ms per call, longest first."""
+    if not split:
+        print(f"{what} split by kernel: the profiler recorded no device time (not measured)", flush=True)
+        return
+    parts = ", ".join(f"{name[:60]} {ms:.4f}" for name, ms in sorted(split.items(), key=lambda kv: -kv[1]))
+    print(f"{what} split by kernel (device ms per call, sum {sum(split.values()):.4f}): {parts}", flush=True)
 
 
 def max_abs(a, b) -> float:
@@ -279,7 +306,8 @@ def phase_att_pooling(torch):
     dev = torch.device("cuda")
     b, t, c = BATCH, 998, 1536
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    x32 = torch.randn((b, t, c), generator=gen, device=dev)
+    x_ct32 = torch.randn((b, c, t), generator=gen, device=dev)  # the model's [B, C, T] memory
+    x32 = x_ct32.transpose(1, 2)  # [B, T, C] view, as the model hands it over
     lengths = torch.linspace(200, t, b, device=dev).round().long()
     mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
     # tolerance: f32 sums in another order (2e-4, the JAX tests' bound);
@@ -288,22 +316,24 @@ def phase_att_pooling(torch):
     tols = {"f32": 2e-4, "bf16": 2e-2}
     errs = {}
     with torch.inference_mode():
-        for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for label, dt, layout in (("f32", torch.float32, "view"), ("bf16", torch.bfloat16, "view"),
+                                  ("bf16", torch.bfloat16, "contiguous")):
             mod = _pool_module(torch, c, dt, SEED)
-            x = x32.to(dt)
+            x = x32.to(dt) if layout == "view" else x32.to(dt).contiguous()
             args = _pool_args(mod, x)
             k = fused_attentive_stats_pool(*args, mask=mask)
             p = fused_attentive_stats_pool_plain(*args, mask=mask)
             u = mod(x, mask)  # unfused module path
             torch.cuda.synchronize()
-            errs[label] = max_abs(k, p)
+            e = max_abs(k, p)
+            errs[label] = max(errs.get(label, 0.0), e)
             eu = max_abs(k, u)
-            print(f"K2 att pooling {label} [128,998,1536] lengths 200..998: max abs err vs plain "
-                  f"{errs[label]:.3e} (tol {tols[label]}), vs unfused module {eu:.3e}", flush=True)
-            check(errs[label] <= tols[label], f"K2 {label} disagrees with its plain version")
+            print(f"K2 att pooling {label} [128,998,1536] ({layout} x) lengths 200..998: max abs err vs plain "
+                  f"{e:.3e} (tol {tols[label]}), vs unfused module {eu:.3e}", flush=True)
+            check(e <= tols[label], f"K2 {label} ({layout} x) disagrees with its plain version")
             close = (eu <= tols["f32"] if label == "f32"
                      else torch.allclose(k.float(), u.float(), atol=0.05, rtol=0.05))
-            check(close, f"K2 {label} disagrees with the unfused path")
+            check(close, f"K2 {label} ({layout} x) disagrees with the unfused path")
         mod = _pool_module(torch, c, torch.float32, SEED)
         mod.att2.weight.mul_(400.0)
         args = _pool_args(mod, x32)
@@ -320,6 +350,7 @@ def phase_att_pooling(torch):
               f"(tol 1e-3)", flush=True)
         check(peak > 80 and e_big <= 1e-3, "K2 large-logit case disagrees with the unfused path")
 
+        # times on the model's layout: x a [B, T, C] view of [B, C, T] memory
         mod = _pool_module(torch, c, torch.bfloat16, SEED)
         xb = x32.to(torch.bfloat16)
         full = torch.ones((b, t), dtype=torch.bool, device=dev)
@@ -327,12 +358,21 @@ def phase_att_pooling(torch):
         run_k = lambda: fused_attentive_stats_pool(*args, mask=full)
         run_p = lambda: fused_attentive_stats_pool_plain(*args, mask=full)
         ms_p, ms_k = turns_ms(torch, run_p, run_k, n=5)
+        ms_u = device_ms(torch, lambda: mod(xb, full), n=5)  # the unfused module, flag off
+        split = profiled_split(torch, run_k, n=10)
+        # the old reading, once: contiguous [B, T, C] x, which the wrapper
+        # first copies into [B, C, T] memory
+        args_c = (xb.contiguous(),) + args[1:]
+        ms_c = device_ms(torch, lambda: fused_attentive_stats_pool(*args_c, mask=full), n=5)
     kk = args[1].shape[1]
     flops = 2.0 * 2 * b * t * c * kk
     nbytes = 2 * xb.numel() + 2 * 4 * c * kk + b * t + 4 * 2 * b * c  # x, 4 weights, mask, f32 out
     bound, by = bound_ms(nbytes, flops)
-    print(f"K2 bf16 times (ms, 5 launches back to back): kernel {ms_k:.3f} plain {ms_p:.3f}; "
-          f"bound {bound:.4f} by {by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+    print(f"K2 bf16 times on the model's layout (ms, 5 launches back to back): kernel {ms_k:.4f} plain {ms_p:.4f} "
+          f"unfused EcapaAttentiveStatsPool {ms_u:.4f}; kernel on contiguous [B, T, C] x (the wrapper's copy "
+          f"included) {ms_c:.4f}; bound {bound:.4f} by {by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
+          f"two reads of x (the design's floor) {2 * 2 * xb.numel() / HBM_BYTES_PER_S * 1e3:.4f}", flush=True)
+    print_split("K2 bf16 kernel", split)
     return {
         "name": "fused_attentive_stats_pool", "route": "cuda",
         "source": "asv_subtools_tpu_torch/csrc/att_pooling.cu",
@@ -405,8 +445,10 @@ def phase_res2(torch):
             block.fused_inference = True
             ms_m = device_ms(torch, lambda: block(x_ct), n=5)
             times[d] = (ms_k, ms_p, ms_u, ms_m)
-            print(f"K3 bf16 dilation {d} times (ms, 5 launches back to back): kernel {ms_k:.3f} plain {ms_p:.3f} "
-                  f"unfused Res2NetBlock {ms_u:.3f} Res2NetBlock with the flag on {ms_m:.3f}", flush=True)
+            print(f"K3 bf16 dilation {d} times (ms, 5 launches back to back): kernel ({route}) {ms_k:.4f} "
+                  f"plain {ms_p:.4f} unfused Res2NetBlock {ms_u:.4f} Res2NetBlock with the flag on {ms_m:.4f}",
+                  flush=True)
+            print_split(f"K3 bf16 dilation {d} kernel", profiled_split(torch, run_k, n=5))
         w_numel = args[0].numel()
 
         # ragged: T = 197 (two tiles), h = 16 (half a warp of channels), B = 3
@@ -647,7 +689,7 @@ def phase_served(torch, device_label):
     from asv_subtools_tpu_torch.extract import make_wave_embed_fn
     from asv_subtools_tpu_torch.features import FbankOptions, MelOptions
     from asv_subtools_tpu_torch.models import EcapaAttentiveStatsPool, EcapaTdnn, Res2NetBlock
-    from asv_subtools_tpu_torch.nn import fused_res2_chain
+    from asv_subtools_tpu_torch.nn import fused_attentive_stats_pool, fused_res2_chain
     from asv_subtools_tpu_torch.weights import init_ecapa_weights_
 
     dev = torch.device("cuda")
@@ -716,13 +758,34 @@ def phase_served(torch, device_label):
               f"model {cu:.6f} (>= 0.999), vs f32 model + f32 plain front end {c32:.6f} (>= 0.999)", flush=True)
         check(cu >= 0.999 and c32 >= 0.999, "embeddings with the fused Res2 chains disagree")
         check(fused_res2_chain.last_route == "tensor_core", "the served Res2 chains left the tensor-core kernel")
-        ms_off1 = timed_batches(torch, embed, waves, mask, iters=3)
-        ms_on1 = timed_batches(torch, embed_f, waves, mask, iters=3)
-        ms_on2 = timed_batches(torch, embed_f, waves, mask, iters=3)
-        ms_off2 = timed_batches(torch, embed, waves, mask, iters=3)
-        print(f"served C1024 bf16 [128,160000] ms/batch: Res2 chains unfused {min(ms_off1, ms_off2):.2f}, "
-              f"fused {min(ms_on1, ms_on2):.2f} (turns off {ms_off1:.2f} on {ms_on1:.2f} on {ms_on2:.2f} "
-              f"off {ms_off2:.2f})", flush=True)
+
+        # and with every flag on: the chains and the attentive pooling fused
+        all16 = copy.deepcopy(fused16)
+        all16.stats.fused_inference = True
+        embed_a = make_wave_embed_fn(lambda x, m: all16(x, m), opts, dtype=torch.bfloat16)
+        pools_before = fused_attentive_stats_pool.launches
+        emb_a = embed_a(waves[0], mask)
+        torch.cuda.synchronize()
+        check(fused_attentive_stats_pool.launches == pools_before + 1,
+              "the batch with every flag on did not launch the attentive pooling kernel")
+        check(tuple(emb_a.shape) == (BATCH, 192) and bool(torch.isfinite(emb_a.float()).all()),
+              "embeddings with every flag on not finite or of the wrong shape")
+        cu, c32 = float(cosine(emb_a, emb).min()), float(cosine(emb_a, ref32).min())
+        print(f"served C1024 bf16 with every flag on (Res2 chains and attentive pooling fused): min per-utterance "
+              f"cosine vs the unfused bf16 model {cu:.6f} (>= 0.999), vs f32 model + f32 plain front end "
+              f"{c32:.6f} (>= 0.999)", flush=True)
+        check(cu >= 0.999 and c32 >= 0.999, "embeddings with every flag on disagree")
+        check(fused_res2_chain.last_route == "tensor_core", "the served Res2 chains left the tensor-core kernel")
+
+        # turns: flags off, chains fused, every flag on, then back
+        runs = {"off": embed, "chains": embed_f, "all": embed_a}
+        order = ("off", "chains", "all", "all", "chains", "off")
+        turns = [(name, timed_batches(torch, runs[name], waves, mask, iters=3)) for name in order]
+        best = {name: min(ms for n, ms in turns if n == name) for name in runs}
+        turns = " ".join(f"{name} {ms:.2f}" for name, ms in turns)
+        print(f"served C1024 bf16 [128,160000] ms/batch: flags off {best['off']:.2f}, Res2 chains fused "
+              f"{best['chains']:.2f}, every flag on {best['all']:.2f} (turns {turns})", flush=True)
+        profile_served_batch(torch, lambda: embed_a(waves[0], mask))
 
     server_run(torch, embed, "ECAPA C1024")
     return read_launches("ECAPA C1024", ("fused_fbank", "fused_attentive_stats_pool", "fused_res2_chain"))

@@ -1,6 +1,7 @@
 // mbarrier and bulk-copy primitives of Hopper (sm_90) as inline PTX, shared
 // by the kernels that stream device memory into shared-memory rings
-// (fbank.cu, stats_pooling.cu). Shared-memory addresses are u32 (smem_u32).
+// (fbank.cu, stats_pooling.cu, att_pooling.cu, res2_chain.cu).
+// Shared-memory addresses are u32 (smem_u32).
 //
 // The pattern: a stage's "full" barrier is initialised with count 1; the
 // thread that requests a copy arrives on it once and names the bytes to
@@ -59,6 +60,32 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// The element-wise asynchronous copies (cp.async): for sources that are not
+// 16-byte aligned, which the bulk copy and TMA refuse (a [C, T] bf16 row of
+// T = 998 frames starts 1996 bytes after the last). A thread's copies form
+// a group at cp_async_commit; cp_async_wait<n> waits until at most n of the
+// thread's groups are still in flight, and a __syncthreads after it makes
+// every thread's landed copies visible to all.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+// 4 bytes, of which the first src_bytes (0 or 4) are read and the rest
+// zero-filled
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace

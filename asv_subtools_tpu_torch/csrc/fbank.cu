@@ -90,6 +90,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -287,26 +288,6 @@ constexpr int kChunkBytes = kKC * kCols * 2;    // 32 KB of bf16
 constexpr int kStages = 3;
 constexpr int kPT = kFrames + 8;                // power tile [bin][frame] row stride (floats):
                                                 // conflict-free for the fragments' writes
-
-// four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
 
 // Shared memory of the tensor-core kernel, in bytes from the start:
 // the matrix ring | the region (next tile's f32 samples, later the power

@@ -15,42 +15,71 @@
 // h % 128 == 0). A [998, 128] stage does not fit a Hopper block's shared
 // memory beside its weights, so T is tiled: a block takes one batch row and
 // TT output frames, loads the input window [t0 - n*d, t0 + TT + n*d) and
-// recomputes the halo, which shrinks by d a side each stage. The state
-// lives in shared memory as [h][rows] f32 (time contiguous, as x is in
-// memory, so loads and stores to device memory run along T), already
-// rounded to the operand type. A stage's weights stream through shared
-// memory in 32-row chunks. A thread owns up to 3 x 8 frames x h/32 output
-// channels in registers for the whole stage, so the state is updated in
-// place after one barrier. Frames outside [0, T) are written back as zero
-// after every stage, on both sides: they are the conv's zero padding for
-// the next stage, though relu(bias) * scale + shift is not zero there.
+// recomputes the halo, which shrinks by d a side each stage. The chain
+// state lives in shared memory, already rounded to the operand type, and
+// is updated in place after one barrier, each thread holding its output
+// rows' sums in registers for the whole stage. Frames outside [0, T) are
+// written back as zero after every stage, on both sides: they are the
+// conv's zero padding for the next stage, though relu(bias) * scale +
+// shift is not zero there.
 //
-// Two kernels share this scheme. `res2_kernel` runs the products on the
-// CUDA cores (f32 FMA; a product of two bf16 values is exact in f32): it
-// serves f32 x, where operands and state must stay f32, and any h <= 128.
-// `res2_mma_kernel` serves bf16 x with h in {16, 32, 64, 128} on the
-// tensor cores: `mma.sync.m16n8k16` on bf16 with f32 accumulation, the
-// state held in shared memory as bf16 [rows][h] (the A operand, input
-// channel contiguous), a whole stage's weights as [h out][3h] (the B
-// operand, one copy a stage), fragments read with plain 32-bit loads from
-// rows padded by 16 bytes (conflict-free). Each of 8 warps owns one half of
-// the output channels and up to three 16-frame tiles, so a stage's 192 rows
-// are one pass with all sums in registers; the stage's f32 result then
-// goes through the weights' shared memory (free until the next stage) so
-// that device memory is read and written along T. The loads of the part
-// that a stage adds at its end are slow (2 bytes a lane, transposing), and
-// issued after the products they left the kernel waiting: so each stage
-// first asks for that part to be brought into L2, and 4 more warps fetch it
-// into shared memory while the 8 multiply. wgmma and TMA are later work.
+// Two kernels share this scheme.
+//
+// res2_kernel runs the products on the CUDA cores (f32 FMA; a product of
+// two bf16 values is exact in f32): it serves f32 x, where operands and
+// state must stay f32, and any h <= 128. Its state is [h][rows] f32 (time
+// contiguous, as x is in memory), a stage's weights stream through shared
+// memory in 32-row chunks, and a thread owns up to 3 x 8 frames x h/32
+// output channels.
+//
+// res2_mma_kernel serves bf16 x with h in {16, 32, 64, 128} on the tensor
+// cores (mma.sync.m16n8k16, bf16 operands, f32 sums, fragments by
+// ldmatrix), 16 warps (8 at h = 16): the output channels in 4 groups (2),
+// a stage's 192 rows in 12 tiles of 16 frames, a warp one group and the
+// tiles w / G, + 4, + 8, all sums in registers (101 registers a thread at
+// h = 128; the 8-warp layout of halves read 0.81 against 0.67 ms).
+// What it answers to:
+//  - Weights. Each tap's weights, [h out][h in + 8] (32 KB at h = 128,
+//    rows padded by the wrapper so that ldmatrix reads without bank
+//    conflicts), are one cp.async.bulk into a ring of two slots on
+//    mbarriers: thread 0 requests tap q + 1 when tap q starts, once every
+//    warp has released its slot, so the weights arrive while the products
+//    run. No copy sits between two barriers.
+//  - Parts. The part a stage adds at its end is brought in at the stage's
+//    start by cp.async into a [h][SP] buffer, in the order it lies in
+//    memory (time contiguous), and waited for only after the products.
+//    Not by the bulk copy or TMA: at T = 998 a channel's row starts 1996
+//    bytes after the last, not on the 16 bytes both require; 4-byte
+//    copies from an even frame take it (2-byte loads when T is odd). Part
+//    1's window comes the same way and is transposed into the state
+//    [rows][h + 8] once, in shared memory.
+//  - The stage's end. The warps add bias, relu and the folded BN to their
+//    sums, write the next state (z + part, in bf16) in place and store z
+//    of the tile's own frames straight from the registers: 8 lanes write
+//    16 contiguous bytes of a channel's row. (Staged through shared memory
+//    and sent along T as 4-byte pairs of frames after a barrier, it read
+//    0.654 against 0.629 ms; 16-byte vectors along T need 16-byte row
+//    starts, which T = 998 does not give.) Group 0 moves as 16-byte
+//    vectors, the tiles of a batch row splitting its [h, T] block.
+//  - Products: mma.sync, not wgmma. At the served shape they are 88 GFLOP,
+//    under 0.15 ms at mma.sync's rate; a 64-row wgmma tile over a
+//    warpgroup would need the state as a descriptor-described operand,
+//    whose rows move by d at each tap.
+//  - Shared memory: the state (57-83 KB at h = 128 for dilation 2-14), the
+//    ring (70 KB) and the part buffer (51-68 KB) keep one block on an SM.
+// What bounds it now (variants with one statement switched off, on an
+// H100, d = 4, before the outputs left from the registers): the output
+// stores about 0.17 ms of 0.61, the parts' copies 0.07, the products 0.05;
+// the rest is the stage's barriers and the halo's recomputed rows.
 //
 // Data layout: x and out are [B, C, T] in memory (time contiguous), the
 // layout the port's model holds, so the model pays no transpose.
 //
 // Cost of the tiling: with n = 7, the block's 192 rows give TT <= 192 - 12 d
-// (168, 156, 144 frames at d = 2, 3, 4); a stage computes its rows in
-// passes of 64, so every stage of a full tile costs 3 passes: 192 computed
-// frames for TT written, 1.14x to 1.33x the least work, and the input
-// window is read (TT + 12 d) / TT times.
+// (168, 144, 144 frames at d = 2, 3, 4, even); a stage computes its rows in
+// tiles of 16, so every stage of a full tile costs 192 computed frames for
+// TT written, 1.14x to 1.33x the least work, and the input window is read
+// (TT + 14 d) / TT times.
 //
 // Bound on an H100 SXM at x [128, 998, 1024] bf16, h = 128: bytes. x in and
 // out 2 x 261.6 MB + 0.7 MB of weights -> 156 us at 3.35 TB/s; the products
@@ -61,6 +90,9 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "async_copy.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -208,71 +240,150 @@ __global__ void __launch_bounds__(kThreads, 1) res2_kernel(
   }
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Ask for a line of device memory to be brought into L2.
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-
 constexpr int kTiles = 3;                           // 16-frame tiles per warp
-constexpr int kMmaRows = 16 * kTiles * kWarps / 2;  // 192: 4 warp pairs x 3 tiles
-constexpr int kLoadWarps = 4;                       // warps that fetch the next part meanwhile
-constexpr int kMmaWarps = kWarps + kLoadWarps;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kLaneRows = kMmaRows / 32;            // rows a lane takes in a pass along T
-constexpr int kGroup = 4;                           // channels whose loads are issued together
+constexpr int kMmaRows = 16 * kTiles * 4;  // 192: 4 rows of warps x 3 tiles
+constexpr int kSlots = 2;                           // weight ring slots
 
-// bf16 x on the tensor cores. grid (tiles, B), 12 warps: 8 multiply, 4
-// fetch. NT = h / 16: n8 tiles in one half of the output channels. wt is
-// [n][h out][3h] (tap-major, then input channel, contiguous).
-template <int NT>
-__global__ void __launch_bounds__(kMmaThreads, 1) res2_mma_kernel(
+// Shared memory of res2_mma_kernel, in bytes from the start: the state
+// [RP][h + 8] bf16 | the weight ring, kSlots chunks [h out][h in + 8] |
+// the part [h][SP] bf16 (a stage's part, and at the start part 1's window)
+// | mbarriers (full, empty a slot).
+struct MmaLayout {
+  int ring, part, bars, total;
+};
+
+__host__ __device__ inline MmaLayout mma_layout(int h, int RP, int SP) {
+  MmaLayout l;
+  const int chunk = 2 * h * (h + 8);
+  l.ring = ((2 * RP * (h + 8) + 127) / 128) * 128;
+  l.part = l.ring + kSlots * chunk;
+  l.bars = ((l.part + 2 * h * SP + 7) / 8) * 8;
+  l.total = l.bars + 8 * 2 * kSlots;
+  return l;
+}
+
+// Channel groups of res2_mma_kernel: the output channels are split in G
+// groups and a stage's 12 frame tiles in 4 rows of 3, one warp each.
+__host__ __device__ constexpr int mma_groups(int NT) { return NT >= 2 ? 4 : 2; }
+
+// bf16 x on the tensor cores. grid (tiles, B), 4 G warps: warp w takes the
+// output channels of group w % G and the frame tiles w / G, + 4, + 8 of a
+// stage's 192 rows. wt is [n][3][h out][h in + 8] (the taps' weights, rows
+// padded by 16 bytes, zero). EVEN: T is even and x 4-byte aligned.
+template <int NT, bool EVEN>
+__global__ void __launch_bounds__(128 * mma_groups(NT), 1) res2_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
     const float* __restrict__ bias, const float* __restrict__ bns, const float* __restrict__ bnt,
-    __nv_bfloat16* __restrict__ out, int Tn, int n, int d, int TT, int RP) {
+    __nv_bfloat16* __restrict__ out, int Tn, int n, int d, int TT, int RP, int SP) {
   typedef __nv_bfloat16 bf16;
   constexpr int h = 16 * NT;
-  constexpr int SA = h + 8;      // state row stride (bf16): +16 bytes, conflict-free fragments
-  constexpr int SW = 3 * h + 8;  // weight row stride (bf16)
-  constexpr int SZ = h + 1;      // stage result row stride (f32)
-  constexpr int kWzBytes = 2 * h * SW > 4 * kMmaRows * SZ ? 2 * h * SW : 4 * kMmaRows * SZ;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sp_s = reinterpret_cast<bf16*>(smem_raw);   // [RP][SA] chain state, rounded to bf16
-  bf16* w_s = sp_s + (size_t)RP * SA;                // [h][SW] the stage's weights
-  float* z_s = reinterpret_cast<float*>(w_s);        // [192][SZ] the stage's result, same memory
-  bf16* p_s = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(w_s) + kWzBytes);
-                                                     // [h][192] the part added at the stage's end
+  constexpr int G = mma_groups(NT);       // channel groups
+  constexpr int NTG = 2 * NT / G;         // n8 tiles of a group
+  constexpr int kW = 4 * G, kT = 32 * kW; // warps, threads
+  constexpr int SA = h + 8;               // state and weight row stride (bf16)
+  constexpr int kChunk = 2 * h * SA;      // bytes of one tap's weights
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const MmaLayout lay = mma_layout(h, RP, SP);
+  bf16* sp_s = reinterpret_cast<bf16*>(smem_raw);  // [RP][SA]: row r is frame t0 - halo + r
+  unsigned char* ring = smem_raw + lay.ring;
+  bf16* p_s = reinterpret_cast<bf16*>(smem_raw + lay.part);  // [h][SP]: col j is frame ta + j
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw + lay.bars);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + kSlots);
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * TT;
   const int tt_n = min(TT, Tn - t0);
   const int halo = n * d;
-  const int R = TT + 2 * halo;  // window rows: row r is frame t0 - halo + r
+  const int R = TT + 2 * halo;  // window rows
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tg = lane & 3;       // fragment coordinates
-  const int nh = warp & 1, mt0 = warp >> 1;     // channel half; first frame tile (warps 0..7)
-  const bf16* xb = x + (size_t)b * (n + 1) * h * Tn;
-  bf16* ob = out + (size_t)b * (n + 1) * h * Tn;
+  const int g = lane >> 2, tg = lane & 3;     // fragment coordinates
+  const int grp = warp % G, mt0 = warp / G;   // channel group; first frame tile
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 8;  // ldmatrix
+  const size_t row_elems = (size_t)(n + 1) * h * Tn;
+  const bf16* xb = x + (size_t)b * row_elems;
+  bf16* ob = out + (size_t)b * row_elems;
+  const int n_chunks = 3 * n;
 
-  // group 0 passes through
-  for (int o = warp; o < h; o += kMmaWarps) {
-    const bf16* src = xb + (size_t)o * Tn + t0;
-    bf16* dst = ob + (size_t)o * Tn + t0;
-    for (int r = lane; r < tt_n; r += 32) dst[r] = src[r];
+  if (tid == 0) {
+    for (int i = 0; i < kSlots; ++i) {
+      mbar_init(full0 + 8 * i, 1);        // the requesting thread's arrive; the bytes ride on it
+      mbar_init(empty0 + 8 * i, kW);  // one arrive a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-  // stage 0 reads part 1 over the whole window; zero outside [0, T) and in
-  // the spare rows
-  for (int o = warp; o < h; o += kMmaWarps) {
-    const bf16* xr = xb + (size_t)(h + o) * Tn;
-    for (int r = lane; r < RP; r += 32) {
-      const int t = t0 - halo + r;
-      sp_s[r * SA + o] = (r < R && t >= 0 && t < Tn) ? xr[t] : __float2bfloat16_rn(0.f);
+  __syncthreads();
+  // thread 0: tap chunk q (stage q / 3, tap q % 3) into slot q % kSlots once
+  // every warp has released what was there
+  auto request = [&](int q) {
+    if (q >= n_chunks) return;
+    const uint32_t slot = q % kSlots, phase = (q / kSlots) & 1;
+    mbar_wait(empty0 + 8 * slot, phase ^ 1u);  // first pass: free at once
+    mbar_arrive_expect_tx(full0 + 8 * slot, kChunk);
+    bulk_copy(smem_u32(ring + slot * kChunk), reinterpret_cast<const unsigned char*>(wt) + (size_t)q * kChunk,
+              kChunk, full0 + 8 * slot);
+  };
+  if (tid == 0) request(0);
+
+  // frames [ta, ta + 2 * words) of channel rows into p_s by 4-byte copies
+  // (EVEN), zero outside [0, T); ta even
+  auto fetch_part = [&](const bf16* src, int ta, int frames) {
+    // a warp a channel row at a time, its lanes along T
+    if (EVEN) {
+      const int words = (frames + 1) / 2;
+      for (int o = warp; o < h; o += kW) {
+        const bf16* row = src + (size_t)o * Tn;
+        const uint32_t dst = smem_u32(p_s + o * SP);
+        for (int w = lane; w < words; w += 32) {
+          const int t = ta + 2 * w;
+          const bool ok = t >= 0 && t < Tn;
+          cp_async4(dst + 4 * w, ok ? row + t : src, ok ? 4u : 0u);
+        }
+      }
+    } else {
+      for (int o = warp; o < h; o += kW) {
+        const bf16* row = src + (size_t)o * Tn;
+        for (int j = lane; j < frames; j += 32) {
+          const int t = ta + j;
+          p_s[o * SP + j] = (t >= 0 && t < Tn) ? row[t] : __float2bfloat16_rn(0.f);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // part 1 over the whole window, then transposed into the state
+  const int wa = (t0 - halo) & ~1;  // even start of the window's copy
+  fetch_part(xb + (size_t)h * Tn, wa, R + (t0 - halo - wa));
+  // group 0 passes through: the tiles of a batch row split its [h, T] block
+  {
+    const size_t elems = (size_t)h * Tn;
+    const size_t lo = elems * blockIdx.x / gridDim.x, hi = elems * (blockIdx.x + 1) / gridDim.x;
+    const bool vec = ((reinterpret_cast<uintptr_t>(xb) | reinterpret_cast<uintptr_t>(ob)) & 15) == 0;
+    size_t i = lo;
+    if (vec) {
+      const size_t va = (lo + 7) / 8, vb = hi / 8;  // whole 16-byte vectors inside [lo, hi)
+      for (size_t v = va + tid; v < vb; v += kT)
+        reinterpret_cast<uint4*>(ob)[v] = __ldg(reinterpret_cast<const uint4*>(xb) + v);
+      const size_t head_end = hi < 8 * va ? hi : 8 * va;
+      for (size_t e = lo + tid; e < head_end; e += kT) ob[e] = xb[e];
+      i = 8 * vb > lo ? 8 * vb : lo;
+    }
+    for (size_t e = i + tid; e < hi; e += kT) ob[e] = xb[e];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  {
+    // a warp moves 8 rows x 4 channel pairs at a time: conflict-free reads
+    // of p_s and writes of the state. Rows past the window are zero.
+    const int n_rb = (RP + 7) / 8, groups = n_rb * (h / 8);
+    for (int gi = warp; gi < groups; gi += kW) {
+      const int r = (gi % n_rb) * 8 + (lane & 7), o = 2 * ((gi / n_rb) * 4 + (lane >> 3));
+      if (r >= RP) continue;
+      const int j = r + (t0 - halo - wa);
+      __nv_bfloat162 pr;
+      pr.x = r < R ? p_s[o * SP + j] : __float2bfloat16_rn(0.f);
+      pr.y = r < R ? p_s[(o + 1) * SP + j] : __float2bfloat16_rn(0.f);
+      *reinterpret_cast<__nv_bfloat162*>(sp_s + r * SA + o) = pr;
     }
   }
 
@@ -280,144 +391,126 @@ __global__ void __launch_bounds__(kMmaThreads, 1) res2_mma_kernel(
     const int lo = (s + 1) * d, hi = R - (s + 1) * d;  // rows this stage computes
     const int n_tiles = (hi - lo + 15) / 16;           // <= 12
     const bool last = s == n - 1;
-    if (!last) {
-      // part s+2 is added at this stage's end: start it on its way from
-      // device memory now (at most 384 bytes a channel: four 128-byte lines)
-      const int ta = max(t0 - halo + lo, 0), tb = min(t0 - halo + hi, Tn);
-      for (int idx = tid; idx < 4 * h && tb > ta; idx += kMmaThreads) {
-        const int o = idx >> 2, line = idx & 3;
-        prefetch_l2(xb + (size_t)((s + 2) * h + o) * Tn + ta + min(64 * line, tb - ta - 1));
-      }
-    }
-    __syncthreads();  // the state is written; the last stage's result and part are consumed
-    {
-      const uint4* src = reinterpret_cast<const uint4*>(wt + (size_t)s * h * 3 * h);
-      constexpr int kRowVecs = 3 * h / 8;  // 16-byte vectors in a weight row
-      for (int idx = tid; idx < h * kRowVecs; idx += kMmaThreads) {
-        const int o = idx / kRowVecs, v = idx - o * kRowVecs;
-        *reinterpret_cast<uint4*>(w_s + o * SW + 8 * v) = src[idx];
-      }
-    }
-    __syncthreads();
+    const int ta = (t0 - halo + lo) & ~1;              // even start of the part's copy
+    __syncthreads();  // the state is written; p_s is free (the last output went out)
+    if (!last) fetch_part(xb + (size_t)(s + 2) * h * Tn, ta, (hi - lo) + (t0 - halo + lo - ta));
 
-    float acc[kTiles][NT][4];
+    float acc[kTiles][NTG][4];
 #pragma unroll
     for (int u = 0; u < kTiles; ++u)
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+      for (int j = 0; j < NTG; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[u][j][e] = 0.f;
 
-    if (warp >= kWarps) {
-      // the fetching warps: part s+2 over the rows [lo, hi) into p_s, while
-      // the others multiply. A warp takes every fourth channel, a lane the
-      // rows lane, lane + 32, ...; four channels' loads are issued together.
-      for (int o0 = warp - kWarps; o0 < h && !last; o0 += kLoadWarps * kGroup) {
-        bf16 pv[kGroup][kLaneRows];
+    for (int tap = 0; tap < 3; ++tap) {
+      const int q = 3 * s + tap;
+      if (tid == 0) request(q + 1);
+      const uint32_t slot = q % kSlots;
+      mbar_wait(full0 + 8 * slot, (q / kSlots) & 1);
+      const uint32_t a_tap = smem_u32(sp_s) + 2 * ((lo + (tap - 1) * d + lrow) * SA + lcol);
+      const uint32_t w_tap = smem_u32(ring + slot * kChunk);
 #pragma unroll
-        for (int q = 0; q < kGroup; ++q) {
-          const int o = o0 + kLoadWarps * q;
-          const bf16* xn = xb + (size_t)((s + 2) * h + o) * Tn;
+      for (int ci = 0; ci < h; ci += 16) {
+        uint32_t bfr[NTG][2];
+        if (NTG == 1) {
+          // one n8 tile: matrices k 0-7 and 8-15 of its 8 channels
+          uint32_t r2[4];
+          ldmatrix_x4(r2, w_tap + 2 * ((grp * (h / G) + (lane & 7)) * SA + ci + ((lane >> 3) & 1) * 8));
+          bfr[0][0] = r2[0];
+          bfr[0][1] = r2[1];
+        } else {
 #pragma unroll
-          for (int i = 0; i < kLaneRows; ++i) {
-            const int row = lo + lane + 32 * i;
-            const int t = t0 - halo + row;
-            const bool want = o < h && row < hi && t >= 0 && t < Tn;
-            pv[q][i] = want ? xn[t] : __float2bfloat16_rn(0.f);
+          for (int j = 0; j + 1 < NTG; j += 2) {
+            // two n8 tiles: (channels j*8.., k 0-7), (k 8-15), (channels +8, k 0-7), (k 8-15)
+            uint32_t r4[4];
+            ldmatrix_x4(r4, w_tap + 2 * ((grp * (h / G) + 8 * j + (lane & 7) + (lane >> 4) * 8) * SA + ci +
+                                         ((lane >> 3) & 1) * 8));
+            bfr[j][0] = r4[0];
+            bfr[j][1] = r4[1];
+            bfr[j + 1][0] = r4[2];
+            bfr[j + 1][1] = r4[3];
           }
         }
-#pragma unroll
-        for (int q = 0; q < kGroup; ++q) {
-          const int o = o0 + kLoadWarps * q;
-#pragma unroll
-          for (int i = 0; i < kLaneRows; ++i)
-            if (o < h) p_s[o * kMmaRows + lane + 32 * i] = pv[q][i];
-        }
-      }
-    } else {
-      for (int tap = 0; tap < 3; ++tap) {
-        const bf16* a_tap = sp_s + (lo + (tap - 1) * d + g) * SA + 2 * tg;
-        const bf16* b_tap = w_s + (nh * (h / 2) + g) * SW + tap * h + 2 * tg;
-#pragma unroll 2
-        for (int ci = 0; ci < h; ci += 16) {
-          uint32_t bfrag[NT][2];
-#pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const bf16* wp = b_tap + 8 * j * SW + ci;
-            bfrag[j][0] = *reinterpret_cast<const uint32_t*>(wp);
-            bfrag[j][1] = *reinterpret_cast<const uint32_t*>(wp + 8);
-          }
-#pragma unroll
-          for (int u = 0; u < kTiles; ++u) {
-            const int mt = mt0 + 4 * u;
-            if (mt < n_tiles) {
-              const bf16* ap = a_tap + 16 * mt * SA + ci;
-              uint32_t afrag[4];
-              afrag[0] = *reinterpret_cast<const uint32_t*>(ap);
-              afrag[1] = *reinterpret_cast<const uint32_t*>(ap + 8 * SA);
-              afrag[2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-              afrag[3] = *reinterpret_cast<const uint32_t*>(ap + 8 * SA + 8);
-#pragma unroll
-              for (int j = 0; j < NT; ++j) mma_bf16_16816(acc[u][j], afrag, bfrag[j]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // every read of the state and of the weights is done
-
-    // bias, relu, folded BN into the f32 staging area (rows relative to lo)
-    if (warp < kWarps) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int col = nh * (h / 2) + 8 * j + 2 * tg;
-        const float b0 = bias[s * h + col], b1 = bias[s * h + col + 1];
-        const float s0 = bns[s * h + col], s1 = bns[s * h + col + 1];
-        const float h0 = bnt[s * h + col], h1 = bnt[s * h + col + 1];
 #pragma unroll
         for (int u = 0; u < kTiles; ++u) {
           const int mt = mt0 + 4 * u;
           if (mt < n_tiles) {
-            float* zr = z_s + (16 * mt + g) * SZ + col;
-            zr[0] = fmaxf(acc[u][j][0] + b0, 0.f) * s0 + h0;
-            zr[1] = fmaxf(acc[u][j][1] + b1, 0.f) * s1 + h1;
-            zr[8 * SZ] = fmaxf(acc[u][j][2] + b0, 0.f) * s0 + h0;
-            zr[8 * SZ + 1] = fmaxf(acc[u][j][3] + b1, 0.f) * s1 + h1;
+            uint32_t afr[4];
+            ldmatrix_x4(afr, a_tap + 2 * (16 * mt * SA + ci));
+#pragma unroll
+            for (int j = 0; j < NTG; ++j) mma_bf16_16816(acc[u][j], afr, bfr[j]);
           }
         }
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * slot);
     }
-    __syncthreads();
+    cp_async_wait<0>();
+    __syncthreads();  // every read of the state is done; the part has landed
 
-    // this stage's output for the tile's own frames; then the next state.
-    // Frames outside [0, T) become zero: the next stage's zero padding.
-    for (int o = warp; o < h; o += kMmaWarps) {
-      bf16* og = ob + (size_t)((s + 1) * h + o) * Tn;
-      for (int row = lo + lane; row < hi; row += 32) {
-        const int t = t0 - halo + row;
-        const float v = z_s[(row - lo) * SZ + o];
-        if (t >= t0 && t < t0 + tt_n) og[t] = __float2bfloat16_rn(v);
-        if (!last) {
-          const float next = v + __bfloat162float(p_s[o * kMmaRows + row - lo]);
-          sp_s[row * SA + o] = __float2bfloat16_rn((t >= 0 && t < Tn) ? next : 0.f);
+    // bias, relu, folded BN; frames outside [0, T) are zero (the next
+    // stage's padding). The next state is z + part, in place; z of the
+    // tile's own frames goes out from the registers (8 lanes store 16
+    // contiguous bytes of a channel's row), with no barrier before the
+    // next stage's products
+#pragma unroll
+    for (int j = 0; j < NTG; ++j) {
+      const int col = grp * (h / G) + 8 * j + 2 * tg;
+      const float b0 = bias[s * h + col], b1 = bias[s * h + col + 1];
+      const float s0 = bns[s * h + col], s1 = bns[s * h + col + 1];
+      const float h0 = bnt[s * h + col], h1 = bnt[s * h + col + 1];
+#pragma unroll
+      for (int u = 0; u < kTiles; ++u) {
+        const int mt = mt0 + 4 * u;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = lo + 16 * mt + g + 8 * hf;
+          if (mt < n_tiles && row < hi) {
+            const int t = t0 - halo + row;
+            const bool in = t >= 0 && t < Tn;
+            const float z0 = in ? fmaxf(acc[u][j][2 * hf] + b0, 0.f) * s0 + h0 : 0.f;
+            const float z1 = in ? fmaxf(acc[u][j][2 * hf + 1] + b1, 0.f) * s1 + h1 : 0.f;
+            if (!last) {
+              const bf16* p0 = p_s + col * SP + (t - ta);
+              __nv_bfloat162 nx;
+              nx.x = __float2bfloat16_rn(z0 + __bfloat162float(p0[0]));
+              nx.y = __float2bfloat16_rn(z1 + __bfloat162float(p0[SP]));
+              *reinterpret_cast<__nv_bfloat162*>(sp_s + row * SA + col) = nx;
+            }
+            if (t >= t0 && t < t0 + tt_n) {
+              bf16* og = ob + ((size_t)(s + 1) * h + col) * Tn + t;
+              og[0] = __float2bfloat16_rn(z0);
+              og[Tn] = __float2bfloat16_rn(z1);
+            }
+          }
         }
       }
     }
   }
 }
 
-template <int NT>
+template <int NT, bool EVEN>
 int launch_mma(const void* x, const void* wt, const void* bias, const void* bns, const void* bnt,
-               void* out, int B, int Tn, int n, int d, int TT, int tiles, int RP, int smem,
+               void* out, int B, int Tn, int n, int d, int TT, int tiles, int RP, int SP,
                cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(res2_mma_kernel<NT>,
+  const int smem = mma_layout(16 * NT, RP, SP).total;
+  cudaError_t err = cudaFuncSetAttribute(res2_mma_kernel<NT, EVEN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  res2_mma_kernel<NT><<<dim3(tiles, B), kMmaThreads, smem, st>>>(
+  res2_mma_kernel<NT, EVEN><<<dim3(tiles, B), 128 * mma_groups(NT), smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wt),
       static_cast<const float*>(bias), static_cast<const float*>(bns),
-      static_cast<const float*>(bnt), static_cast<__nv_bfloat16*>(out), Tn, n, d, TT, RP);
+      static_cast<const float*>(bnt), static_cast<__nv_bfloat16*>(out), Tn, n, d, TT, RP, SP);
   return (int)cudaGetLastError();
+}
+
+template <int NT>
+int launch_mma_any(const void* x, const void* wt, const void* bias, const void* bns, const void* bnt,
+                   void* out, int B, int Tn, int n, int d, int TT, int tiles, int RP, int SP, int even,
+                   cudaStream_t st) {
+  return even ? launch_mma<NT, true>(x, wt, bias, bns, bnt, out, B, Tn, n, d, TT, tiles, RP, SP, st)
+              : launch_mma<NT, false>(x, wt, bias, bns, bnt, out, B, Tn, n, d, TT, tiles, RP, SP, st);
 }
 
 template <typename T, int TC>
@@ -457,12 +550,14 @@ extern "C" {
 // tensor == 0, the CUDA-core kernel: w [n, 3h, h] in x's type (rows:
 // tap-major, then input channel), h <= 128, smem = 4 (h RP + 32 h) bytes.
 // tensor != 0, the tensor-core kernel: bf16 only, h in {16, 32, 64, 128},
-// w [n, h, 3h] (each output channel's taps contiguous), smem =
-// 2 RP (h + 8) + max(2 h (3h + 8), 4 * 192 (h + 1)) + 2 * 192 h bytes.
+// TT even, w [n, 3, h out, h in + 8] (zero past h in), SP >= TT + 2nd + 2
+// the row stride of its part buffer; even != 0 when T is even and x
+// 4-byte aligned; smem is its mma_layout(h, RP, SP).total.
 // Returns the first CUDA error, or 0.
 int asv_res2_chain_launch(const void* x, const void* w, const void* bias, const void* bns,
                           const void* bnt, void* out, int B, int T, int h, int n, int d, int TT,
-                          int tiles, int RP, int smem, int bf16, int tensor, void* stream) {
+                          int tiles, int RP, int SP, int smem, int bf16, int tensor, int even,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   static_assert(kMmaRows == kPasses * kPassRows, "both kernels compute 192 rows a stage");
   if (B < 1 || B > 65535 || T < 1 || h < 1 || h > 128 || n < 1 || d < 1 || TT < 1 ||
@@ -470,12 +565,13 @@ int asv_res2_chain_launch(const void* x, const void* w, const void* bias, const 
       (long long)tiles * TT < T)
     return (int)cudaErrorInvalidValue;
   if (tensor) {
-    if (!bf16) return (int)cudaErrorInvalidValue;
+    if (!bf16 || TT % 2 || SP < TT + 2 * n * d + 2 || smem != mma_layout(h, RP, SP).total)
+      return (int)cudaErrorInvalidValue;
     switch (h) {
-      case 16: return launch_mma<1>(x, w, bias, bns, bnt, out, B, T, n, d, TT, tiles, RP, smem, st);
-      case 32: return launch_mma<2>(x, w, bias, bns, bnt, out, B, T, n, d, TT, tiles, RP, smem, st);
-      case 64: return launch_mma<4>(x, w, bias, bns, bnt, out, B, T, n, d, TT, tiles, RP, smem, st);
-      case 128: return launch_mma<8>(x, w, bias, bns, bnt, out, B, T, n, d, TT, tiles, RP, smem, st);
+      case 16: return launch_mma_any<1>(x, w, bias, bns, bnt, out, B, T, n, d, TT, tiles, RP, SP, even, st);
+      case 32: return launch_mma_any<2>(x, w, bias, bns, bnt, out, B, T, n, d, TT, tiles, RP, SP, even, st);
+      case 64: return launch_mma_any<4>(x, w, bias, bns, bnt, out, B, T, n, d, TT, tiles, RP, SP, even, st);
+      case 128: return launch_mma_any<8>(x, w, bias, bns, bnt, out, B, T, n, d, TT, tiles, RP, SP, even, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }

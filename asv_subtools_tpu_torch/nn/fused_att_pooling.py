@@ -10,8 +10,11 @@ The softmax over time subtracts a true per-channel max, the semantics of
 the XLA path (asv_subtools_tpu/models/ecapa.py:273-279); the TPU kernel
 clamps the logits at 80 instead, which agrees wherever they stay below 80.
 
-On CPU tensors the wrapper runs the plain version; on CUDA tensors it
-launches the kernel or raises.
+On the card bf16 x runs the products on the tensor cores
+("tensor_core"), f32 x on the CUDA cores in true f32 ("cuda_core");
+``fused_attentive_stats_pool.last_route`` names the route of the last
+launch. On CPU tensors the wrapper runs the plain version; on CUDA
+tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -23,10 +26,11 @@ import torch
 
 from ..kernels import _build
 
-_T_TILE = 64  # frames per attend block in csrc/att_pooling.cu
+_T_TILE = 64  # frames per attend block in csrc/att_pooling.cu, both kernels
 _MAX_K = 256
+_CA, _CB = 64, 128  # channels a chunk of the tensor-core kernel's first and second product
 _SIGNATURES = {
-    "asv_att_pool_launch": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "asv_att_pool_launch": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
                             ctypes.c_int),
 }
 
@@ -57,6 +61,19 @@ def fused_attentive_stats_pool_plain(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, 
     return torch.cat([mean_w, torch.sqrt(torch.clamp_min(var_w, 1e-5))], dim=-1)
 
 
+def tensor_core_weights(wx, w2):
+    """(Wx^T [KP, 64 ceil(C/64)], W2^T [128 ceil(C/128), KP]) as the
+    tensor-core kernel streams them: transposed and zero-padded to whole
+    chunks, KP = 128 for K <= 128 else 256."""
+    c, k = wx.shape
+    kp = 128 if k <= 128 else 256
+    wxt = wx.new_zeros((kp, -(-c // _CA) * _CA))
+    wxt[:k, :c] = wx.t()
+    w2t = w2.new_zeros((-(-c // _CB) * _CB, kp))
+    w2t[:c, :k] = w2.t()
+    return wxt, w2t
+
+
 def _launch_kernel(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask):
     b, t, c = x.shape
     k = wx.shape[1]
@@ -75,12 +92,22 @@ def _launch_kernel(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask):
     # [B, C, T] time-contiguous: free when x is a transposed view of the
     # model's [B, C, T] activations
     xt = x.transpose(1, 2).contiguous()
-    m = None if mask is None else mask.to(device=dev, dtype=torch.uint8).contiguous()
+    if mask is None:
+        m = None
+    elif mask.dtype == torch.bool:  # one byte a frame already: no conversion
+        m = mask.to(device=dev).contiguous().view(torch.uint8)
+    else:
+        m = mask.to(device=dev, dtype=torch.uint8).contiguous()
     vecs = [v.to(device=dev, dtype=f32).contiguous() for v in (b1, bn_scale, bn_shift, b2)]
+    tensor = x.dtype == torch.bfloat16
     wts = [w.contiguous() for w in (wx, wm, ws, w2)]
+    if tensor:
+        wts[0], wts[3] = tensor_core_weights(wx, w2)
+    # the tensor-core kernel brings frame pairs by 4-byte copies where it can
+    even = t % 2 == 0 and xt.data_ptr() % 4 == 0
     n_tiles = -(-t // _T_TILE)
     stats = torch.empty((b, 2, c), dtype=f32, device=dev)
-    glob = torch.empty((b, k), dtype=f32, device=dev)
+    glob = torch.empty((4, b, k), dtype=f32, device=dev)  # four partial sums
     part = torch.empty((b, n_tiles, 4, c), dtype=f32, device=dev)
     out = torch.empty((b, 2 * c), dtype=f32, device=dev)
     lib = _build.load("att_pooling", _SIGNATURES)
@@ -91,11 +118,12 @@ def _launch_kernel(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask):
             vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(),
             wts[3].data_ptr(), vecs[3].data_ptr(),
             stats.data_ptr(), glob.data_ptr(), part.data_ptr(), out.data_ptr(),
-            b, c, t, k, int(x.dtype == torch.bfloat16),
+            b, c, t, k, int(tensor), int(even),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, code, "attentive pooling kernel")
     fused_attentive_stats_pool.launches += 1
+    fused_attentive_stats_pool.last_route = "tensor_core" if tensor else "cuda_core"
     return out
 
 
@@ -118,7 +146,9 @@ def fused_attentive_stats_pool(
     blockwise; bn_scale/bn_shift [K]: the attention BN folded from its
     running statistics; w2 [K, C] + b2 [C]: att2. mask [B, T], True =
     valid. ``fused_attentive_stats_pool.launches`` counts kernel launches
-    (one per call; the call runs four CUDA kernels).
+    (one per call; the call runs four CUDA kernels);
+    ``fused_attentive_stats_pool.last_route`` names the attend kernel the
+    last launch ran, "tensor_core" or "cuda_core" (see the module's note).
     """
     if x.dim() != 3:
         raise ValueError(f"x must be [B, T, C], got shape {tuple(x.shape)}")
@@ -130,3 +160,4 @@ def fused_attentive_stats_pool(
 
 
 fused_attentive_stats_pool.launches = 0
+fused_attentive_stats_pool.last_route = None

@@ -34,8 +34,9 @@ _ROWS = 192    # frames one block computes per stage in csrc/res2_chain.cu
 _KC = 32       # weight rows per shared-memory chunk of the CUDA-core kernel
 _MAX_H = 128   # a thread's output channels stay in registers up to here
 _TENSOR_H = (16, 32, 64, 128)  # widths of the bf16 tensor-core kernel
+_SLOTS = 2     # weight ring slots of the tensor-core kernel
 _SIGNATURES = {
-    "asv_res2_chain_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    "asv_res2_chain_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
                               ctypes.c_int),
 }
 
@@ -80,15 +81,34 @@ def tile_plan(t: int, n_stages: int, dilation: int):
 
     A tile of TT output frames starts from input frames
     [t0 - n*d, t0 + TT + n*d) and recomputes the halo; stage 0 computes
-    TT + 2*(n-1)*d frames, which must fit the block's 192 rows."""
-    max_tt = _ROWS - 2 * (n_stages - 1) * dilation
+    TT + 2*(n-1)*d frames, which must fit the block's 192 rows. TT is even,
+    so that every tile starts on an even frame (4-byte pairs of bf16)."""
+    max_tt = _ROWS - 2 * (n_stages - 1) * dilation  # even
     if max_tt < 16:
         raise ValueError(f"dilation {dilation} with {n_stages} stages leaves no room for a tile "
                          f"in the kernel's {_ROWS} rows")
     tiles = -(-t // max_tt)
     tt = -(-t // tiles)
+    tt += tt % 2
     rp = ((n_stages + 1) * dilation + _ROWS) | 1  # odd: conflict-free column writes
     return tt, tiles, rp
+
+
+def tensor_core_plan(t: int, h: int, n_stages: int, dilation: int):
+    """(TT, tiles, state rows, part row stride SP, shared-memory bytes) of
+    the tensor-core kernel (csrc/res2_chain.cu `mma_layout`).
+
+    The part buffer holds a channel's frames [ta, ta + SP) from an even ta:
+    the window of TT + 2*n*d frames and one more for the even start, and one
+    spare; SP = 8 (mod 64) puts the fragments' 2-byte accesses on 32 banks."""
+    tt, tiles, _ = tile_plan(t, n_stages, dilation)
+    rows = (n_stages + 1) * dilation + _ROWS
+    need = tt + 2 * n_stages * dilation + 2
+    sp = need + (8 - need) % 64
+    ring = -(-2 * rows * (h + 8) // 128) * 128
+    part = ring + _SLOTS * 2 * h * (h + 8)
+    bars = -(-(part + 2 * h * sp) // 8) * 8
+    return tt, tiles, rows, sp, bars + 8 * 2 * _SLOTS
 
 
 def _launch_kernel(x, w, b, bn_scale, bn_shift, dilation):
@@ -102,18 +122,17 @@ def _launch_kernel(x, w, b, bn_scale, bn_shift, dilation):
     bsz, t, c = x.shape
     if bsz > 65535:
         raise ValueError(f"batch {bsz} above the kernel's limit 65535")
-    tt, tiles, rp = tile_plan(t, n, dilation)
-    # the tensor-core kernel's shared memory: the bf16 state [rows][h + 8],
-    # then the stage's weights [h][3h + 8] or its f32 result [192][h + 1],
-    # whichever is larger, then the next part [h][192]
-    rows = (n + 1) * dilation + _ROWS
-    smem = 2 * rows * (h + 8) + max(2 * h * (3 * h + 8), 4 * _ROWS * (h + 1)) + 2 * h * _ROWS
-    tensor = x.dtype == torch.bfloat16 and h in _TENSOR_H and smem <= _build.SMEM_LIMIT
+    tensor = x.dtype == torch.bfloat16 and h in _TENSOR_H
     if tensor:
-        rp = rows
-        wc = w.reshape(n, 3 * h, h).transpose(1, 2).contiguous()  # [n, h out, 3h]
+        tt, tiles, rp, sp, smem = tensor_core_plan(t, h, n, dilation)
+        tensor = smem <= _build.SMEM_LIMIT
+    if tensor:
+        # [n, 3, h out, h in + 8]: each tap's weights one bulk copy, rows
+        # padded by 16 bytes
+        wc = F.pad(w.permute(0, 1, 3, 2), (0, 8)).contiguous()
     else:  # the CUDA-core kernel: the f32 state [h][rp] and a chunk of weights
-        smem = 4 * (h * rp + _KC * h)
+        tt, tiles, rp = tile_plan(t, n, dilation)
+        sp, smem = 0, 4 * (h * rp + _KC * h)
         wc = w.contiguous()
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"hidden width {h} at dilation {dilation} needs {smem} bytes of shared memory")
@@ -122,13 +141,14 @@ def _launch_kernel(x, w, b, bn_scale, bn_shift, dilation):
     # model's [B, C, T] activations
     xt = x.transpose(1, 2).contiguous()
     out = torch.empty_like(xt)
+    even = t % 2 == 0 and xt.data_ptr() % 4 == 0  # the parts come as 4-byte pairs of frames
     vecs = [v.to(device=dev, dtype=torch.float32).contiguous() for v in (b, bn_scale, bn_shift)]
     lib = _build.load("res2_chain", _SIGNATURES)
     with torch.cuda.device(dev):
         code = lib.asv_res2_chain_launch(
             xt.data_ptr(), wc.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(),
-            out.data_ptr(), bsz, t, h, n, dilation, tt, tiles, rp, smem,
-            int(x.dtype == torch.bfloat16), int(tensor), torch.cuda.current_stream(dev).cuda_stream,
+            out.data_ptr(), bsz, t, h, n, dilation, tt, tiles, rp, sp, smem,
+            int(x.dtype == torch.bfloat16), int(tensor), int(even), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, code, "res2 chain kernel")
     fused_res2_chain.launches += 1

@@ -322,13 +322,16 @@ def phase_att_pooling(torch):
             x = x32.to(dt) if layout == "view" else x32.to(dt).contiguous()
             args = _pool_args(mod, x)
             k = fused_attentive_stats_pool(*args, mask=mask)
+            route = fused_attentive_stats_pool.last_route
+            check(route == ("tensor_core" if label == "bf16" else "cuda_core"),
+                  f"K2 {label} ran the {route} kernel")
             p = fused_attentive_stats_pool_plain(*args, mask=mask)
             u = mod(x, mask)  # unfused module path
             torch.cuda.synchronize()
             e = max_abs(k, p)
             errs[label] = max(errs.get(label, 0.0), e)
             eu = max_abs(k, u)
-            print(f"K2 att pooling {label} [128,998,1536] ({layout} x) lengths 200..998: max abs err vs plain "
+            print(f"K2 att pooling {label} ({route}) [128,998,1536] ({layout} x) lengths 200..998: max abs err vs plain "
                   f"{e:.3e} (tol {tols[label]}), vs unfused module {eu:.3e}", flush=True)
             check(e <= tols[label], f"K2 {label} ({layout} x) disagrees with its plain version")
             close = (eu <= tols["f32"] if label == "f32"
@@ -368,7 +371,8 @@ def phase_att_pooling(torch):
     flops = 2.0 * 2 * b * t * c * kk
     nbytes = 2 * xb.numel() + 2 * 4 * c * kk + b * t + 4 * 2 * b * c  # x, 4 weights, mask, f32 out
     bound, by = bound_ms(nbytes, flops)
-    print(f"K2 bf16 times on the model's layout (ms, 5 launches back to back): kernel {ms_k:.4f} plain {ms_p:.4f} "
+    print(f"K2 bf16 times on the model's layout (ms, 5 launches back to back): kernel (tensor_core) {ms_k:.4f} "
+          f"plain {ms_p:.4f} "
           f"unfused EcapaAttentiveStatsPool {ms_u:.4f}; kernel on contiguous [B, T, C] x (the wrapper's copy "
           f"included) {ms_c:.4f}; bound {bound:.4f} by {by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
           f"two reads of x (the design's floor) {2 * 2 * xb.numel() / HBM_BYTES_PER_S * 1e3:.4f}", flush=True)

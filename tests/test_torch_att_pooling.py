@@ -20,6 +20,7 @@ from asv_subtools_tpu.models.ecapa import EcapaAttentiveStatsPool as JaxPool
 from asv_subtools_tpu.nn.pallas_att_pooling import fused_attentive_stats_pool as jax_fused
 from asv_subtools_tpu_torch.models import EcapaAttentiveStatsPool
 from asv_subtools_tpu_torch.nn import fused_attentive_stats_pool, fused_attentive_stats_pool_plain
+from asv_subtools_tpu_torch.nn.fused_att_pooling import _T_TILE, tensor_core_weights
 from asv_subtools_tpu_torch.weights import load_ecapa_variables
 
 torch.set_num_threads(2)
@@ -156,3 +157,73 @@ def test_fully_masked_row_gives_floor_std():
 def test_wrapper_checks_shapes():
     with pytest.raises(ValueError):
         fused_attentive_stats_pool(torch.zeros(4, 8), *(torch.zeros(1),) * 8)
+
+
+def _tiled_pool(x, mask, port, tile):
+    """The tensor-core kernel's scheme in numpy, f32: the weights as
+    `tensor_core_weights` pads them, tiles of `tile` frames, per tile and
+    channel the partials (max, sum e, sum e x, sum e x^2) of a softmax taken
+    in base 2 over the tile's valid frames (a tile without one: max -inf),
+    merged as `combine_kernel` merges them."""
+    b, t, c = x.shape
+    m = np.ones((b, t), bool) if mask is None else mask
+    with torch.inference_mode():
+        kern = port.att1.kernel[0]
+        wx, wm, ws = (kern[i * c:(i + 1) * c].numpy() for i in range(3))
+        w2 = port.att2.weight[..., 0].t()
+        wxt, w2t = (a.numpy() for a in tensor_core_weights(kern[:c], w2))
+        bn_s, bn_t = (v.numpy() for v in port.att_bn.folded())
+        b1, b2 = port.att1.bias.numpy(), port.att2.bias.numpy()
+    k, kp = wx.shape[1], wxt.shape[0]
+    assert wxt.shape[1] % 64 == 0 and w2t.shape[0] % 128 == 0 and not wxt[k:].any() and not w2t[c:].any()
+    mf = m.astype(np.float32)[..., None]
+    cnt = np.maximum(mf.sum(1), 1.0)
+    mean = (x * mf).sum(1) / cnt
+    var = ((x * mf * x).sum(1) - cnt * mean * mean) / np.maximum(cnt - 1.0, 1.0)
+    std = np.sqrt(np.maximum(var, 0.0) + 1e-5)
+    pad = lambda v: np.pad(v, [(0, 0)] * (v.ndim - 1) + [(0, kp - k)])
+    glob, bn_s, bn_t = pad(mean @ wm + std @ ws + b1), pad(bn_s), pad(bn_t)
+    n_tiles = -(-t // tile)
+    part = np.zeros((b, n_tiles, 4, c), np.float32)
+    log2e = np.float32(1.4426950408889634)
+    for j in range(n_tiles):
+        fr = slice(j * tile, min(t, (j + 1) * tile))
+        u = x[:, fr] @ wxt[:, :c].T + glob[:, None]  # [B, n, KP]
+        h = np.tanh(np.maximum(u, 0.0) * bn_s + bn_t)
+        a = (h @ w2t[:c].T + b2) * log2e
+        valid = m[:, fr][..., None]
+        a = np.where(valid, a, -np.inf)
+        mx = a.max(1)  # [B, C]
+        with np.errstate(invalid="ignore"):
+            e = np.where(valid & np.isfinite(mx)[:, None], np.exp2(a - mx[:, None]), 0.0)
+        part[:, j] = np.stack([mx / log2e, e.sum(1), (e * x[:, fr]).sum(1), (e * x[:, fr] ** 2).sum(1)], 1)
+    mx = part[:, :, 0].max(1)  # [B, C]
+    with np.errstate(invalid="ignore", over="ignore"):
+        r = np.where(np.isfinite(part[:, :, 0]), np.exp(part[:, :, 0] - mx[:, None]), 0.0)
+    s, n1, n2 = ((r * part[:, :, i]).sum(1) for i in (1, 2, 3))
+    s = np.maximum(s, 1e-30)
+    mean_w = n1 / s
+    return np.concatenate([mean_w, np.sqrt(np.maximum(n2 / s - mean_w ** 2, 1e-5))], -1)
+
+
+# (b, t, c, bottleneck, lengths or None, logit scale)
+TILE_CASES = {
+    "ragged_tiles": (2, 150, 200, 40, (150, 37), 1.0),        # T and C not multiples of a tile or chunk
+    "empty_tiles": (3, 300, 128, 128, (300, 65, 0), 1.0),     # whole tiles without a valid frame, an empty row
+    "large_logits": (2, 200, 128, 128, (200, 120), 300.0),    # logits above 80
+    "k192": (1, 70, 64, 192, None, 1.0),                      # K padded to 256 units
+}
+
+
+@pytest.mark.parametrize("tile", [_T_TILE, 37])  # the kernels' tile, and a ragged one: the merge holds for any
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_tensor_core_plan_matches_plain(case, tile):
+    b, t, c, k, lengths, scale = TILE_CASES[case]
+    x, mask, v, port = _setup(b, t, c, k, lengths, scale, seed=3)
+    got = _tiled_pool(x, mask, port, tile)
+    plain = _port_outputs(x, mask, port)["plain"]
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, plain, atol=2e-4, rtol=2e-4)
+    xla, _ = _jax_refs(x, mask, v, k, with_kernel=False)
+    if lengths is None or min(lengths) > 0:  # the XLA path gives NaN for a row without valid frames
+        np.testing.assert_allclose(got, xla, atol=2e-4, rtol=2e-4)

@@ -6,7 +6,8 @@ tests/conftest.py imports it, so run them as:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerances: log-mel 1e-3 and pooling 2e-4 (f32): both sides sum the same
+Tolerances: log-mel 1e-3 and pooling 2e-4 (f32; 1e-3 where logits of
+several hundred carry their f32 rounding into the softmax): both sides sum the same
 products in f32, in another order (the bf16 DFT runs on the tensor cores
 when the frame shift is a multiple of 8 samples, else on the CUDA cores
 like the f32 DFT). Pooling 2e-2 with bf16 inputs: both
@@ -98,12 +99,12 @@ def test_fbank_kernel_raises_on_unsupported_geometry(card):
         fused_fbank(wave.double())
 
 
-def _pool_inputs(card, b, t, c, k, dtype, lengths, seed=0):
+def _pool_inputs(card, b, t, c, k, dtype, lengths, seed=0, logit_scale=1.0):
     g = torch.Generator(device=card).manual_seed(seed)
     r = lambda *s, scale=1.0: torch.randn(s, generator=g, device=card) * scale
     x = r(b, t, c).to(dtype)
     ws = [r(c, k, scale=c ** -0.5).to(dtype) for _ in range(3)]
-    w2 = r(k, c, scale=k ** -0.5).to(dtype)
+    w2 = r(k, c, scale=logit_scale * k ** -0.5).to(dtype)
     vecs = (r(k, scale=0.1), 1.0 + r(k, scale=0.1), r(k, scale=0.1))
     mask = None if lengths is None else torch.arange(t, device=card)[None, :] < torch.tensor(lengths, device=card)[:, None]
     return (x, *ws, *vecs, w2, r(c, scale=0.1)), mask
@@ -112,10 +113,13 @@ def _pool_inputs(card, b, t, c, k, dtype, lengths, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,c,k,lengths", [
     (2, 300, 256, 128, None),
-    (3, 130, 200, 40, (130, 64, 1)),
-    (2, 65, 128, 256, (65, 0)),
-    (2, 511, 384, 64, (511, 173)),
+    (3, 130, 200, 40, (130, 64, 1)),      # C not a multiple of a channel chunk
+    (2, 65, 128, 256, (65, 0)),           # one frame past a tile; a row without valid frames
+    (2, 511, 384, 64, (511, 173)),        # odd T: the tensor-core kernel's 2-byte loads
     (1, 60000, 128, 64, (59000,)),
+    (2, 63, 1000, 192, (63, 17)),         # T shorter than a tile
+    (1, 1, 128, 128, None),               # T = 1, B = 1
+    (2, 998, 1536, 128, (998, 0)),        # the served T and C
 ])
 def test_att_pooling_kernel_matches_plain(card, dtype, b, t, c, k, lengths):
     args, mask = _pool_inputs(card, b, t, c, k, dtype, lengths)
@@ -124,18 +128,44 @@ def test_att_pooling_kernel_matches_plain(card, dtype, b, t, c, k, lengths):
     ref = fused_attentive_stats_pool_plain(*args, mask=mask)
     torch.cuda.synchronize()
     assert fused_attentive_stats_pool.launches == before + 1
+    assert fused_attentive_stats_pool.last_route == ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
     assert out.shape == (b, 2 * c) and out.dtype == torch.float32
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
-def test_att_pooling_kernel_takes_transposed_view(card):
-    """The model hands over a [B, T, C] view of [B, C, T] memory."""
-    args, mask = _pool_inputs(card, 2, 100, 128, 128, torch.float32, (100, 50))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_att_pooling_kernel_takes_transposed_view(card, dtype):
+    """The model hands over a [B, T, C] view of [B, C, T] memory; the
+    kernel reads it as it lies and gives what it gives on contiguous x."""
+    args, mask = _pool_inputs(card, 2, 100, 128, 128, dtype, (100, 50))
     x_ct = args[0].transpose(1, 2).contiguous()
     out = fused_attentive_stats_pool(x_ct.transpose(1, 2), *args[1:], mask=mask)
     ref = fused_attentive_stats_pool(*args, mask=mask)
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,logit_scale,tol", [(torch.float32, 300.0, 1e-3), (torch.bfloat16, 100.0, 2e-2)])
+@pytest.mark.parametrize("k", [64, 128])
+def test_att_pooling_kernel_mask_holes_and_large_logits(card, dtype, logit_scale, tol, k):
+    """A mask with holes (frame 0 masked, one row empty) and logits of
+    several hundred, on x as the model lays it out; the running max keeps
+    the softmax exact where the TPU kernel's clamp at 80 would not."""
+    b, t, c = 3, 300, 384
+    args, _ = _pool_inputs(card, b, t, c, k, dtype, None, seed=5, logit_scale=logit_scale)
+    g = torch.Generator(device=card).manual_seed(6)
+    mask = torch.rand((b, t), generator=g, device=card) > 0.5
+    mask[:, 0] = False
+    mask[-1] = False
+    x = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    out = fused_attentive_stats_pool(x, *args[1:], mask=mask)
+    ref = fused_attentive_stats_pool_plain(x, *args[1:], mask=mask)
+    h = torch.tanh(torch.relu(x.float() @ args[1].float() + args[4]))
+    assert float((h @ args[7].float()).abs().max()) > 80
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+    floor = torch.cat([torch.zeros(c, device=card), torch.full((c,), 1e-5, device=card).sqrt()])
+    torch.testing.assert_close(out[-1], floor, atol=1e-7, rtol=0)
 
 
 def test_att_pooling_kernel_raises_on_mixed_types(card):
@@ -162,6 +192,11 @@ def _chain_inputs(card, b, t, h, dtype, seed=0, n=7):
     (2, 300, 40, 1, 3),     # another scale, h not a multiple of 32
     (2, 170, 8, 12, 7),     # a wide halo: tiles of 48 frames
     (1, 120, 128, 14, 7),   # the widest halo the tile plan takes: the most shared memory
+    (1, 998, 128, 1, 7),    # the served T, dilation 1, B = 1
+    (2, 998, 128, 3, 7),    # the served shape's rows
+    (2, 333, 128, 8, 7),    # odd T: 2-byte copies of the parts and outputs
+    (2, 100, 32, 2, 7),     # T shorter than one tile
+    (2, 199, 64, 5, 7),
 ])
 def test_res2_chain_kernel_matches_plain(card, dtype, b, t, h, dilation, n):
     args = _chain_inputs(card, b, t, h, dtype, n=n)
@@ -178,20 +213,23 @@ def test_res2_chain_kernel_matches_plain(card, dtype, b, t, h, dilation, n):
     assert float((out.float() - ref.float()).abs().mean()) < 1e-3
 
 
-def test_res2_chain_kernel_row_padding_isolated(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_res2_chain_kernel_row_padding_isolated(card, dtype):
     """Frames past T read as zero at every stage: 16 more frames appended
     leave the head unchanged (tests/test_pallas_res2.py:54-67)."""
-    args = _chain_inputs(card, 1, 197, 128, torch.float32, seed=1)
-    more = torch.randn((1, 16, 1024), generator=torch.Generator(device=card).manual_seed(2), device=card)
+    args = _chain_inputs(card, 1, 197, 128, dtype, seed=1)
+    more = torch.randn((1, 16, 1024), generator=torch.Generator(device=card).manual_seed(2), device=card).to(dtype)
     full = fused_res2_chain(*args, dilation=4)
     full2 = fused_res2_chain(torch.cat([args[0], more], dim=1), *args[1:], dilation=4)
-    torch.testing.assert_close(full[:, :150], full2[:, :150], atol=1e-6, rtol=0)
+    assert fused_res2_chain.last_route == ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+    torch.testing.assert_close(full[:, :150].float(), full2[:, :150].float(), atol=1e-6, rtol=0)
 
 
-def test_res2_chain_kernel_takes_the_models_layout(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_res2_chain_kernel_takes_the_models_layout(card, dtype):
     """The model hands over a [B, T, C] view of [B, C, T] memory and gets
     the same layout back."""
-    args = _chain_inputs(card, 2, 100, 32, torch.float32)
+    args = _chain_inputs(card, 2, 100, 32, dtype)
     x_ct = args[0].transpose(1, 2).contiguous()
     out = fused_res2_chain(x_ct.transpose(1, 2), *args[1:], dilation=2)
     ref = fused_res2_chain(*args, dilation=2)

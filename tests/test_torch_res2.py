@@ -26,7 +26,7 @@ from asv_subtools_tpu.models.ecapa import Res2NetBlock as JaxRes2Net
 from asv_subtools_tpu.nn.pallas_res2 import fused_res2_chain as jax_fused
 from asv_subtools_tpu_torch.models import EcapaTdnn, Res2NetBlock
 from asv_subtools_tpu_torch.nn import fused_res2_chain, fused_res2_chain_plain
-from asv_subtools_tpu_torch.nn.fused_res2 import tile_plan
+from asv_subtools_tpu_torch.nn.fused_res2 import tensor_core_plan, tile_plan
 from asv_subtools_tpu_torch.weights import load_variables
 
 torch.set_num_threads(2)
@@ -169,11 +169,82 @@ def test_tiling_scheme_matches_plain(t, dilation, h):
     np.testing.assert_allclose(_tiled_chain(*args, dilation), _plain(args, dilation), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("t,dilation,tt,tiles", [(998, 2, 167, 6), (998, 3, 143, 7), (998, 4, 143, 7),
-                                                (197, 4, 99, 2), (64, 4, 64, 1)])
+def _tiled_chain_tc(x, w, bias, bn_s, bn_t, d):
+    """The tensor-core kernel's data flow in numpy, f32: the plan of
+    `tensor_core_plan`; each part brought into a [h][SP] buffer from an even
+    frame ta (zero outside [0, T)); the state [rows][h] filled from part 1's
+    buffer; a stage's result plus the buffer's part the next state, in
+    place; the result of the tile's own frames sent out."""
+    bsz, t, c = x.shape
+    n, _, h, _ = w.shape
+    tt, tiles, rows, sp, smem = tensor_core_plan(t, h, n, d)
+    halo = n * d
+    big = tt + 2 * halo  # R, the window's rows
+    assert tt % 2 == 0 and rows >= big and smem > 0
+    out = np.full_like(x, np.nan)
+    out[..., :h] = x[..., :h]
+
+    def fetch(group, ta, frames):
+        buf = np.full((bsz, h, sp), np.nan, np.float32)
+        n_copy = 2 * -(-frames // 2)  # whole 4-byte pairs
+        assert n_copy <= sp
+        fr = ta + np.arange(n_copy)
+        ok = (fr >= 0) & (fr < t)
+        buf[:, :, :n_copy] = 0.0
+        buf[:, :, :n_copy][:, :, ok] = x[:, fr[ok], group * h:(group + 1) * h].transpose(0, 2, 1)
+        return buf
+
+    for tile in range(tiles):
+        t0 = tile * tt
+        tt_n = min(tt, t - t0)
+        wa = (t0 - halo) & ~1
+        p = fetch(1, wa, big + (t0 - halo - wa))
+        state = np.zeros((bsz, rows, h), np.float32)
+        state[:, :big] = p[:, :, (t0 - halo - wa) + np.arange(big)].transpose(0, 2, 1)
+        for s in range(n):
+            lo, hi = (s + 1) * d, big - (s + 1) * d
+            last = s == n - 1
+            ta = (t0 - halo + lo) & ~1
+            if not last:
+                p = fetch(s + 2, ta, (hi - lo) + (t0 - halo + lo - ta))
+            taps = np.concatenate([state[:, lo + (k - 1) * d:hi + (k - 1) * d] for k in range(3)], axis=-1)
+            z = np.maximum(taps @ w[s].reshape(3 * h, h) + bias[s], 0) * bn_s[s] + bn_t[s]
+            frames = t0 - halo + np.arange(lo, hi)
+            z[:, (frames < 0) | (frames >= t)] = 0.0
+            if not last:
+                state[:, lo:hi] = z + p[:, :, frames - ta].transpose(0, 2, 1)
+            own = (frames >= t0) & (frames < t0 + tt_n)
+            out[:, frames[own], (s + 1) * h:(s + 2) * h] = z[:, own]
+    return out
+
+
+@pytest.mark.parametrize("t,dilation,h", [(998, 4, 16), (998, 2, 16), (197, 3, 32), (31, 1, 16), (120, 14, 16),
+                                          (5, 4, 16)])
+def test_tensor_core_plan_matches_plain(t, dilation, h):
+    args = _chain_inputs(1, t, h, seed=9)
+    got = _tiled_chain_tc(*args, dilation)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, _plain(args, dilation), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dilation,fits", [(2, True), (3, True), (4, True), (14, True)])
+def test_tensor_core_plan_fits_shared_memory(dilation, fits):
+    """At the ECAPA width (h = 128) the tensor-core kernel's state, weight
+    ring and part buffer fit one block's shared memory up to dilation 14."""
+    from asv_subtools_tpu_torch.kernels._build import SMEM_LIMIT
+
+    tt, tiles, rows, sp, smem = tensor_core_plan(998, 128, SCALE - 1, dilation)
+    assert (smem <= SMEM_LIMIT) == fits
+    assert sp % 64 == 8 and sp >= tt + 2 * (SCALE - 1) * dilation + 2
+    assert rows == SCALE * dilation + 192
+
+
+@pytest.mark.parametrize("t,dilation,tt,tiles", [(998, 2, 168, 6), (998, 3, 144, 7), (998, 4, 144, 7),
+                                                (197, 4, 100, 2), (64, 4, 64, 1)])
 def test_tile_plan(t, dilation, tt, tiles):
     got_tt, got_tiles, rp = tile_plan(t, SCALE - 1, dilation)
     assert (got_tt, got_tiles) == (tt, tiles)
+    assert got_tt % 2 == 0 and got_tt + 2 * (SCALE - 2) * dilation <= 192 and got_tiles * got_tt >= t
     assert rp % 2 == 1 and rp >= 8 * dilation + 192
 
 

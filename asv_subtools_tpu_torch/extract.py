@@ -21,8 +21,7 @@ import torch
 
 from .device import resolve_device
 from .features.config import FbankOptions
-from .features.functional import cmvn_utterance
-from .features.fused_fbank import fused_fbank
+from .features.fused_fbank import wave_features
 from .io.kaldi import ArkScpWriter
 
 
@@ -43,18 +42,9 @@ def make_wave_embed_fn(model_apply: Callable, fbank_opts: Optional[FbankOptions]
     kernel (bf16 DFT, no energy) + masked CMVN + model, on the tensors'
     device. Padded frames are zeroed after CMVN, as in feature mode."""
     opts = fbank_opts or FbankOptions()
-    shift, win = opts.frame_opts.window_shift, opts.frame_opts.window_size
 
     def embed(wave: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        feats, _ = fused_fbank(wave, opts, dft_dtype=torch.bfloat16, with_energy=False)
-        n_samples = mask.sum(1)
-        n_frames = torch.clamp_min((n_samples - win) // shift + 1, 1)
-        t = feats.shape[1]
-        fmask = torch.arange(t, device=feats.device)[None, :] < n_frames[:, None]
-        feats = cmvn_utterance(feats, mask=fmask)
-        # fbank of padding is log(eps), not zero: zero it, as feature-mode
-        # bucketing (and conv zero padding) would
-        feats = feats * fmask[..., None]
+        feats, fmask = wave_features(wave, mask, opts, torch.bfloat16)
         if dtype is not None:
             feats = feats.to(dtype)
         return model_apply(feats, fmask)

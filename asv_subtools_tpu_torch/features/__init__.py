@@ -8,7 +8,7 @@ from .functional import (
     mel_banks,
     power_spectrum,
 )
-from .fused_fbank import fused_fbank, fused_fbank_plain
+from .fused_fbank import fused_fbank, fused_fbank_plain, wave_features
 
 __all__ = [
     "EPSILON",
@@ -24,4 +24,5 @@ __all__ = [
     "fused_fbank_plain",
     "mel_banks",
     "power_spectrum",
+    "wave_features",
 ]

@@ -39,7 +39,7 @@ import torch
 
 from ..kernels import _build
 from .config import EPSILON, FbankOptions
-from .functional import check_extraction_options, dft_matrices, feature_window, mel_banks
+from .functional import check_extraction_options, cmvn_utterance, dft_matrices, feature_window, mel_banks
 
 _CHUNK = 16      # folded-matrix rows per shared-memory chunk of the CUDA-core kernel in csrc/fbank.cu
 _MMA_CHUNK = 32  # rows per ring stage of the tensor-core kernel (kKC there)
@@ -273,3 +273,26 @@ def fused_fbank(
 
 fused_fbank.launches = 0
 fused_fbank.last_route = None
+
+
+def wave_features(
+    wave: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    opts: FbankOptions,
+    dft_dtype: torch.dtype,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The front end of serving and of the wave-input train step: wave
+    [B, S] and its sample mask -> (CMVN'd log-mel [B, T, bins] f32, frame
+    mask [B, T]).
+
+    Frame b is valid while ``t < max((n_b - window)//shift + 1, 1)`` with
+    n_b the valid samples; CMVN runs over the valid frames and the others
+    are zeroed (the fbank of padding is log(eps), not zero). Without a
+    sample mask every frame counts and nothing is zeroed."""
+    feats, _ = fused_fbank(wave, opts, dft_dtype=dft_dtype, with_energy=False)
+    if mask is None:
+        return cmvn_utterance(feats), None
+    shift, win = opts.frame_opts.window_shift, opts.frame_opts.window_size
+    n_frames = torch.clamp_min((mask.sum(1) - win) // shift + 1, 1)
+    fmask = torch.arange(feats.shape[1], device=feats.device)[None, :] < n_frames[:, None]
+    return cmvn_utterance(feats, mask=fmask) * fmask[..., None], fmask

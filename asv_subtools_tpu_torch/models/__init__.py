@@ -1,5 +1,5 @@
 from .ecapa import EcapaAttentiveStatsPool, EcapaTdnn, Res2NetBlock, SEConnect, SERes2Block
-from .framework import chunk_utterance, l2_norm
+from .framework import SpeakerNet, chunk_utterance, l2_norm
 from .resnet_xvector import ResNetXvector
 
 __all__ = [
@@ -9,6 +9,7 @@ __all__ = [
     "ResNetXvector",
     "SEConnect",
     "SERes2Block",
+    "SpeakerNet",
     "chunk_utterance",
     "l2_norm",
 ]

@@ -1,9 +1,11 @@
-"""ECAPA-TDNN x-vector at inference (counterpart: asv_subtools_tpu/models/ecapa.py:26-379).
+"""ECAPA-TDNN x-vector (counterpart: asv_subtools_tpu/models/ecapa.py:26-379).
 
 Emphasized Channel Attention, Propagation and Aggregation TDNN
-(https://arxiv.org/abs/2005.07143), eval mode, with the ECAPA attentive
-statistics pooling. Module and parameter names follow the flax modules,
-so weights.py maps a JAX variable tree onto this state_dict by rule.
+(https://arxiv.org/abs/2005.07143) with the ECAPA attentive statistics
+pooling, in eval mode (running statistics) and train mode
+(``module.training``: masked batch statistics, dropout). Module and
+parameter names follow the flax modules, so weights.py maps a JAX
+variable tree onto this state_dict by rule.
 
 Layout: the public input is channels-last ``[B, T, D]`` with a ``[B, T]``
 mask (True = valid). The model transposes once to ``[B, C, T]``, the
@@ -11,8 +13,12 @@ layout of ``F.conv1d``, and holds it to the pooling, which receives a
 ``[B, T, C]`` view of that memory (no copy).
 
 Padding semantics are the JAX model's: layers do not zero padded frames
-between them; only SEConnect, the attentive pooling (and, before the
-model, CMVN) see the mask. Dropout and the other poolings come later.
+between them; SEConnect, the attentive pooling, the BatchNorms of the
+frame-level layers in train mode (and, before the model, CMVN) see the
+mask. The pooled-level BatchNorms (``bn_stats``, ``fc1_bn``, ``fc2_bn``)
+take no mask. The fused kernels serve inference only: with their flags
+set, train mode still takes the unfused path, whose batch statistics
+and gradients they do not compute. The other poolings come later.
 
 Convolutions, 1x1 products and the SE/BN/fc tail are plain PyTorch
 (``F.conv1d``, ``torch.matmul``), as the JAX package leaves them to XLA.
@@ -40,16 +46,25 @@ from ..nn.tdnn import ReluBatchNormTdnnLayer
 SCALE = 8  # Res2Net groups, ECAPA's
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout drawn from ``generator`` (on x's device): each value
+    is kept with probability 1 - rate and scaled by 1 / (1 - rate)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Res2NetBlock(nn.Module):
     """Res2Net multi-scale conv block: group 0 passes through; group i+1
     is convolved (k=3, dilated) after adding the previous group's output.
 
     ``fused_inference=True`` runs the whole chain through the fused kernel
-    (nn/fused_res2.py), with each stage's BN folded from its running
-    statistics; the default is the unfused path, one conv per stage.
+    (nn/fused_res2.py) in eval mode, with each stage's BN folded from its
+    running statistics; the default, and train mode always, is the unfused
+    path, one conv per stage.
     """
 
-    def __init__(self, channels: int, dilation: int = 1, fused_inference: bool = False):
+    def __init__(self, channels: int, dilation: int = 1, fused_inference: bool = False,
+                 momentum: float = 0.5):
         super().__init__()
         self.dilation = dilation
         self.fused_inference = fused_inference
@@ -57,7 +72,7 @@ class Res2NetBlock(nn.Module):
             raise ValueError(f"channels ({channels}) must be a multiple of {SCALE}")
         hidden = channels // SCALE
         context = (-dilation, 0, dilation)
-        self.blocks = [ReluBatchNormTdnnLayer(hidden, hidden, context) for _ in range(SCALE - 1)]
+        self.blocks = [ReluBatchNormTdnnLayer(hidden, hidden, context, momentum) for _ in range(SCALE - 1)]
         for i, block in enumerate(self.blocks):
             self.add_module(f"block_{i}", block)
 
@@ -75,16 +90,16 @@ class Res2NetBlock(nn.Module):
         y = fused_res2_chain(x.transpose(1, 2), *self.chain_args(), dilation=self.dilation)
         return y.transpose(1, 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, C, T] -> [B, C, T]."""
-        if self.fused_inference:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, C, T] -> [B, C, T]; the mask reaches the stages' BN."""
+        if self.fused_inference and not self.training:
             return self._fused(x)
         parts = torch.chunk(x, SCALE, dim=1)
         outs = [parts[0]]
         sp = None
         for i, block in enumerate(self.blocks):
             sp = parts[i + 1] if i == 0 else sp + parts[i + 1]
-            sp = block(sp)
+            sp = block(sp, mask)
             outs.append(sp)
         return torch.cat(outs, dim=1)
 
@@ -113,15 +128,15 @@ class SERes2Block(nn.Module):
     """1x1 conv -> Res2Net -> 1x1 conv -> SE, with residual (in = out
     channels, as in every ECAPA block)."""
 
-    def __init__(self, channels: int, dilation: int = 1):
+    def __init__(self, channels: int, dilation: int = 1, momentum: float = 0.5):
         super().__init__()
-        self.conv1 = ReluBatchNormTdnnLayer(channels, channels)
-        self.res2net = Res2NetBlock(channels, dilation=dilation)
-        self.conv2 = ReluBatchNormTdnnLayer(channels, channels)
+        self.conv1 = ReluBatchNormTdnnLayer(channels, channels, momentum=momentum)
+        self.res2net = Res2NetBlock(channels, dilation=dilation, momentum=momentum)
+        self.conv2 = ReluBatchNormTdnnLayer(channels, channels, momentum=momentum)
         self.se = SEConnect(channels)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        y = self.conv2(self.res2net(self.conv1(x)))
+        y = self.conv2(self.res2net(self.conv1(x, mask), mask), mask)
         return self.se(y, mask) + x
 
 
@@ -150,15 +165,18 @@ class EcapaAttentiveStatsPool(nn.Module):
     """ECAPA channel-wise attentive statistics pooling with global context.
 
     x [B, T, C] -> [B, 2C]. ``fused_inference=True`` runs the whole pooling
-    through the fused kernel (nn/fused_att_pooling.py), as the JAX module's
-    ``fused_inference`` branch does; the default is the unfused path.
+    through the fused kernel (nn/fused_att_pooling.py) in eval mode, as the
+    JAX module's ``fused_inference`` branch does; the default, and train
+    mode always, is the unfused path. ``att_bn`` keeps torch's default
+    momentum 0.1: the reference builds this BN without the model's
+    bn_params (JAX models/ecapa.py:339-343).
     """
 
     def __init__(self, channels: int, bottleneck: int = 128, fused_inference: bool = False):
         super().__init__()
         self.fused_inference = fused_inference
         self.att1 = _SplitGlobalConv(channels, bottleneck)
-        self.att_bn = BatchNorm(bottleneck)
+        self.att_bn = BatchNorm(bottleneck, momentum=0.1)
         self.att2 = nn.Conv1d(bottleneck, channels, 1)
 
     def _fused(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -171,7 +189,7 @@ class EcapaAttentiveStatsPool(nn.Module):
         ).to(x.dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.fused_inference:
+        if self.fused_inference and not self.training:
             return self._fused(x, mask)
         xc = x.transpose(1, 2)  # [B, C, T]
         # global std uses the unbiased variance (ddof=1), the reference's
@@ -186,7 +204,7 @@ class EcapaAttentiveStatsPool(nn.Module):
             var = xc.var(-1, keepdim=True, unbiased=True)
         std = torch.sqrt(var + 1e-5)
         a = self.att1(xc, mean[..., 0], std[..., 0])
-        a = torch.tanh(self.att_bn(torch.relu(a)))
+        a = torch.tanh(self.att_bn(torch.relu(a), mask))
         a = self.att2(a)  # [B, C, T] per-channel time logits
         if mask is not None:
             a = a.masked_fill(~mask[:, None, :], float("-inf"))
@@ -198,11 +216,15 @@ class EcapaAttentiveStatsPool(nn.Module):
 
 
 class EcapaTdnn(nn.Module):
-    """ECAPA-TDNN backbone -> speaker embedding (the "near" position: fc2
-    affine, relu, BN). C1024 is ``channels=1024``, the voxceleb recipe's.
+    """ECAPA-TDNN backbone -> speaker embedding. C1024 is ``channels=1024``,
+    the voxceleb recipe's. ``position`` picks the output: "near" (fc2
+    affine, relu, BN; the default), "near_affine" (fc2 affine) or "far"
+    (fc1 affine, with ``fc1=True``).
 
     Built on ``device`` (the CUDA card unless ``device="cpu"``; raises
-    without a card). Cast with ``.to(torch.bfloat16)`` for serving.
+    without a card), in eval mode. Cast with ``.to(torch.bfloat16)`` for
+    serving; training runs it in train mode with a cast copy of f32 master
+    weights (train/trainer.py).
     """
 
     def __init__(
@@ -211,28 +233,56 @@ class EcapaTdnn(nn.Module):
         channels: int = 1024,
         embd_dim: int = 192,
         mfa_conv: int = 1536,
+        fc1: bool = False,
+        momentum: float = 0.5,
+        aug_dropout: float = 0.0,
+        tail_dropout: float = 0.0,
         device: Any = None,
     ):
         super().__init__()
         c = channels
-        self.layer1 = ReluBatchNormTdnnLayer(input_dim, c, context=(-2, -1, 0, 1, 2))
-        self.layer2 = SERes2Block(c, dilation=2)
-        self.layer3 = SERes2Block(c, dilation=3)
-        self.layer4 = SERes2Block(c, dilation=4)
-        self.mfa = ReluBatchNormTdnnLayer(3 * c, mfa_conv)
+        self.embd_dim, self.aug_dropout, self.tail_dropout = embd_dim, aug_dropout, tail_dropout
+        self.layer1 = ReluBatchNormTdnnLayer(input_dim, c, context=(-2, -1, 0, 1, 2), momentum=momentum)
+        self.layer2 = SERes2Block(c, dilation=2, momentum=momentum)
+        self.layer3 = SERes2Block(c, dilation=3, momentum=momentum)
+        self.layer4 = SERes2Block(c, dilation=4, momentum=momentum)
+        self.mfa = ReluBatchNormTdnnLayer(3 * c, mfa_conv, momentum=momentum)
         self.stats = EcapaAttentiveStatsPool(mfa_conv)
-        self.bn_stats = BatchNorm(2 * mfa_conv)
-        self.fc2_affine = nn.Linear(2 * mfa_conv, embd_dim)
-        self.fc2_bn = BatchNorm(embd_dim)
+        self.bn_stats = BatchNorm(2 * mfa_conv, momentum=momentum)
+        fc2_in = 2 * mfa_conv
+        if fc1:
+            self.fc1_affine = nn.Linear(2 * mfa_conv, embd_dim)
+            self.fc1_bn = BatchNorm(embd_dim, momentum=momentum)
+            fc2_in = embd_dim
+        self.fc1 = fc1
+        self.fc2_affine = nn.Linear(fc2_in, embd_dim)
+        self.fc2_bn = BatchNorm(embd_dim, momentum=momentum)
         self.eval()
         self.to(resolve_device(device))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x [B, T, D] (channels-last), mask [B, T] -> embedding [B, embd_dim]."""
-        h = self.layer1(x.transpose(1, 2))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, position: str = "near",
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x [B, T, D] (channels-last), mask [B, T] -> embedding [B, embd_dim].
+        ``generator`` draws the dropout masks in train mode."""
+        if self.aug_dropout > 0 and self.training:
+            x = dropout(x, self.aug_dropout, generator)
+        h = self.layer1(x.transpose(1, 2), mask)
         x1 = self.layer2(h, mask)
         x2 = self.layer3(h + x1, mask)
         x3 = self.layer4(h + x1 + x2, mask)
-        y = self.mfa(torch.cat([x1, x2, x3], dim=1))
-        stats = self.bn_stats(self.stats(y.transpose(1, 2), mask))
-        return self.fc2_bn(F.relu(self.fc2_affine(stats)))
+        y = self.mfa(torch.cat([x1, x2, x3], dim=1), mask)
+        h = self.bn_stats(self.stats(y.transpose(1, 2), mask))
+        if self.fc1:
+            z1 = self.fc1_affine(h)
+            if position == "far":
+                return z1
+            h = self.fc1_bn(F.relu(z1))
+        elif position == "far":
+            raise ValueError("position='far' requires fc1=True")
+        z = self.fc2_affine(h)
+        if position == "near_affine":
+            return z
+        z = self.fc2_bn(F.relu(z))
+        if self.tail_dropout > 0 and self.training:
+            z = dropout(z, self.tail_dropout, generator)
+        return z

@@ -1,11 +1,49 @@
-"""Embedding helpers (counterpart: asv_subtools_tpu/models/framework.py:81-124)."""
+"""The trainable unit and embedding helpers (counterpart: asv_subtools_tpu/models/framework.py)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
+
+from ..nn.loss import LOSSES, Scalar
+
+# losses of the JAX zoo the port does not carry yet
+_NOT_PORTED = ("softmax", "focal", "logistic_affinity", "ocsoftmax")
+
+
+class SpeakerNet(nn.Module):
+    """Backbone + loss head, the trainable unit (JAX framework.py:31-80).
+
+    The backbone maps ``[B, T, D]`` (and a ``[B, T]`` mask) to ``[B, E]``
+    and names its embedding width ``embd_dim``; ``loss_name`` and
+    ``loss_params`` pick the head from :data:`~asv_subtools_tpu_torch.nn.loss.LOSSES`,
+    which owns the classifier weight (``loss.weight``, ``[C * sub_k, E]``
+    for the margin losses). The head is built on the backbone's device.
+    """
+
+    def __init__(self, backbone: nn.Module, loss_name: str = "margin_softmax",
+                 loss_params: Optional[dict] = None, num_targets: int = 0):
+        super().__init__()
+        if loss_name in _NOT_PORTED:
+            raise NotImplementedError(f"loss {loss_name!r} is not ported yet")
+        self.backbone = backbone
+        self.loss = LOSSES[loss_name](backbone.embd_dim, num_targets, **(loss_params or {}))
+        self.loss.to(next(backbone.parameters()).device)
+        self.train(backbone.training)
+
+    def forward(self, x: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                lambda_m: Scalar = 1.0, margin_offset: Scalar = 0.0,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """-> (loss, logits, embeddings); the margin applies in train mode."""
+        emb = self.backbone(x, mask, generator=generator)
+        loss, logits = self.loss(emb, targets, lambda_m=lambda_m, margin_offset=margin_offset)
+        return loss, logits, emb
+
+    def embed(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, position: str = "near") -> torch.Tensor:
+        return self.backbone(x, mask, position=position)
 
 
 def chunk_utterance(feats: np.ndarray, max_chunk: int = 10000) -> Tuple[np.ndarray, np.ndarray]:

@@ -1,0 +1,292 @@
+"""Classification losses for speaker recognition (counterpart: asv_subtools_tpu/nn/loss.py).
+
+Each loss is a module that owns its classifier weight;
+``forward(embeddings, targets, lambda_m, margin_offset)`` returns
+``(loss, logits)``, where logits are the scaled cosines before the margin
+(what accuracy is read from). Train mode (``module.training``) applies the
+margin; eval mode returns the cross entropy of the plain logits.
+
+The cosine product and all margin trigonometry run in float32 whatever
+the compute type (the reference forces f32 under AMP there); as in the JAX
+module, :class:`MarginSoftmaxLoss` keeps float64 in float64 and
+:class:`MarginSoftmaxLossV1` computes in float32 always. Thresholds and
+hard-example masks carry no gradient. ``lambda_m`` and ``margin_offset`` may be floats or tensors on
+the device, so a margin schedule costs no host sync.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_EPS = 1.0e-10
+Scalar = Union[float, torch.Tensor]
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, label_smoothing: float = 0.0,
+                  reduction: str = "mean") -> torch.Tensor:
+    """Cross entropy over int targets, with label smoothing (mean of -log p
+    over the classes, weighted by the smoothing)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+    if label_smoothing > 0.0:
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * (-logp.mean(-1))
+    if reduction == "mean":
+        return nll.mean()
+    if reduction == "sum":
+        return nll.sum()
+    return nll
+
+
+def accuracy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    return (logits.argmax(-1) == targets).to(torch.float32).mean()
+
+
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=-1, keepdim=True), eps)
+
+
+def _margin(m: float, offset: Scalar) -> Scalar:
+    """max(m + offset, 0): a float for a float offset, a tensor for a
+    tensor. Numbers stay Python numbers: a tensor made from one on the card
+    would be a blocking host-to-device copy."""
+    if isinstance(offset, torch.Tensor):
+        return torch.clamp_min(offset + m, 0.0)
+    return max(m + offset, 0.0)
+
+
+class MarginSoftmaxLoss(nn.Module):
+    """AM / AAM / SM1-3 margin softmax with the reference's extras: double
+    margin, ring loss, minimum hyperspherical energy, inter loss and the
+    CurricularFace component. ``weight`` is ``[num_targets, D]``."""
+
+    def __init__(self, input_dim: int, num_targets: int, m: float = 0.2, s: float = 30.0, t: float = 1.0,
+                 method: str = "am", double: bool = False, feature_normalize: bool = True,
+                 mhe_loss: bool = False, mhe_w: float = 0.01, inter_loss: float = 0.0,
+                 ring_loss: float = 0.0, curricular: bool = False, label_smoothing: float = 0.0,
+                 eps: float = _EPS):
+        super().__init__()
+        if method not in ("am", "aam", "sm1", "sm2", "sm3"):
+            raise ValueError(f"Unknown margin method {method!r}")
+        self.num_targets, self.m, self.s, self.t, self.method = num_targets, m, s, t, method
+        self.double_margin, self.feature_normalize = double, feature_normalize
+        self.mhe_loss, self.mhe_w, self.inter_loss = mhe_loss, mhe_w, inter_loss
+        self.ring_loss, self.curricular = ring_loss, curricular
+        self.label_smoothing, self.eps = label_smoothing, eps
+        self.weight = nn.Parameter(torch.randn(num_targets, input_dim) * 0.01)
+        if ring_loss > 0:
+            self.ring_r = nn.Parameter(torch.tensor(20.0))
+        if curricular:
+            self.register_buffer("curricular_t", torch.zeros(()))
+
+    def forward(self, embeddings: torch.Tensor, targets: torch.Tensor, lambda_m: Scalar = 1.0,
+                margin_offset: Scalar = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+        x32, w32 = _at_least_f32(embeddings), _at_least_f32(self.weight)
+        cos = _normalize(x32) @ _normalize(w32).t()
+        if self.feature_normalize:
+            scale = self.s
+        else:
+            scale = torch.linalg.vector_norm(x32, dim=-1, keepdim=True)
+        logits = scale * cos
+        if not self.training:
+            return cross_entropy(logits, targets, self.label_smoothing), logits
+
+        m = _margin(self.m, margin_offset)
+        onehot = F.one_hot(targets.long(), self.num_targets).to(cos.dtype)
+        cos_t = (cos * onehot).sum(-1, keepdim=True)
+        cos_others = cos
+        if self.method == "am":
+            pen_t = cos_t - m
+            if self.double_margin:
+                cos_others = cos + m
+        elif self.method == "aam":
+            pen_t = torch.cos(torch.arccos(torch.clamp(cos_t, -1.0, 1.0)) + m)
+            if self.double_margin:
+                cos_others = torch.cos(torch.arccos(torch.clamp(cos, -1.0, 1.0)) - m)
+        elif self.method == "sm1":
+            pen_t = (1.0 + m) * cos_t - m
+        elif self.method == "sm2":
+            pen_t = cos_t - (1.0 - cos_t ** 2) * m
+        else:
+            pen_t = cos_t - (1.0 - cos_t) ** 2 * m
+
+        lam = lambda_m
+        pen_t = lam * pen_t + (1.0 - lam) * cos_t
+        if self.double_margin:
+            cos_others = lam * cos_others + (1.0 - lam) * cos
+        if self.curricular:
+            # the buffer moves before the hard-example rescale reads it
+            # (momentum 0.01), as the reference's CurricularMarginComponent
+            tv = 0.99 * cos_t.detach().mean() + 0.01 * self.curricular_t
+            hard = cos_others > pen_t
+            cos_others = torch.where(hard, cos_others * (tv + cos_others), cos_others)
+            self.curricular_t = tv.to(self.curricular_t.dtype)
+
+        out = scale * torch.where(onehot > 0, pen_t, cos_others)
+        loss = cross_entropy(out / self.t, targets, self.label_smoothing)
+        if self.ring_loss > 0:
+            loss = loss + self.ring_loss * ((scale - self.ring_r) ** 2).mean() / 2.0
+        if self.mhe_loss:
+            wn = _normalize(w32)
+            d2 = ((wn[None, :, :] - wn[targets.long()][:, None, :]) ** 2).sum(-1)
+            d2 = torch.where(onehot > 0, torch.full_like(d2, math.inf), torch.clamp_min(d2, self.eps))
+            energy = torch.where(onehot > 0, torch.zeros_like(d2), 1.0 / d2)
+            loss = loss + self.mhe_w * energy.sum() / (targets.shape[0] * (self.num_targets - 1))
+        if self.inter_loss > 0:
+            p = torch.softmax(scale * cos, dim=-1)
+            p_t = (p * onehot).sum(-1)
+            inter = torch.log((p.sum(-1) - p_t) / (self.num_targets - 1) + self.eps)
+            loss = loss + self.inter_loss * inter.mean()
+        return loss, logits
+
+
+class MarginSoftmaxLossV1(nn.Module):
+    """Sub-center margin softmax with an adaptive inter-class margin.
+
+    ``sub_k`` sub-centres per class (the cosine is their max);
+    ``adapt_method`` "topk" adds ``ada_m / m`` of the margin to each row's
+    ``topk`` hardest non-target classes, "batch_mean" to those above the
+    batch's mean target cosine less ``lambda_bm`` (and takes half of it off
+    every class), None adds none; ``loss_type`` "softmax" or "rectangle".
+    ``weight`` is ``[num_targets * sub_k, D]``, class-major.
+    """
+
+    def __init__(self, input_dim: int, num_targets: int, sub_k: int = 1, method: str = "am", m: float = 0.2,
+                 adapt_method: Optional[str] = None, ada_m: float = 0.1, s: float = 30.0, topk: int = 5,
+                 lambda_bm: float = 0.1, loss_type: str = "softmax", label_smoothing: float = 0.0,
+                 eps: float = _EPS):
+        super().__init__()
+        if method not in ("am", "aam"):
+            raise ValueError(f"Unknown margin method {method!r}")
+        if adapt_method not in ("topk", "batch_mean", None):
+            raise ValueError(f"Unknown adapt_method {adapt_method!r}")
+        if loss_type not in ("softmax", "rectangle"):
+            raise ValueError(f"Unsupported loss type {loss_type!r}")
+        self.num_targets, self.sub_k = num_targets, max(1, sub_k)
+        self.method, self.m, self.adapt_method, self.ada_m, self.s = method, m, adapt_method, ada_m, s
+        self.topk, self.lambda_bm, self.loss_type = topk, lambda_bm, loss_type
+        self.label_smoothing, self.eps = label_smoothing, eps
+        self.weight = nn.Parameter(torch.randn(num_targets * self.sub_k, input_dim) * 0.01)
+
+    def forward(self, embeddings: torch.Tensor, targets: torch.Tensor, lambda_m: Scalar = 1.0,
+                margin_offset: Scalar = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+        c, k = self.num_targets, self.sub_k
+        cos = _normalize(embeddings.float()) @ _normalize(self.weight.float()).t()
+        if k > 1:
+            cos = cos.view(-1, c, k).amax(-1)
+        logits = self.s * cos
+        if not self.training:
+            return cross_entropy(logits, targets, self.label_smoothing), logits
+
+        add_m = _margin(self.m, margin_offset)
+        ada_scale = self.ada_m / self.m
+        onehot = F.one_hot(targets.long(), c).to(cos.dtype)
+        cos_t = (cos * onehot).sum(-1, keepdim=True)
+        cos_n = cos.masked_fill(onehot > 0, -math.inf)
+        if self.adapt_method == "topk":
+            with torch.no_grad():
+                th = torch.topk(cos_n, self.topk, dim=-1).values[:, -1:]
+                hard = (cos_n >= th).to(cos.dtype)
+            hard_margin = ada_scale * add_m * hard
+        elif self.adapt_method == "batch_mean":
+            with torch.no_grad():
+                th = cos_t.mean() - self.lambda_bm
+                hard = (cos_n >= th).to(cos.dtype)
+            hard_margin = ada_scale * add_m * hard - ada_scale * add_m / 2.0
+        else:
+            hard_margin = torch.zeros_like(cos)
+
+        if self.method == "am":
+            pen = torch.where(onehot > 0, cos_t, cos_n + hard_margin + add_m)
+        else:
+            pen_t = torch.cos(torch.arccos(torch.clamp(cos_t, -1.0, 1.0)) + add_m)
+            if self.adapt_method:
+                pen_n = torch.cos(torch.arccos(torch.clamp(cos, -1.0, 1.0)) - hard_margin)
+            else:
+                pen_n = cos
+            pen = torch.where(onehot > 0, pen_t, pen_n)
+
+        lam = lambda_m
+        if self.loss_type == "softmax":
+            pen = lam * pen + (1.0 - lam) * cos
+            return cross_entropy(self.s * pen, targets, self.label_smoothing), logits
+        bs = targets.shape[0]
+        pen_n_only = pen.masked_fill(onehot > 0, -math.inf)
+        avg_nlog = torch.logsumexp((self.s * pen_n_only).flatten(), 0) - math.log(bs)
+        rect = F.softplus(-self.s * torch.where(onehot > 0, pen, torch.zeros_like(pen)).sum(-1) + avg_nlog)
+        ce = cross_entropy(self.s * cos, targets, self.label_smoothing)
+        return (1.0 - lam) * ce + lam * rect.sum() / bs, logits
+
+
+class MarginWarm:
+    """Margin warm-up schedule (reference loss.py:399-465), host-side.
+
+    Between start_epoch and end_epoch the margin offset decays
+    exponentially from ``offset_margin`` (usually negative) to 0 while
+    lambda rises linearly from ``init_lambda`` to 1. ``step(cur_step)``
+    returns (offset_margin, lambda_m) to feed the loss.
+    """
+
+    def __init__(self, start_epoch: int, end_epoch: int, offset_margin: float = 0.0, init_lambda: float = 1.0,
+                 epoch_iter: Optional[int] = None):
+        if end_epoch < start_epoch:
+            raise ValueError("end_epoch must be >= start_epoch")
+        if not 0.0 <= init_lambda <= 1.0:
+            raise ValueError("init_lambda must be in [0, 1]")
+        self.start_epoch = start_epoch
+        self.end_epoch = end_epoch
+        self.offset_margin = offset_margin
+        self.init_lambda = init_lambda
+        self.epoch_iter = epoch_iter
+        if epoch_iter:
+            self.update_step_range(epoch_iter, overwrite=True)
+
+    def update_step_range(self, epoch_iter: int, overwrite: bool = False) -> None:
+        if not overwrite and self.epoch_iter:
+            raise ValueError("epoch_iter already set")
+        self.epoch_iter = epoch_iter
+        self.increase_start_iter = (self.start_epoch - 1) * epoch_iter
+        self.fix_start_iter = (self.end_epoch - 1) * epoch_iter
+        self.step_range = max(1, self.fix_start_iter - self.increase_start_iter)
+
+    def step(self, cur_step: int) -> Tuple[float, float]:
+        if not self.epoch_iter or self.epoch_iter < 0:
+            raise ValueError("epoch_iter must be set before stepping")
+        if cur_step >= self.fix_start_iter:
+            return 0.0, 1.0
+        if cur_step <= self.increase_start_iter:
+            return self.offset_margin, self.init_lambda
+        pos = cur_step - self.increase_start_iter
+        ratio = math.exp((pos / self.step_range) * math.log(1e-3))
+        lam = self.init_lambda + (pos / self.step_range) * (1.0 - self.init_lambda)
+        return self.offset_margin * ratio, lam
+
+
+class LambdaMAnneal:
+    """A-softmax-style lambda annealing (reference snowdar_xvector.py:355-387):
+    ``lambda_m = 1 / (1 + max(lambda_0, lambda_b * (1 + gamma*step)**-alpha))``.
+    Same interface as :class:`MarginWarm`."""
+
+    def __init__(self, lambda_0: float = 0.0, lambda_b: float = 1000.0, alpha: float = 5.0, gamma: float = 1e-4):
+        self.lambda_0 = lambda_0
+        self.lambda_b = lambda_b
+        self.alpha = alpha
+        self.gamma = gamma
+
+    def step(self, cur_step: int) -> Tuple[float, float]:
+        factor = max(self.lambda_0, self.lambda_b * (1.0 + self.gamma * cur_step) ** (-self.alpha))
+        return 0.0, 1.0 / (1.0 + factor)
+
+
+LOSSES = {
+    "margin_softmax": MarginSoftmaxLoss,
+    "margin_softmax_v1": MarginSoftmaxLossV1,
+}

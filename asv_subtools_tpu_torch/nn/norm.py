@@ -1,15 +1,26 @@
-"""BatchNorm in eval semantics (counterpart: asv_subtools_tpu/nn/norm.py:26-88).
+"""Masked BatchNorm (counterpart: asv_subtools_tpu/nn/norm.py:26-88).
 
-``y = (x - mean) * rsqrt(var + eps) * scale + bias``, with the statistics
-and the arithmetic in at least float32 and the result cast back to the
-input's type, as the JAX module does. Parameters and buffers keep the
-flax names (``scale``, ``bias``, ``mean``, ``var``) so weights map one to
-one. Features sit on dim 1 (``[B, C]`` or ``[B, C, T]``), the layout the
-port's model holds. Train-mode masked statistics come with the training
-slice.
+Features sit on dim 1 (``[B, C]`` or ``[B, C, T]``), the layout the
+port's model holds; a ``[B, T]`` mask (True = valid) keeps padded frames
+out of the batch statistics, which is why ``torch.nn.BatchNorm1d`` cannot
+stand in for it. Parameters and buffers keep the flax names (``scale``,
+``bias``, ``mean``, ``var``) so weights map one to one.
+
+Train mode (``module.training``) normalises with the masked batch
+statistics, in at least float32 and in the JAX module's one-pass form
+(``var = max(s2/count - mean**2, 0)``), with gradients flowing through
+them. It then replaces the running buffers by torch-style updates
+(``new = (1-m)*old + m*batch``, the running variance unbiased), assigned
+as new tensors rather than written in place: under
+``torch.func.functional_call`` the new values land in the caller's dict
+and the tensors handed in stay as they were. Eval mode uses the running
+statistics, folded into one scale and shift. The result is cast back to
+the input's type in both modes.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -20,9 +31,10 @@ def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    def __init__(self, features: int, epsilon: float = 1e-5):
+    def __init__(self, features: int, epsilon: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -33,10 +45,40 @@ class BatchNorm(nn.Module):
         s = _at_least_f32(self.scale) * torch.rsqrt(_at_least_f32(self.var) + self.epsilon)
         return s, _at_least_f32(self.bias) - _at_least_f32(self.mean) * s
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # the affine is folded first: one f32 multiply-add over the
-        # activations instead of four passes (differs from the unfolded
-        # form in the last f32 bits only)
+    def _batch_stats(self, xf: torch.Tensor, mask: Optional[torch.Tensor]):
+        """(mean, biased var, count / max(count - 1, 1)) over every dim but
+        1; a [B, T] mask of an [B, C, T] input leaves the padded frames out.
+        Without a mask the count is a Python number: a tensor made from it
+        on the card would be a blocking host-to-device copy."""
+        dims = (0,) + tuple(range(2, xf.dim()))
+        if mask is not None:
+            m = mask.to(xf.dtype)[:, None, :]
+            count = torch.clamp_min(m.sum(), 1.0)
+            s1 = (xf * m).sum(dims)
+            s2 = (xf * xf * m).sum(dims)
+            bessel = count / torch.clamp_min(count - 1.0, 1.0)
+        else:
+            count = float(max(xf.numel() // xf.shape[1], 1))
+            s1 = xf.sum(dims)
+            s2 = (xf * xf).sum(dims)
+            bessel = count / max(count - 1.0, 1.0)
+        mean = s1 / count
+        return mean, torch.clamp_min(s2 / count - mean * mean, 0.0), bessel
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        s, t = self.folded()
-        return torch.addcmul(t.view(shape), _at_least_f32(x), s.view(shape)).to(x.dtype)
+        if not self.training:
+            # the affine is folded first: one f32 multiply-add over the
+            # activations instead of four passes (differs from the unfolded
+            # form in the last f32 bits only)
+            s, t = self.folded()
+            return torch.addcmul(t.view(shape), _at_least_f32(x), s.view(shape)).to(x.dtype)
+        xf = _at_least_f32(x)
+        mean, var, bessel = self._batch_stats(xf, mask)
+        with torch.no_grad():
+            m = self.momentum
+            unbiased = var * bessel
+            self.mean = ((1 - m) * self.mean + m * mean).to(self.mean.dtype)
+            self.var = ((1 - m) * self.var + m * unbiased).to(self.var.dtype)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.epsilon)
+        return (y * self.scale.view(shape) + self.bias.view(shape)).to(x.dtype)

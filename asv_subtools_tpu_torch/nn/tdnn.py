@@ -3,12 +3,14 @@
 Inside the port's model activations are ``[B, C, T]``, the layout of
 ``F.conv1d``, so a layer needs no transpose. ``TdnnAffine`` covers evenly
 spaced contexts (a dilated conv with zero "same" padding); irregular
-contexts, int8 and groups come later. Eval semantics only.
+contexts, int8 and groups come later. The layers hand a ``[B, T]`` mask
+to their BatchNorm, whose train mode leaves padded frames out of the
+batch statistics.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,24 +56,25 @@ class TdnnAffine(nn.Module):
 class ActivationBatchNorm(nn.Module):
     """relu then BatchNorm (the ECAPA order, bn_relu=False)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, momentum: float = 0.1):
         super().__init__()
-        self.bn = BatchNorm(features)
+        self.bn = BatchNorm(features, momentum=momentum)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(torch.relu(x))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.bn(torch.relu(x), mask)
 
 
 class ReluBatchNormTdnnLayer(nn.Module):
     """TdnnAffine + ReLU + BN, the standard x-vector layer."""
 
-    def __init__(self, input_dim: int, output_dim: int, context: Sequence[int] = (0,)):
+    def __init__(self, input_dim: int, output_dim: int, context: Sequence[int] = (0,),
+                 momentum: float = 0.1):
         super().__init__()
         self.affine = TdnnAffine(input_dim, output_dim, context)
-        self.act_bn = ActivationBatchNorm(output_dim)
+        self.act_bn = ActivationBatchNorm(output_dim, momentum)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act_bn(self.affine(x))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.act_bn(self.affine(x), mask)
 
 
 class SEBlock2D(nn.Module):

@@ -1,0 +1,188 @@
+"""The train step (counterpart: asv_subtools_tpu/train/trainer.py:56-376).
+
+One call of the step runs the whole optimisation step on the state's
+device: (in wave mode) the fused fbank kernel and utterance CMVN, the
+forward in the compute type, the loss, the backward, the global-norm clip
+(``max_change``), the optimizer and the BatchNorm running statistics.
+
+* The state is functional. ``TrainState`` holds the f32 master weights
+  and the BN buffers as dicts keyed by the net's state_dict names; the
+  step runs the net through ``torch.func.functional_call`` on weights cast
+  to the compute type (so their gradients land on the f32 masters), hands
+  in a copy of the BN buffers and takes the buffers the net assigned back
+  out. The net's own parameters are never read or written.
+* ``accum_grad`` microbatches run one after another; the BN running
+  statistics chain from one to the next, gradients, loss and accuracy
+  are averaged.
+* A non-finite loss or gradient norm keeps the old weights, optimizer
+  state and BN statistics through ``torch.where`` on the device; the step
+  counter advances all the same. No metric leaves the device: the step
+  never syncs with the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..features.config import FbankOptions
+from ..features.fused_fbank import wave_features
+from ..nn.loss import accuracy as compute_accuracy
+from .optim import GradientTransformation
+
+Tensors = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: torch.Tensor  # int32, 0-dim
+    params: Tensors  # master weights, f32 (f64 in float64 runs)
+    batch_stats: Tensors  # BatchNorm running statistics
+    opt_state: dict
+
+
+@dataclasses.dataclass
+class TrainStepConfig:
+    max_change: float = 10.0  # clip by global norm
+    accum_grad: int = 1
+    compute_dtype: torch.dtype = torch.bfloat16
+    skip_nonfinite: bool = True
+    # wave mode: batch["x"] is raw audio [B, S] (and "mask" a sample mask);
+    # the fused fbank and CMVN run in the step, the DFT in the compute type
+    # (float32 or bfloat16: the fbank has no float64 mode)
+    wave_input: bool = False
+    fbank_opts: Optional[FbankOptions] = None
+    # SpecAugment on the CMVN'd features ({"num_t_mask", "num_f_mask",
+    # "max_t", "max_f"}), drawn from the step's generator
+    spec_aug: bool = False
+    spec_aug_params: Optional[dict] = None
+    # the JAX step's options the port does not carry yet: setting one raises
+    use_semi_orth: bool = False
+    mixup_alpha: float = 0.0
+    remat: Optional[str] = None
+    model_warmup_steps: int = 0
+
+
+def device_spec_augment(feats: torch.Tensor, generator: torch.Generator, num_t_mask: int = 1,
+                        num_f_mask: int = 1, max_t: int = 50, max_f: int = 10) -> torch.Tensor:
+    """SpecAugment of [B, T, D] features per row: zero ``num_*_mask`` bands
+    of width U[1, max] at a uniform start, a band skipped when its width
+    reaches the axis size (JAX trainer.py:93-125)."""
+    b, t, d = feats.shape
+    dev = feats.device
+
+    def band_mask(nmask: int, size: int, max_w: int) -> torch.Tensor:
+        w = torch.randint(1, max_w + 1, (b, nmask), generator=generator, device=dev)
+        start = (torch.rand((b, nmask), generator=generator, device=dev)
+                 * torch.clamp_min(size - w, 1).to(torch.float32)).to(torch.int64)
+        idx = torch.arange(size, device=dev)[None, :, None]
+        hit = (idx >= start[:, None, :]) & (idx < (start + w)[:, None, :]) & (w < size)[:, None, :]
+        return hit.any(-1)
+
+    tmask = band_mask(num_t_mask, t, max_t)
+    fmask = band_mask(num_f_mask, d, max_f)
+    keep = (~tmask)[:, :, None] & (~fmask)[:, None, :]
+    return feats * keep.to(feats.dtype)
+
+
+def init_train_state(net: nn.Module, tx: GradientTransformation, device: Any = None) -> TrainState:
+    """The state of step 0 from the net's weights and buffers, on ``device``
+    (the CUDA card unless ``device="cpu"``; raises without a card). The net
+    is moved there too, since the step runs it."""
+    dev = resolve_device(device)
+    net.to(dev)
+    params = {k: p.detach().clone() for k, p in net.named_parameters()}
+    batch_stats = {k: b.detach().clone() for k, b in net.named_buffers()}
+    return TrainState(step=torch.zeros((), dtype=torch.int32, device=dev), params=params,
+                      batch_stats=batch_stats, opt_state=tx.init(params))
+
+
+def _keep(finite: torch.Tensor, new: Any, old: Any) -> Any:
+    """new where finite, else old, over nested dicts of tensors."""
+    if isinstance(new, dict):
+        return {k: _keep(finite, new[k], old[k]) for k in new}
+    return torch.where(finite, new, old)
+
+
+def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Optional[Callable] = None,
+                    config: TrainStepConfig = TrainStepConfig()) -> Callable:
+    """Build ``step(state, batch, generator, lambda_m=1.0, margin_offset=0.0,
+    lr_scale=1.0) -> (state, metrics)``.
+
+    batch = {"x": [B, T, D] features or [B, S] waves, "y": [B], optional
+    "mask": [B, T] frames or [B, S] samples}; with ``accum_grad`` > 1, B
+    must be a multiple of it. ``generator`` (on the state's device) draws
+    SpecAugment and dropout. ``lambda_m`` and ``margin_offset`` feed the
+    margin loss, ``lr_scale`` (ReduceOnPlateau's scale) scales the updates,
+    not the gradients. metrics: loss, accuracy, grad_norm, skipped (1.0 on
+    a kept state) and, given ``lr_schedule``, lr at the state's step times
+    lr_scale; all 0-dim tensors on the device.
+    """
+    for name, off in (("use_semi_orth", False), ("mixup_alpha", 0.0), ("remat", None), ("model_warmup_steps", 0)):
+        if getattr(config, name) != off:
+            raise NotImplementedError(f"TrainStepConfig.{name} is not ported yet")
+    opts = config.fbank_opts or FbankOptions()
+    dtype = config.compute_dtype
+
+    def loss_and_grads(params: Tensors, batch_stats: Tensors, x, y, mask, generator, lambda_m, margin_offset):
+        if config.wave_input:
+            # the wave is data: the front end needs no gradient
+            with torch.no_grad():
+                x, mask = wave_features(x, mask, opts, dtype)
+                if config.spec_aug:
+                    x = device_spec_augment(x, generator, **(config.spec_aug_params or {}))
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        tensors = {k: p.to(dtype) if p.dtype == torch.float32 else p for k, p in leaves.items()}
+        tensors.update(batch_stats)
+        loss, logits, _ = torch.func.functional_call(
+            net, tensors, (x.to(dtype), y),
+            dict(mask=mask, lambda_m=lambda_m, margin_offset=margin_offset, generator=generator))
+        loss = loss.float()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        # the buffers the BatchNorms assigned in train mode
+        new_stats = {k: tensors[k] for k in batch_stats}
+        return loss.detach(), compute_accuracy(logits.detach(), y), new_stats, list(grads)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator,
+             lambda_m: Any = 1.0, margin_offset: Any = 0.0, lr_scale: Any = 1.0) -> Tuple[TrainState, dict]:
+        net.train()
+        x, y, mask = batch["x"], batch["y"], batch.get("mask")
+        a = config.accum_grad
+        if x.shape[0] % a:
+            raise ValueError(f"batch {x.shape[0]} not divisible by accum_grad {a}")
+        mb = x.shape[0] // a
+        grads, stats, loss, acc = None, state.batch_stats, 0.0, 0.0
+        for i in range(a):
+            part = slice(i * mb, (i + 1) * mb)
+            loss_i, acc_i, stats, grads_i = loss_and_grads(
+                state.params, stats, x[part], y[part], None if mask is None else mask[part], generator,
+                lambda_m, margin_offset)
+            grads = grads_i if grads is None else torch._foreach_add(grads, grads_i)
+            loss, acc = loss + loss_i, acc + acc_i
+        if a > 1:
+            grads = torch._foreach_div(grads, float(a))
+            loss, acc = loss / a, acc / a
+
+        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        finite = torch.isfinite(gnorm) & torch.isfinite(loss)
+        # the denominator (gnorm + 1e-6) is torch clip_grad_norm_'s
+        grads = torch._foreach_mul(grads, torch.clamp_max(config.max_change / (gnorm + 1e-6), 1.0))
+        names = list(state.params)
+        updates, opt_state = tx.update(dict(zip(names, grads)), state.opt_state, state.params)
+        new_params = dict(zip(names, torch._foreach_add([state.params[k] for k in names],
+                                                         torch._foreach_mul([updates[k] for k in names],
+                                                                            lr_scale))))
+        if config.skip_nonfinite:
+            new_params = _keep(finite, new_params, state.params)
+            opt_state = _keep(finite, opt_state, state.opt_state)
+            stats = _keep(finite, stats, state.batch_stats)
+        metrics = {"loss": loss, "accuracy": acc, "grad_norm": gnorm, "skipped": 1.0 - finite.to(torch.float32)}
+        if lr_schedule is not None:
+            metrics["lr"] = lr_schedule(state.step) * lr_scale
+        return TrainState(step=state.step + 1, params=new_params, batch_stats=stats, opt_state=opt_state), metrics
+
+    return step

@@ -11,7 +11,14 @@ port's modules carry the flax module names, so each leaf maps by rule:
 * the ``_SplitGlobalConv`` kernel (module ``att1``) keeps ``[1, 3C, K]``
   as ``<path>.kernel``;
 * ``bias``, BN ``scale`` (params) and ``mean``, ``var`` (batch_stats) map
-  one to one.
+  one to one; so do the margin losses' classifier ``loss/weight``
+  (``[C * sub_k, D]``), their ring radius ``ring_r`` and the curricular
+  statistic ``curricular_t`` (batch_stats).
+
+A whole train state crosses too (:func:`train_state_from_variables` and
+:func:`train_state_to_variables`): the step, the ``SpeakerNet`` params,
+the batch_stats and the optimizer state, whose moment trees (optax's
+``mu``, ``nu`` or ``trace``) map by the params' rules.
 
 Every leaf is consumed exactly once; a leaf no rule takes raises, and
 :func:`load_variables` raises on any port parameter left unset. The rules
@@ -23,13 +30,19 @@ from __future__ import annotations
 
 import math
 from collections.abc import Mapping
-from typing import Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from .device import resolve_device
+from .train.trainer import TrainState
+
 _SPLIT_CONV = "att1"
+_ONE_TO_ONE_PARAMS = ("bias", "scale", "ring_r")
+_STATS = ("mean", "var", "curricular_t")
+_MARGIN_LOSS = "loss"  # SpeakerNet's head: its "weight" is no Dense kernel
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -43,10 +56,10 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
 def _to_port(collection: str, path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarray]:
     *mods, leaf = path
     key = lambda name: ".".join((*mods, name))
-    if collection == "batch_stats" and leaf in ("mean", "var"):
+    if collection == "batch_stats" and leaf in _STATS:
         return key(leaf), value
     if collection == "params":
-        if leaf in ("bias", "scale"):
+        if leaf in _ONE_TO_ONE_PARAMS or (leaf == "weight" and mods and mods[-1] == _MARGIN_LOSS):
             return key(leaf), value
         if leaf == "kernel" and mods and mods[-1] == _SPLIT_CONV and value.ndim == 3:
             return key("kernel"), value
@@ -80,9 +93,9 @@ def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str,
     for key, tensor in state_dict.items():
         *mods, leaf = key.split(".")
         value = tensor.detach().cpu().numpy()
-        if leaf in ("mean", "var"):
+        if leaf in _STATS:
             collection, name = "batch_stats", leaf
-        elif leaf in ("bias", "scale", "kernel"):
+        elif leaf in _ONE_TO_ONE_PARAMS + ("kernel",) or (leaf == "weight" and mods and mods[-1] == _MARGIN_LOSS):
             collection, name = "params", leaf
         elif leaf == "weight" and value.ndim == 4:
             collection, name, value = "params", "kernel", value.transpose(2, 3, 1, 0)
@@ -133,6 +146,60 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
             elif leaf == "scale":
                 p.fill_(1.0)
     return model
+
+
+def _check_keys(what: str, got: Mapping[str, torch.Tensor], expected: Mapping[str, torch.Tensor]) -> None:
+    missing = sorted(set(expected) - set(got))
+    unexpected = sorted(set(got) - set(expected))
+    if missing or unexpected:
+        raise ValueError(f"{what} do not match the net: missing {missing}, unconsumed {unexpected}")
+    for key, value in got.items():
+        if tuple(value.shape) != tuple(expected[key].shape):
+            raise ValueError(f"{what} {key}: shape {tuple(value.shape)} != {tuple(expected[key].shape)}")
+
+
+def train_state_from_variables(net: nn.Module, tree: Mapping, device: Any = None) -> TrainState:
+    """A JAX train state as numpy trees -> the port's ``TrainState`` for ``net``.
+
+    ``tree = {"step", "params", "batch_stats", "opt_state": {"count", and
+    moment trees such as "mu", "nu" (adam) or "trace" (sgd momentum)}}``.
+    Leaves keep their types; tensors go to ``device`` (the CUDA card unless
+    ``device="cpu"``). Raises on a leaf no rule consumes and on a
+    parameter, buffer or moment left unset."""
+    dev = resolve_device(device)
+    extra = set(tree) - {"step", "params", "batch_stats", "opt_state"}
+    if extra:
+        raise ValueError(f"unexpected train-state entries {sorted(extra)}")
+    state = variables_to_state_dict({"params": tree["params"], "batch_stats": tree["batch_stats"]})
+    named_params, named_buffers = dict(net.named_parameters()), dict(net.named_buffers())
+    params = {k: v for k, v in state.items() if k in named_params}
+    stats = {k: v for k, v in state.items() if k not in named_params}
+    _check_keys("params", params, named_params)
+    _check_keys("batch_stats", stats, named_buffers)
+    opt_state = {"count": torch.as_tensor(np.asarray(tree["opt_state"]["count"]), dtype=torch.int32)}
+    for name, moments in tree["opt_state"].items():
+        if name == "count":
+            continue
+        moment = variables_to_state_dict({"params": moments})
+        _check_keys(f"optimizer {name}", moment, named_params)
+        opt_state[name] = moment
+    to_dev = lambda d: {k: v.to(dev) for k, v in d.items()}
+    return TrainState(
+        step=torch.as_tensor(np.asarray(tree["step"]), dtype=torch.int32).to(dev),
+        params=to_dev(params), batch_stats=to_dev(stats),
+        opt_state={k: v.to(dev) if k == "count" else to_dev(v) for k, v in opt_state.items()})
+
+
+def train_state_to_variables(state: TrainState) -> Dict[str, Any]:
+    """The inverse of :func:`train_state_from_variables`: the port's
+    ``TrainState`` -> numpy trees in the JAX layout."""
+    variables = state_dict_to_variables({**state.params, **state.batch_stats})
+    opt_state: Dict[str, Any] = {"count": state.opt_state["count"].cpu().numpy()}
+    for name, moment in state.opt_state.items():
+        if name != "count":
+            opt_state[name] = state_dict_to_variables(moment)["params"]
+    return {"step": state.step.cpu().numpy(), "params": variables["params"],
+            "batch_stats": variables["batch_stats"], "opt_state": opt_state}
 
 
 ecapa_variables_to_state_dict = variables_to_state_dict

@@ -47,10 +47,27 @@ Phases (any failure raises and the script exits non-zero):
      statistics pooling on, held against the same model with the flag off
      fed by the plain front end and against an f32 model on the f32 plain
      front end; timed with the flag on and off; one batch profiled; then the Extractor run as in 6.
-     The launch counters are zeroed just before each of the two main paths
-     (6 and 7) drives the port and read just after; every kernel of a path
-     must have been launched in it.
-  8. a "kernels" JSON line, then the device JSON as the last line.
+     The launch counters are zeroed just before each of the three main
+     paths (6, 7 and 8) drives the port and read just after; every kernel
+     of a path must have been launched in it.
+  8. the train step of ECAPA-TDNN C1024 (SpeakerNet with the sub-centre
+     top-k AAM head over 5994 classes, seeded random weights, bf16
+     compute on f32 masters) on raw waves at B=128 x 2 s, K1 inside the
+     step: K1 at the training shape [128, 32000] against its plain version
+     and timed beside its bound; 30 adamW steps on one fixed batch, queued
+     back to back, the median ms/step of 20 of them, audio-s/s, the host's
+     time to queue a step, K1's launches per step and the peak memory, one
+     step profiled, and every loss finite and the last below the first;
+     five steps of the recipe's optimizer (adamW, cyclic triangular2,
+     MarginWarm feeding the margin, accum_grad 2) on a masked batch of
+     1.0-2.0 s. Every one of these steps runs under
+     torch.cuda.set_sync_debug_mode("error"): a step that waits on the
+     card fails the run. Then one f32 SGD step of an ECAPA C256 at B=8 on
+     the card and on the CPU, loss and grad_norm against each other and
+     each leaf against the f64 step, and the f64 step on the card against
+     the CPU leaf by leaf. The counters are zeroed just before the first
+     step and read just after.
+  9. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
 line) is device time over many launches back to back: one CUDA event, N
@@ -72,6 +89,7 @@ to False (PyTorch's default for cuDNN convolutions is TF32).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -575,10 +593,10 @@ def phase_stats_pooling(torch):
     }
 
 
-def profile_served_batch(torch, run, top: int = 12) -> None:
-    """One served batch under torch.profiler: device time by kernel (the
-    `top` longest and every kernel of the port), and the device's idle
-    share of the batch's wall time."""
+def profile_served_batch(torch, run, top: int = 12, what: str = "one served batch") -> None:
+    """One served batch (or train step) under torch.profiler: device time
+    by kernel (the `top` longest and every kernel of the port), and the
+    device's idle share of its wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -591,21 +609,28 @@ def profile_served_batch(torch, run, top: int = 12) -> None:
     from torch.autograd import DeviceType
 
     kernels = {}  # device-side kernel events only: the aten ops that launch them are not counted again
+    runtime = {}  # the host's calls into the CUDA runtime and driver
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             ms, n = kernels.get(e.name, (0.0, 0))
             kernels[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+        elif e.name.startswith("cu"):
+            ms, n = runtime.get(e.name, (0.0, 0))
+            runtime[e.name] = (ms + e.cpu_time_total / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in kernels.values())
     if busy_ms == 0:
         print("profile: the profiler recorded no device time (not measured)", flush=True)
         return
-    print(f"profile of one served batch: wall {wall_ms:.2f} ms (profiled), kernels {busy_ms:.2f} ms "
+    print(f"profile of {what}: wall {wall_ms:.2f} ms (profiled), kernels {busy_ms:.2f} ms "
           f"in {sum(n for _, n in kernels.values())} launches, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}",
           flush=True)
     ranked = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)
     for rank, (name, (ms, n)) in enumerate(ranked):  # the longest, and the port's own wherever they rank
         if rank < top or any(own in name for own in OWN_KERNELS):
             print(f"  {ms:8.3f} ms {ms / busy_ms:6.1%} x{n:<4d} {name[:100]}", flush=True)
+    # the closing torch.cuda.synchronize() is one cudaDeviceSynchronize
+    calls = sorted(runtime.items(), key=lambda kv: kv[1][0], reverse=True)[:5]
+    print("  host runtime calls: " + ", ".join(f"{name} x{n} {ms:.2f} ms" for name, (ms, n) in calls), flush=True)
 
 
 def _plain_embed(torch, model, opts, dft_dtype, dtype):
@@ -732,7 +757,7 @@ def phase_served(torch, device_label):
             lambda mod, args, out: seen.update(x=args[0], mask=args[1], out=out))
         embed(waves[0], mask)
         hook.remove()
-        pool = EcapaAttentiveStatsPool(1536, fused_inference=True).to(device=dev, dtype=torch.bfloat16)
+        pool = EcapaAttentiveStatsPool(1536, fused_inference=True).to(device=dev, dtype=torch.bfloat16).eval()
         pool.load_state_dict(model16.stats.state_dict())
         fused = pool(seen["x"], seen["mask"])
         e_pool = max_abs(fused, seen["out"])
@@ -846,6 +871,204 @@ def phase_served_resnet(torch, device_label):
     return read_launches("ResNet34", ("fused_fbank", "fused_stats_pooling"))
 
 
+TRAIN_SAMPLES = 32000  # bench.py:94-117: B=128 x 2 s
+# The card-against-CPU step (ECAPA C256 at B=8, one SGD step; TF32 off).
+# f32 on the card against the same step on the CPU: loss and grad_norm.
+F32_LOSS_TOL, F32_GRAD_NORM_TOL = 1e-4, 1e-4
+# f32 on either device against the f64 step, leaf by leaf (a leaf's
+# update error over its update norm; the BN running statistics likewise).
+# An f32 step at B=8 is ill-conditioned: over six seeds and three heads
+# (tools/train_step_conditioning.py, on an H100 and its host's CPU;
+# PERF.md) the worst leaf read 5.8e-2 and the worst BN statistic 6.6e-6.
+# The bounds leave a factor of two over those and hold whatever the seed;
+# the f64 comparison below is the tight one.
+F32_LEAF_TOL, F32_STATS_TOL = 0.12, 2e-5
+# f64 on the card against f64 on the CPU, leaf by leaf
+F64_LEAF_TOL = 1e-8
+
+
+@contextlib.contextmanager
+def no_host_sync(torch):
+    """Raise if the code inside waits on the card: a blocking copy, a
+    read of a device value on the host, a synchronize."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _card_against_cpu(torch):
+    """One f32 SGD step of SpeakerNet(EcapaTdnn(channels=256)) at B=8 on the
+    card (K1 in f32 mode, TF32 off) and on the CPU (the plain front end)
+    from the same state on the same waves, each held against the f64 step
+    on the plain front end's features; then the f64 step on the card
+    against the CPU (train/step_check.py builds the case)."""
+    from asv_subtools_tpu_torch.features import fused_fbank
+    from asv_subtools_tpu_torch.train.step_check import (AAM, ZERO_GRAD, modulated_waves, plain_features, rel,
+                                                         sgd_step, worst_leaf, zero_grad_share)
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    wave, y = modulated_waves(8, SEED + 30)
+    feats, seed = plain_features(wave), SEED + 32
+    ref = sgd_step("cpu", torch.float64, feats, y, seed=seed)
+    before = fused_fbank.launches
+    card = sgd_step("cuda", torch.float32, wave, y, seed=seed, wave_input=True)
+    check(fused_fbank.launches == before + 1 and fused_fbank.last_route == "cuda_core",
+          "the f32 step on the card did not run K1's f32 kernel once")
+    cpu = sgd_step("cpu", torch.float32, wave, y, seed=seed, wave_input=True)
+    e_loss = rel(card.metrics["loss"], cpu.metrics["loss"])
+    e_grad = rel(card.metrics["grad_norm"], cpu.metrics["grad_norm"])
+    leaf = {d: worst_leaf(r.updates, ref.updates) for d, r in (("card", card), ("CPU", cpu))}
+    stats = {d: worst_leaf(r.batch_stats, ref.batch_stats) for d, r in (("card", card), ("CPU", cpu))}
+    noise = zero_grad_share(card.updates, cpu.updates)
+    between = worst_leaf(card.updates, cpu.updates)  # printed, not held: no bound holds whatever the seed
+    print(f"train card vs CPU (SpeakerNet ECAPA C256, B=8 x 2 s, f32, TF32 off, one SGD step): loss "
+          f"{card.metrics['loss']:.6f} vs {cpu.metrics['loss']:.6f} (rel {e_loss:.2e}, tol {F32_LOSS_TOL}), grad_norm "
+          f"{card.metrics['grad_norm']:.5f} vs {cpu.metrics['grad_norm']:.5f} (rel {e_grad:.2e}, tol "
+          f"{F32_GRAD_NORM_TOL}), worst leaf update {between[0]:.2e} of the CPU's at {between[1]}; against the f64 "
+          f"step, worst leaf update "
+          + ", ".join(f"{d} {e:.2e} at {k} (whole {w:.1e})" for d, (e, k, w) in leaf.items()) + f" (tol {F32_LEAF_TOL}; "
+          f"{len(ref.updates) - 1} leaves), worst BN statistic "
+          + ", ".join(f"{d} {e:.2e} at {k}" for d, (e, k, _) in stats.items()) + f" (tol {F32_STATS_TOL}); "
+          f"{ZERO_GRAD} {noise:.1e} of the update (tol 1e-6)", flush=True)
+    check(e_loss <= F32_LOSS_TOL and e_grad <= F32_GRAD_NORM_TOL and noise <= 1e-6
+          and all(e <= F32_LEAF_TOL for e, _, _ in leaf.values())
+          and all(e <= F32_STATS_TOL for e, _, _ in stats.values()),
+          "the f32 train step on the card or the CPU is off the f64 step, or the two disagree")
+
+    # the same step in float64 on the same features: the port's step on
+    # the card computes what it computes on the CPU, leaf by leaf. The head
+    # is the AAM margin softmax, float64 throughout: the sub-centre head
+    # computes in float32 whatever its input (as the JAX one does)
+    card, cpu = (sgd_step(d, torch.float64, feats, y, AAM, seed) for d in ("cuda", "cpu"))
+    e, k, _ = worst_leaf(card.updates, cpu.updates)
+    e_stats = worst_leaf(card.batch_stats, cpu.batch_stats)[0]
+    e_grad = rel(card.metrics["grad_norm"], cpu.metrics["grad_norm"])
+    noise = zero_grad_share(card.updates, cpu.updates)
+    print(f"train card vs CPU in float64 (same net and batch, features in): grad_norm rel {e_grad:.2e}, worst leaf "
+          f"update {e:.2e} of its norm at {k}, worst BN statistic {e_stats:.2e} (tol {F64_LEAF_TOL}; "
+          f"{len(cpu.updates) - 1} leaves), {ZERO_GRAD} {noise:.1e} of the update (tol 1e-12)", flush=True)
+    check(max(e_grad, e, e_stats) <= F64_LEAF_TOL and noise <= 1e-12,
+          "the float64 train step on the card disagrees with the CPU")
+
+
+def phase_train(torch, device_label):
+    """The train step of ECAPA-TDNN C1024 on raw waves at B=128 x 2 s."""
+    from asv_subtools_tpu_torch.features import FbankOptions, MelOptions, fused_fbank, fused_fbank_plain
+    from asv_subtools_tpu_torch.features.fused_fbank import folded_dft, mel_bands
+    from asv_subtools_tpu_torch.nn import MarginWarm
+    from asv_subtools_tpu_torch.train import (TrainStepConfig, cyclic, get_optimizer, init_train_state,
+                                              make_train_step)
+    from asv_subtools_tpu_torch.train.step_check import NUM_TARGETS, SUBCENTER_TOPK, ecapa_net
+
+    dev = torch.device("cuda")
+    opts = FbankOptions(mel_opts=MelOptions(num_bins=80))  # recipes/voxceleb/run.py:90
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    wave = torch.randn((BATCH, TRAIN_SAMPLES), generator=gen, device=dev) * 1000.0  # bench.py:123-126
+    labels = torch.randint(0, NUM_TARGETS, (BATCH,), generator=gen, device=dev)
+    t = opts.frame_opts.num_frames(TRAIN_SAMPLES)
+
+    # 1. K1 at the training shape
+    k, _ = fused_fbank(wave, opts, dft_dtype=torch.bfloat16, with_energy=False)
+    check(fused_fbank.last_route == "tensor_core", f"K1 at the training shape ran the {fused_fbank.last_route} kernel")
+    p, _ = fused_fbank_plain(wave, opts, dft_dtype=torch.bfloat16, with_energy=False)
+    torch.cuda.synchronize()
+    err, tol = max_abs(k, p), 1e-3  # K1's bf16 tolerance (phase_fbank)
+    check(tuple(k.shape) == (BATCH, t, 80) and err <= tol, "K1 at the training shape disagrees with its plain version")
+    ms_p, ms_k = turns_ms(torch, lambda: fused_fbank_plain(wave, opts, dft_dtype=torch.bfloat16, with_energy=False),
+                          lambda: fused_fbank(wave, opts, dft_dtype=torch.bfloat16, with_energy=False), n=10)
+    fo = opts.frame_opts
+    flops = 2.0 * BATCH * t * (fo.window_size * 2 * (fo.padded_window_size // 2) + mel_bands(opts)[1].size)
+    nbytes = 4 * wave.numel() + 4 * BATCH * t * 80 + 2 * folded_dft(opts).size
+    bound, by = bound_ms(nbytes, flops)
+    print(f"train K1 bf16 [{BATCH},{TRAIN_SAMPLES}] -> [{BATCH},{t},80] (tensor_core): max abs err {err:.3e} (tol {tol}); "
+          f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms (10 launches back to back), bound {bound:.4f} ms by {by} "
+          f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+
+    # 2.-4. bench's optimizer on one fixed batch: 30 steps from a fresh
+    # state. No step may wait on the card (no_host_sync): the host queues
+    # steps ahead of the card, as a training loop does
+    config = TrainStepConfig(compute_dtype=torch.bfloat16, wave_input=True, fbank_opts=opts)
+    net = ecapa_net(SUBCENTER_TOPK, SEED + 21, channels=1024)
+    tx = get_optimizer("adamW", 1e-3)  # bench.py:115
+    state = init_train_state(net, tx, dev)
+    step = make_train_step(net, tx, config=config)
+    batch = {"x": wave, "y": labels}
+    del k, p
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counters from zero
+    zero_launches()
+    with no_host_sync(torch):
+        state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    counts = read_launches("train step", ("fused_fbank",))
+    check(counts["fused_fbank"] == 1, f"K1 launched {counts['fused_fbank']} times in one step")
+    metrics, events, host_ms = [m], [], []
+    for _ in range(29):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        with no_host_sync(torch):
+            start.record()
+            state, m = step(state, batch, gen)
+            end.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    # after 3 warm-up steps (the first one and two of the loop), 20 timed
+    ms = float(np.median([s.elapsed_time(e) for s, e in events[2:22]]))
+    host = float(np.median(host_ms[2:22]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train C1024 bf16 [{BATCH},{TRAIN_SAMPLES}] adamW: {ms:.2f} ms/step (median of 20 between CUDA events, "
+          f"steps queued back to back after 3 warm-up steps), {BATCH * TRAIN_SAMPLES / 16000.0 / (ms / 1e3):.0f} "
+          f"audio-s/s; the host {host:.2f} ms to queue a step (median); no step waited on the card; K1 launches "
+          f"per step {counts['fused_fbank']}; peak memory {peak:.2f} GiB on {device_label}", flush=True)
+    profile_served_batch(torch, lambda: step(state, batch, gen), what="one train step")
+    losses = torch.stack([x["loss"] for x in metrics]).cpu()
+    skipped = float(torch.stack([x["skipped"] for x in metrics]).sum())
+    print(f"train 30 steps on one batch: loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f} "
+          f"(min {float(losses.min()):.4f}), skipped {skipped:.0f}, last grad_norm {float(metrics[-1]['grad_norm']):.3f}",
+          flush=True)
+    check(bool(torch.isfinite(losses).all()) and skipped == 0 and float(losses[-1]) < float(losses[0]),
+          "the 30 train steps did not run finite with a falling loss")
+    del state, step, metrics
+    torch.cuda.empty_cache()
+
+    # 5. the recipe's optimizer (recipes/voxceleb/run.py:100-130) with
+    # accum_grad 2 on a masked batch of 1.0-2.0 s
+    lengths = torch.linspace(16000, TRAIN_SAMPLES, BATCH, device=dev).long()
+    smask = torch.arange(TRAIN_SAMPLES, device=dev)[None, :] < lengths[:, None]
+    masked = {"x": wave * smask, "y": labels, "mask": smask}
+    schedule = cyclic(base_lr=1e-8, max_lr=1e-3, step_size_up=15000, mode="triangular2")
+    tx = get_optimizer("adamW", schedule, weight_decay=5e-5)
+    warm = MarginWarm(1, 3, -0.2, 0.0, epoch_iter=2)
+    state = init_train_state(net, tx, dev)
+    step = make_train_step(net, tx, lr_schedule=schedule, config=TrainStepConfig(
+        compute_dtype=torch.bfloat16, wave_input=True, fbank_opts=opts, accum_grad=2))
+    rows = []
+    for i in range(5):
+        offset, lam = warm.step(i)
+        before = fused_fbank.launches
+        with no_host_sync(torch):
+            state, m = step(state, masked, gen, lambda_m=lam, margin_offset=offset)
+        torch.cuda.synchronize()
+        check(fused_fbank.launches == before + 2, "K1 did not launch twice in a step of accum_grad 2")
+        rows.append((lam, offset, {k: float(v) for k, v in m.items()}))
+    print("train recipe step (adamW wd 5e-5, cyclic triangular2 1e-8..1e-3 up 15000, MarginWarm(1, 3, -0.2, 0.0, "
+          "epoch_iter=2), accum_grad 2, lengths 1.0-2.0 s; K1 launches per step 2; no step waited on the card): "
+          + "; ".join(f"lambda_m {lam:.3f} offset {off:.4f} lr {r['lr']:.3e} loss {r['loss']:.4f}"
+                      for lam, off, r in rows), flush=True)
+    check(all(np.isfinite(r["loss"]) and r["skipped"] == 0 for _, _, r in rows), "a recipe step was not finite")
+    del state, step, net
+    torch.cuda.empty_cache()
+
+    # 6. the card against the CPU
+    _card_against_cpu(torch)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -871,6 +1094,8 @@ def main() -> int:
     paths = [phase_served(torch, smi)]
     torch.cuda.empty_cache()
     paths.append(phase_served_resnet(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_train(torch, smi))
     for kernel_name, k in kernels.items():
         k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -48,7 +48,7 @@ def _setup(b, t, c, k, lengths, scale, seed=0):
         "mean": (rng.normal(size=(k,)) * 0.1).astype(np.float32),
         "var": rng.uniform(0.5, 2.0, size=(k,)).astype(np.float32),
     }
-    port = EcapaAttentiveStatsPool(c, bottleneck=k)
+    port = EcapaAttentiveStatsPool(c, bottleneck=k).eval()  # inference: att_bn on its running statistics
     load_ecapa_variables(port, v)
     return x, mask, v, port
 

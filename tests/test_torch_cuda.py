@@ -18,6 +18,18 @@ rounding boundary, which the next stages carry on; bf16 at h = 16, 32, 64,
 128 runs the tensor-core kernel, everything else the CUDA-core one). Statistics pooling
 rtol 1e-4 / atol 1e-5, for f32 and bf16 inputs alike (both sides read the
 same values and sum in f32).
+
+The train step (train/step_check.py builds the case: ECAPA C256, B=8):
+a bf16 wave-input step whose loss is finite and which launches K1 once;
+bf16 steps, unmasked, masked and at accum_grad 2, that never wait on the
+card; the f64 step on the card against the same step on the CPU, on the
+same features: each parameter's update to 1e-8 of its norm, loss,
+grad_norm, accuracy and the BN running statistics to 1e-10; the f32
+wave-input step (K1's f32 mode, TF32 off): loss and grad_norm to 1e-4 of
+the CPU's, and on each device every leaf to 0.12 and every BN statistic
+to 2e-5 of its norm from the f64 step (an f32 step at B=8 is
+ill-conditioned: over six seeds and three heads a leaf read up to 5.8e-2
+and a statistic 6.6e-6 from it; PERF.md).
 """
 
 import pytest
@@ -356,3 +368,112 @@ def test_stats_pooling_kernel_takes_strided_views(card):
 def test_stats_pooling_kernel_raises_on_other_types(card):
     with pytest.raises(ValueError):
         fused_stats_pooling(torch.zeros((1, 4, 8), dtype=torch.float16, device=card))
+
+
+# f32 on either device against the f64 step, leaf by leaf, and f64 on the
+# card against the CPU: the bounds of chip_smoke.py (see there and PERF.md)
+F32_LEAF_TOL, F32_STATS_TOL, F64_LEAF_TOL = 0.12, 2e-5, 1e-8
+
+
+def _bf16_wave_step(card, mode):
+    """A bf16 wave-input step of ECAPA C256 at B=8 with adamW: no mask,
+    a sample mask of 1.0-2.0 s, or accum_grad 2 on that masked batch with
+    the cyclic schedule and SpecAugment."""
+    from asv_subtools_tpu_torch.train import TrainStepConfig, cyclic, get_optimizer, init_train_state, make_train_step
+    from asv_subtools_tpu_torch.train.step_check import OPTS, ecapa_net, modulated_waves
+
+    wave, y = modulated_waves(8, 1)
+    batch = {"x": wave.to(card), "y": y.to(card)}
+    schedule = None
+    if mode != "unmasked":
+        lengths = torch.linspace(16000, 32000, 8, device=card).long()
+        batch["mask"] = torch.arange(32000, device=card)[None, :] < lengths[:, None]
+        batch["x"] = batch["x"] * batch["mask"]
+    if mode == "accum_grad 2":
+        schedule = cyclic(base_lr=1e-8, max_lr=1e-3, step_size_up=15000, mode="triangular2")
+    config = TrainStepConfig(compute_dtype=torch.bfloat16, wave_input=True, fbank_opts=OPTS,
+                             accum_grad=2 if mode == "accum_grad 2" else 1, spec_aug=mode == "accum_grad 2")
+    net = ecapa_net()
+    tx = get_optimizer("adamW", schedule or 1e-3, weight_decay=5e-5)
+    return init_train_state(net, tx, card), make_train_step(net, tx, schedule, config), batch
+
+
+def test_train_step_bf16_launches_the_fbank_kernel_once(card):
+    state, step, batch = _bf16_wave_step(card, "unmasked")
+    before = fused_fbank.launches
+    new, m = step(state, batch, torch.Generator(device=card).manual_seed(0))
+    torch.cuda.synchronize()
+    assert fused_fbank.launches == before + 1 and fused_fbank.last_route == "tensor_core"
+    assert bool(torch.isfinite(m["loss"])) and float(m["skipped"]) == 0.0
+    assert all(p.dtype == torch.float32 and p.is_cuda for p in new.params.values())
+
+
+@pytest.mark.parametrize("mode", ["unmasked", "masked", "accum_grad 2"])
+def test_train_step_never_waits_on_the_card(card, mode):
+    """A step after the first (which builds the fbank kernel's constants)
+    under torch.cuda.set_sync_debug_mode("error"): a blocking copy, a read
+    of a device value on the host or a synchronize in the step raises."""
+    state, step, batch = _bf16_wave_step(card, mode)
+    gen = torch.Generator(device=card).manual_seed(0)
+    state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, batch, gen, lambda_m=0.5, margin_offset=-0.1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(m["loss"])) and float(m["skipped"]) == 0.0
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """The float64 step on the same features: every leaf's update to 1e-8
+    of its norm, loss, grad_norm, accuracy and every BN running statistic
+    to 1e-10, with the AAM margin softmax, float64 throughout
+    (the sub-centre head computes in float32 whatever its input, as the
+    JAX one does)."""
+    from asv_subtools_tpu_torch.train.step_check import (AAM, modulated_waves, plain_features, sgd_step,
+                                                         worst_leaf, zero_grad_share)
+
+    wave, y = modulated_waves(8, 1)
+    cd, cpu = (sgd_step(d, torch.float64, plain_features(wave), y, AAM) for d in (card, torch.device("cpu")))
+    for key in ("loss", "grad_norm", "accuracy"):
+        assert abs(cd.metrics[key] - cpu.metrics[key]) <= 1e-10 * max(abs(cpu.metrics[key]), 1e-30), key
+    assert worst_leaf(cd.updates, cpu.updates)[0] <= F64_LEAF_TOL
+    assert zero_grad_share(cd.updates, cpu.updates) <= 1e-12
+    for k in cpu.batch_stats:
+        torch.testing.assert_close(cd.batch_stats[k], cpu.batch_stats[k], rtol=1e-10, atol=1e-12)
+
+
+def test_train_step_f32_with_the_fbank_kernel_matches_the_cpu(card):
+    """The float32 wave-input step, K1 in its f32 mode on the card and the
+    plain front end on the CPU, TF32 off: loss and grad_norm to 1e-4 of
+    each other, and on each device every leaf's update and every BN
+    running statistic against the float64 step on the plain front end's
+    features (F32_LEAF_TOL, F32_STATS_TOL)."""
+    from asv_subtools_tpu_torch.train.step_check import (modulated_waves, plain_features, rel, sgd_step,
+                                                         worst_leaf, zero_grad_share)
+
+    torch.backends.cudnn.allow_tf32 = False
+    wave, y = modulated_waves(8, 1)
+    ref = sgd_step("cpu", torch.float64, plain_features(wave), y)
+    before = fused_fbank.launches
+    cd = sgd_step(card, torch.float32, wave, y, wave_input=True)
+    assert fused_fbank.launches == before + 1 and fused_fbank.last_route == "cuda_core"
+    cpu = sgd_step("cpu", torch.float32, wave, y, wave_input=True)
+    for key in ("loss", "grad_norm"):
+        assert rel(cd.metrics[key], cpu.metrics[key]) <= 1e-4, key
+    for r in (cd, cpu):
+        assert worst_leaf(r.updates, ref.updates)[0] <= F32_LEAF_TOL
+        assert worst_leaf(r.batch_stats, ref.batch_stats)[0] <= F32_STATS_TOL
+    assert zero_grad_share(cd.updates, cpu.updates) <= 1e-6
+
+
+@pytest.mark.parametrize("dft_dtype", [torch.float32, torch.bfloat16])
+def test_fbank_kernel_at_the_training_shape(card, dft_dtype):
+    """K1 at the train step's [B, 2 s] shape (198 frames a row), 80 bins."""
+    opts = FbankOptions(mel_opts=MelOptions(num_bins=80))
+    wave = torch.randn((16, 32000), generator=torch.Generator(device=card).manual_seed(2), device=card) * 1000
+    k, _ = fused_fbank(wave, opts, dft_dtype=dft_dtype, with_energy=False)
+    p, _ = fused_fbank_plain(wave, opts, dft_dtype=dft_dtype, with_energy=False)
+    assert k.shape == (16, 198, 80)
+    torch.testing.assert_close(k, p, atol=1e-3, rtol=0)

@@ -170,7 +170,7 @@ def _layer_case(jax_mod, port_mod, x, mask=None, **call_kw):
     if mask is not None:
         args += (torch.from_numpy(mask),)
     with torch.inference_mode():
-        got = port_mod(*args)
+        got = port_mod.eval()(*args)  # the JAX side runs train=False
     return got, ref
 
 
@@ -194,7 +194,7 @@ def test_batchnorm_on_4d_maps_matches_jax():
     x = np.random.default_rng(8).normal(size=(2, 9, 7, 6)).astype(np.float32) * 3  # [B, T, F, C]
     jm = JaxBatchNorm()
     v = _variables(jm, x, train=False)
-    port = BatchNorm(6)
+    port = BatchNorm(6).eval()
     load_ecapa_variables(port, v)
     ref = np.asarray(jm.apply(v, jnp.asarray(x), train=False))
     maps = torch.from_numpy(x).permute(0, 3, 1, 2)

@@ -37,20 +37,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..nn.dropout import dropout
 from ..nn.fused_att_pooling import fused_attentive_stats_pool
 from ..nn.fused_res2 import fused_res2_chain
-from ..nn.norm import BatchNorm
+from ..nn.norm import BatchNorm, LayerNorm
 from ..nn.tdnn import ReluBatchNormTdnnLayer
 
 
 SCALE = 8  # Res2Net groups, ECAPA's
-
-
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout drawn from ``generator`` (on x's device): each value
-    is kept with probability 1 - rate and scaled by 1 / (1 - rate)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Res2NetBlock(nn.Module):
@@ -162,21 +156,32 @@ class _SplitGlobalConv(nn.Module):
 
 
 class EcapaAttentiveStatsPool(nn.Module):
-    """ECAPA channel-wise attentive statistics pooling with global context.
+    """ECAPA channel-wise attentive statistics pooling.
 
-    x [B, T, C] -> [B, 2C]. ``fused_inference=True`` runs the whole pooling
-    through the fused kernel (nn/fused_att_pooling.py) in eval mode, as the
-    JAX module's ``fused_inference`` branch does; the default, and train
-    mode always, is the unfused path. ``att_bn`` keeps torch's default
-    momentum 0.1: the reference builds this BN without the model's
-    bn_params (JAX models/ecapa.py:339-343).
+    x [B, T, C] -> [B, 2C]. With ``time_attention`` (ECAPA's) the attention
+    reads [x; mean; std] through ``att1``, a split 1x1 conv; without it
+    (the Conformer's) ``att1`` is a plain 1x1 conv over x. ``norm_type``
+    "batch_norm" (``att_bn``) or "layer_norm" (``att_norm``, the
+    Conformer's). ``fused_inference=True`` runs the whole pooling through
+    the fused kernel (nn/fused_att_pooling.py) in eval mode, with time
+    attention and BatchNorm only, as the JAX module's ``fused_inference``
+    branch does; otherwise, and in train mode always, the unfused path
+    runs. ``att_bn`` keeps torch's default momentum 0.1: the reference
+    builds this BN without the model's bn_params (JAX
+    models/ecapa.py:339-343).
     """
 
-    def __init__(self, channels: int, bottleneck: int = 128, fused_inference: bool = False):
+    def __init__(self, channels: int, bottleneck: int = 128, fused_inference: bool = False,
+                 time_attention: bool = True, norm_type: str = "batch_norm"):
         super().__init__()
-        self.fused_inference = fused_inference
-        self.att1 = _SplitGlobalConv(channels, bottleneck)
-        self.att_bn = BatchNorm(bottleneck, momentum=0.1)
+        if norm_type not in ("batch_norm", "layer_norm"):
+            raise ValueError(f"unknown norm_type {norm_type!r}")
+        self.fused_inference, self.time_attention, self.norm_type = fused_inference, time_attention, norm_type
+        self.att1 = _SplitGlobalConv(channels, bottleneck) if time_attention else nn.Conv1d(channels, bottleneck, 1)
+        if norm_type == "batch_norm":
+            self.att_bn = BatchNorm(bottleneck, momentum=0.1)
+        else:
+            self.att_norm = LayerNorm(bottleneck)
         self.att2 = nn.Conv1d(bottleneck, channels, 1)
 
     def _fused(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -189,30 +194,41 @@ class EcapaAttentiveStatsPool(nn.Module):
         ).to(x.dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.fused_inference and not self.training:
+        if (self.fused_inference and not self.training and self.time_attention
+                and self.norm_type == "batch_norm"):
             return self._fused(x, mask)
         xc = x.transpose(1, 2)  # [B, C, T]
-        # global std uses the unbiased variance (ddof=1), the reference's
-        # torch.var default
-        if mask is not None:
-            m = mask.to(x.dtype)[:, None, :]
-            count = torch.clamp_min(m.sum(-1, keepdim=True), 1.0)
-            mean = (xc * m).sum(-1, keepdim=True) / count
-            var = ((xc - mean) ** 2 * m).sum(-1, keepdim=True) / torch.clamp_min(count - 1.0, 1.0)
+        if self.time_attention:
+            # global std uses the unbiased variance (ddof=1), the reference's
+            # torch.var default
+            if mask is not None:
+                m = mask.to(x.dtype)[:, None, :]
+                count = torch.clamp_min(m.sum(-1, keepdim=True), 1.0)
+                mean = (xc * m).sum(-1, keepdim=True) / count
+                var = ((xc - mean) ** 2 * m).sum(-1, keepdim=True) / torch.clamp_min(count - 1.0, 1.0)
+            else:
+                mean = xc.mean(-1, keepdim=True)
+                var = xc.var(-1, keepdim=True, unbiased=True)
+            std = torch.sqrt(var + 1e-5)
+            a = torch.relu(self.att1(xc, mean[..., 0], std[..., 0]))
         else:
-            mean = xc.mean(-1, keepdim=True)
-            var = xc.var(-1, keepdim=True, unbiased=True)
-        std = torch.sqrt(var + 1e-5)
-        a = self.att1(xc, mean[..., 0], std[..., 0])
-        a = torch.tanh(self.att_bn(torch.relu(a), mask))
-        a = self.att2(a)  # [B, C, T] per-channel time logits
+            a = torch.relu(self.att1(xc))
+        if self.norm_type == "batch_norm":
+            a = self.att_bn(a, mask)
+        else:
+            a = self.att_norm(a.transpose(1, 2)).transpose(1, 2)
+        a = self.att2(torch.tanh(a))  # [B, C, T] per-channel time logits
         if mask is not None:
             a = a.masked_fill(~mask[:, None, :], float("-inf"))
         alpha = torch.softmax(a, dim=-1)
-        mean = (alpha * xc).sum(-1)
-        var = (alpha * xc * xc).sum(-1) - mean ** 2
+        # the weighted sums go to at least float32, as the fused kernel's
+        # do: in bfloat16, E[x^2] - mean^2 cancels (it cost the bf16
+        # Conformer 5e-4 of cosine against its f32 model)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        mean = (alpha * xc).sum(-1, dtype=acc)
+        var = (alpha * xc * xc).sum(-1, dtype=acc) - mean ** 2
         std = torch.sqrt(torch.clamp_min(var, 1e-5))
-        return torch.cat([mean, std], dim=-1)
+        return torch.cat([mean, std], dim=-1).to(x.dtype)
 
 
 class EcapaTdnn(nn.Module):

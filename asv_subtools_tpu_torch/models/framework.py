@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import inspect
 from typing import Optional, Tuple
 
 import numpy as np
@@ -22,6 +23,9 @@ class SpeakerNet(nn.Module):
     ``loss_params`` pick the head from :data:`~asv_subtools_tpu_torch.nn.loss.LOSSES`,
     which owns the classifier weight (``loss.weight``, ``[C * sub_k, E]``
     for the margin losses). The head is built on the backbone's device.
+    The backbone gets ``generator`` (dropout draws) and ``warmup`` (the
+    Conformer's layer blend) only where its ``forward`` declares them, as
+    the JAX SpeakerNet hands a backbone only what its signature takes.
     """
 
     def __init__(self, backbone: nn.Module, loss_name: str = "margin_softmax",
@@ -32,13 +36,16 @@ class SpeakerNet(nn.Module):
         self.backbone = backbone
         self.loss = LOSSES[loss_name](backbone.embd_dim, num_targets, **(loss_params or {}))
         self.loss.to(next(backbone.parameters()).device)
+        self._backbone_takes = set(inspect.signature(type(backbone).forward).parameters) & {"generator", "warmup"}
         self.train(backbone.training)
 
     def forward(self, x: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 lambda_m: Scalar = 1.0, margin_offset: Scalar = 0.0,
-                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                warmup: Scalar = 1.0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """-> (loss, logits, embeddings); the margin applies in train mode."""
-        emb = self.backbone(x, mask, generator=generator)
+        given = {"generator": generator, "warmup": warmup}
+        emb = self.backbone(x, mask, **{k: given[k] for k in self._backbone_takes})
         loss, logits = self.loss(emb, targets, lambda_m=lambda_m, margin_offset=margin_offset)
         return loss, logits, emb
 

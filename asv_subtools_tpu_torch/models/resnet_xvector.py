@@ -1,11 +1,13 @@
-"""ResNet34 x-vector at inference (counterpart:
+"""ResNet34 x-vector (counterpart:
 asv_subtools_tpu/models/resnet_xvector.py:22-111).
 
 A 2-D trunk over ``[B, T, F]`` fbank maps -> flattened frame features ->
 pooling -> the embedding layers (the head of the TDNN family). The trunk
-takes no mask; the pooling takes the mask subsampled to the trunk's frame
-rate. Module and parameter names follow the flax modules. RepVggXvector
-comes with nn/repvgg.py.
+and the head's BatchNorms take no mask, in train mode either; the
+pooling takes the mask subsampled to the trunk's frame rate, and runs
+unfused in train mode. Every BatchNorm runs at momentum 0.5, the JAX
+model's. Module and parameter names follow the flax modules.
+RepVggXvector comes with nn/repvgg.py.
 """
 
 from __future__ import annotations
@@ -30,17 +32,17 @@ class _EmbeddingHead(nn.Module):
     """
 
     def __init__(self, input_dim: int, embd_dim: int = 512, pooling: str = "statistics",
-                 pooling_params: Optional[dict] = None, fc1: bool = False):
+                 pooling_params: Optional[dict] = None, fc1: bool = False, momentum: float = 0.5):
         super().__init__()
         self.stats = POOLINGS[pooling](**(pooling_params or {}))
         dim = self.stats.output_dim(input_dim)
         self.has_fc1 = fc1
         if fc1:
             self.fc1_affine = nn.Linear(dim, embd_dim)
-            self.fc1_bn = BatchNorm(embd_dim)
+            self.fc1_bn = BatchNorm(embd_dim, momentum=momentum)
             dim = embd_dim
         self.fc2_affine = nn.Linear(dim, embd_dim)
-        self.fc2_bn = BatchNorm(embd_dim)
+        self.fc2_bn = BatchNorm(embd_dim, momentum=momentum)
 
     def forward(self, h: torch.Tensor, mask: Optional[torch.Tensor], position: str) -> torch.Tensor:
         if position not in ("near", "near_affine", "far"):
@@ -64,9 +66,10 @@ class ResNetXvector(nn.Module):
     blocks, layers 3-4-6-3, 32 channels, statistics pooling, embedding 512).
 
     Built on ``device`` (the CUDA card unless ``device="cpu"``; raises
-    without a card). Cast with ``.to(torch.bfloat16)`` for serving.
+    without a card), in eval mode. Cast with ``.to(torch.bfloat16)`` for
+    serving; training runs it in train mode (train/trainer.py).
     ``pooling_params={"fused_inference": True}`` runs the statistics
-    pooling through its fused kernel.
+    pooling through its fused kernel at inference.
     """
 
     def __init__(
@@ -81,13 +84,16 @@ class ResNetXvector(nn.Module):
         pooling: str = "statistics",
         pooling_params: Optional[dict] = None,
         fc1: bool = False,
+        momentum: float = 0.5,
         device: Any = None,
     ):
         super().__init__()
+        self.embd_dim = embd_dim
         self.resnet = ResNet(block=block, layers=layers, base_planes=base_planes, use_se=use_se,
-                             full_pre_activation=full_pre_activation)
+                             full_pre_activation=full_pre_activation, momentum=momentum)
         self.head = _EmbeddingHead(self.resnet.output_dim(input_dim), embd_dim=embd_dim,
-                                   pooling=pooling, pooling_params=pooling_params, fc1=fc1)
+                                   pooling=pooling, pooling_params=pooling_params, fc1=fc1,
+                                   momentum=momentum)
         self.eval()
         self.to(resolve_device(device))
 

@@ -1,7 +1,7 @@
-"""Masked BatchNorm (counterpart: asv_subtools_tpu/nn/norm.py:26-88).
+"""Masked BatchNorm and LayerNorm (counterpart: asv_subtools_tpu/nn/norm.py:26-92).
 
-Features sit on dim 1 (``[B, C]`` or ``[B, C, T]``), the layout the
-port's model holds; a ``[B, T]`` mask (True = valid) keeps padded frames
+BatchNorm's features sit on dim 1 (``[B, C]`` or ``[B, C, T]``), the
+layout the port's model holds; a ``[B, T]`` mask (True = valid) keeps padded frames
 out of the batch statistics, which is why ``torch.nn.BatchNorm1d`` cannot
 stand in for it. Parameters and buffers keep the flax names (``scale``,
 ``bias``, ``mean``, ``var``) so weights map one to one.
@@ -82,3 +82,22 @@ class BatchNorm(nn.Module):
             self.var = ((1 - m) * self.var + m * unbiased).to(self.var.dtype)
         y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.epsilon)
         return (y * self.scale.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last dim with flax's parameter names (``scale``,
+    ``bias``) and epsilon 1e-5 (torch's, the reference's), so weights map
+    one to one; ``torch.nn.LayerNorm`` names its scale ``weight``. The
+    statistics and the affine run in at least float32, as flax's do, and
+    the result is cast back to the input's type."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.nn.functional.layer_norm(_at_least_f32(x), x.shape[-1:], _at_least_f32(self.scale),
+                                           _at_least_f32(self.bias), self.epsilon)
+        return y.to(x.dtype)

@@ -21,30 +21,36 @@ _EPS = 1.0e-10
 def _masked_moments(x: torch.Tensor, mask: Optional[torch.Tensor], unbiased: bool = False,
                     eps: float = _EPS) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked mean and std over time, two-pass, in x's type.
-    x [B, T, D], mask [B, T] or None."""
+    x [B, T, D], mask [B, T] or None. Without a mask the count is a Python
+    number: a tensor made from it on the card would be a blocking copy."""
     if mask is None:
-        count = torch.tensor(float(x.shape[-2]), dtype=x.dtype, device=x.device)
+        count = float(x.shape[-2])
         mean = x.mean(dim=-2)
         var_num = ((x - mean[..., None, :]) ** 2).sum(dim=-2)
+        denom = max(count - 1.0, 1.0) if unbiased else count
     else:
         m = mask.to(x.dtype)[..., None]
         count = torch.clamp_min(m.sum(dim=-2), 1.0)
         mean = (x * m).sum(dim=-2) / count
         var_num = (((x - mean[..., None, :]) ** 2) * m).sum(dim=-2)
-    denom = torch.clamp_min(count - 1.0, 1.0) if unbiased else count
+        denom = torch.clamp_min(count - 1.0, 1.0) if unbiased else count
     std = torch.sqrt(torch.clamp_min(var_num / denom, eps))
     return mean, std
 
 
 class StatisticsPooling(nn.Module):
     """Mean [+ stddev] pooling. ``fused_inference=True`` runs the pooling
-    through the fused kernel (nn/fused_stats_pooling.py), which computes
-    the biased std with the mean: it takes ``stddev=True, unbiased=False``
-    only. The default is the unfused two-pass path."""
+    through the fused kernel (nn/fused_stats_pooling.py) in eval mode; the
+    kernel computes the biased std with the mean, so it takes
+    ``stddev=True, unbiased=False`` only. The default, and train mode
+    always, is the unfused two-pass path: the kernel has no backward."""
 
     def __init__(self, stddev: bool = True, unbiased: bool = False, eps: float = _EPS,
                  fused_inference: bool = False):
         super().__init__()
+        if fused_inference and (not stddev or unbiased):
+            raise ValueError("the fused statistics pooling computes mean ++ biased std only "
+                             "(stddev=True, unbiased=False)")
         self.stddev, self.unbiased, self.eps = stddev, unbiased, eps
         self.fused_inference = fused_inference
 
@@ -52,10 +58,7 @@ class StatisticsPooling(nn.Module):
         return input_dim * (2 if self.stddev else 1)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.fused_inference:
-            if not self.stddev or self.unbiased:
-                raise ValueError("the fused statistics pooling computes mean ++ biased std only "
-                                 "(stddev=True, unbiased=False)")
+        if self.fused_inference and not self.training:
             return fused_stats_pooling(x, mask, eps=self.eps).to(x.dtype)
         mean, std = _masked_moments(x, mask, unbiased=self.unbiased, eps=self.eps)
         return torch.cat([mean, std], dim=-1) if self.stddev else mean

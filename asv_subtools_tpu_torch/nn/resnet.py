@@ -1,4 +1,4 @@
-"""2-D ResNet backbone over spectrogram maps, eval mode (counterpart:
+"""2-D ResNet backbone over spectrogram maps (counterpart:
 asv_subtools_tpu/nn/resnet.py:21-205).
 
 Layout: the public input is ``[B, T, F]`` features; inside the trunk maps
@@ -31,12 +31,22 @@ def _conv3x3(in_planes: int, planes: int, stride: Tuple[int, int] = (1, 1)) -> n
     return nn.Conv2d(in_planes, planes, 3, stride=stride, padding=1, bias=False)
 
 
-def _add_downsample(block: nn.Module, in_planes: int, out_planes: int, stride: Tuple[int, int]) -> None:
+def _add_downsample(block: nn.Module, in_planes: int, out_planes: int, stride: Tuple[int, int],
+                    momentum: float) -> None:
     """A 1x1 strided conv + BN on the residual, where its shape changes."""
     block.has_downsample = tuple(stride) != (1, 1) or in_planes != out_planes
     if block.has_downsample:
-        block.downsample_conv = nn.Conv2d(in_planes, out_planes, 1, stride=stride, bias=False)
-        block.downsample_bn = BatchNorm(out_planes)
+        block.downsample_stride = tuple(stride)
+        block.downsample_conv = nn.Conv2d(in_planes, out_planes, 1, bias=False)
+        block.downsample_bn = BatchNorm(out_planes, momentum=momentum)
+
+
+def _downsample(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The strided 1x1 conv as a 1x1 conv over the cells it reads,
+    ``x[..., ::s_t, ::s_f]`` (the same arithmetic): oneDNN's CPU backward
+    of a strided 1x1 conv on channels-last maps corrupts the heap."""
+    s_t, s_f = block.downsample_stride
+    return block.downsample_bn(block.downsample_conv(x[:, :, ::s_t, ::s_f]))
 
 
 class BasicBlock(nn.Module):
@@ -47,15 +57,16 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_planes: int, planes: int, stride: Tuple[int, int] = (1, 1),
-                 use_se: bool = False, se_ratio: int = 16, full_pre_activation: bool = True):
+                 use_se: bool = False, se_ratio: int = 16, full_pre_activation: bool = True,
+                 momentum: float = 0.1):
         super().__init__()
         self.full_pre_activation = full_pre_activation
-        self.bn1 = BatchNorm(in_planes if full_pre_activation else planes)
+        self.bn1 = BatchNorm(in_planes if full_pre_activation else planes, momentum=momentum)
         self.conv1 = _conv3x3(in_planes, planes, stride)
-        self.bn2 = BatchNorm(planes)
+        self.bn2 = BatchNorm(planes, momentum=momentum)
         self.conv2 = _conv3x3(planes, planes)
         self.se = SEBlock2D(planes, se_ratio) if use_se else None
-        _add_downsample(self, in_planes, planes, stride)
+        _add_downsample(self, in_planes, planes, stride, momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x
@@ -68,7 +79,7 @@ class BasicBlock(nn.Module):
         if self.se is not None:
             y = self.se(y)
         if self.has_downsample:
-            residual = self.downsample_bn(self.downsample_conv(residual))
+            residual = _downsample(self, residual)
         y = y + residual
         return y if self.full_pre_activation else torch.relu(y)
 
@@ -79,17 +90,17 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_planes: int, planes: int, stride: Tuple[int, int] = (1, 1),
-                 use_se: bool = False, se_ratio: int = 16):
+                 use_se: bool = False, se_ratio: int = 16, momentum: float = 0.1):
         super().__init__()
         out_planes = planes * self.expansion
         self.conv1 = nn.Conv2d(in_planes, planes, 1, bias=False)
-        self.bn1 = BatchNorm(planes)
+        self.bn1 = BatchNorm(planes, momentum=momentum)
         self.conv2 = _conv3x3(planes, planes, stride)
-        self.bn2 = BatchNorm(planes)
+        self.bn2 = BatchNorm(planes, momentum=momentum)
         self.conv3 = nn.Conv2d(planes, out_planes, 1, bias=False)
-        self.bn3 = BatchNorm(out_planes)
+        self.bn3 = BatchNorm(out_planes, momentum=momentum)
         self.se = SEBlock2D(out_planes, se_ratio) if use_se else None
-        _add_downsample(self, in_planes, out_planes, stride)
+        _add_downsample(self, in_planes, out_planes, stride, momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x
@@ -99,7 +110,7 @@ class Bottleneck(nn.Module):
         if self.se is not None:
             y = self.se(y)
         if self.has_downsample:
-            residual = self.downsample_bn(self.downsample_conv(residual))
+            residual = _downsample(self, residual)
         return torch.relu(y + residual)
 
 
@@ -116,12 +127,15 @@ def _max_pool_same(x: torch.Tensor) -> torch.Tensor:
 class ResNet(nn.Module):
     """ResNet trunk for x-vectors: ``[B, T, F]`` -> frame-level
     ``[B, T', F'*C]`` with T' ~ T/8. The defaults (layers 3-4-6-3, base 32)
-    are the voxceleb ResNet34 recipe. The trunk takes no mask."""
+    are the voxceleb ResNet34 recipe. The trunk takes no mask, in train
+    mode either: its BatchNorms take their statistics over every frame.
+    ``momentum`` is the BatchNorms' (JAX's trunk default, 0.1;
+    ResNetXvector passes 0.5)."""
 
     def __init__(self, block: str = "basic", layers: Sequence[int] = (3, 4, 6, 3),
                  base_planes: int = 32, use_se: bool = False, se_ratio: int = 16,
                  full_pre_activation: bool = True, head_conv: bool = True,
-                 head_maxpool: bool = False):
+                 head_maxpool: bool = False, momentum: float = 0.1):
         super().__init__()
         if block not in ("basic", "bottleneck"):
             raise ValueError(f"block must be 'basic' or 'bottleneck', got {block!r}")
@@ -129,7 +143,7 @@ class ResNet(nn.Module):
         in_planes = 1
         if head_conv:
             self.stem = _conv3x3(1, base_planes)
-            self.stem_bn = BatchNorm(base_planes)
+            self.stem_bn = BatchNorm(base_planes, momentum=momentum)
             in_planes = base_planes
         self.blocks = []
         for stage, n_blocks in enumerate(layers):
@@ -137,9 +151,9 @@ class ResNet(nn.Module):
             for b in range(n_blocks):
                 stride = (2, 2) if stage > 0 and b == 0 else (1, 1)
                 if block == "basic":
-                    blk = BasicBlock(in_planes, planes, stride, use_se, se_ratio, full_pre_activation)
+                    blk = BasicBlock(in_planes, planes, stride, use_se, se_ratio, full_pre_activation, momentum)
                 else:
-                    blk = Bottleneck(in_planes, planes, stride, use_se, se_ratio)
+                    blk = Bottleneck(in_planes, planes, stride, use_se, se_ratio, momentum)
                 self.add_module(f"layer{stage + 1}_{b}", blk)
                 self.blocks.append(blk)
                 in_planes = planes * blk.expansion

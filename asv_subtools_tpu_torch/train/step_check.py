@@ -1,31 +1,39 @@
-"""One SGD step of a small ECAPA-TDNN on a chosen device and type, and the
-distance between two such steps leaf by leaf.
+"""The nets of the train checks, one SGD step of one on a chosen device
+and type, and the distance between two such steps leaf by leaf.
+
+The nets (shared by chip_smoke.py and tests/test_torch_cuda.py): ECAPA-TDNN
+(:func:`ecapa_net`), the ResNet x-vector (:func:`resnet_net`) and the
+Conformer x-vector (:func:`conformer_net`), each in a SpeakerNet with a
+margin head over 5994 classes and seeded random weights; full width by
+default, as ``bench.py:58-90`` trains them.
 
 The case of the train step's card-against-CPU checks (chip_smoke.py, the
-card tests and tools/train_step_conditioning.py):
-SpeakerNet(EcapaTdnn(channels=256)) with seeded random weights and a
-margin head over 5994 classes, B = 8 waves of 2 s, one SGD step of lr 0.1.
+card tests and tools/train_step_conditioning.py): a narrow net of one
+family (SpeakerNet(EcapaTdnn(channels=256)) unless told otherwise), B = 8
+waves of 2 s, one SGD step of lr 0.1.
 The waves are noise under a slow amplitude envelope whose rate differs
 from row to row (1.5 to 6 Hz), as syllables modulate speech: stationary
 noise gives every row the same pooled statistics after CMVN, and a
 train-mode BatchNorm over such a batch divides rounding by a near-zero
 spread.
 
-Leaf distances skip ``backbone.stats.att2.bias``: it adds a per-channel
-constant under a softmax over time, so its analytic gradient is 0 and
-both updates are rounding noise; :func:`zero_grad_share` reads it instead.
+Leaf distances skip the leaves whose analytic gradient is 0, where both
+updates are rounding noise: ``backbone.stats.att2.bias`` (ECAPA's and the
+Conformer's attentive pooling: a per-channel constant under a softmax
+over time), which :func:`zero_grad_share` reads instead, and any leaf
+whose float64 update is noise (:func:`zero_grad_leaves`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from ..features import FbankOptions, MelOptions, wave_features
-from ..models import EcapaTdnn, SpeakerNet
+from ..models import ConformerXvector, EcapaTdnn, ResNetXvector, SpeakerNet
 from ..weights import init_weights_
 from .trainer import TrainStepConfig, init_train_state, make_train_step
 from .optim import sgd
@@ -39,6 +47,10 @@ SUBCENTER_TOPK = ("margin_softmax_v1", {"method": "aam", "m": 0.2, "s": 30, "sub
 # the sub-centre head computes in float32 whatever its input (as in JAX)
 AAM = ("margin_softmax", {"method": "aam", "m": 0.2})
 ZERO_GRAD = "backbone.stats.att2.bias"
+# a narrow Conformer for the card-against-CPU step: dropout off, since the
+# card's generator draws other masks than the CPU's
+NARROW_CONFORMER = dict(num_blocks=2, attention_dim=64, attention_heads=2, linear_units=128, dropout_rate=0.0)
+NARROW_RESNET = dict(layers=(1, 1, 1, 1), base_planes=8)
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -65,6 +77,32 @@ def ecapa_net(head=SUBCENTER_TOPK, seed: int = 0, channels: int = 256) -> Speake
     return init_weights_(SpeakerNet(backbone, *head, num_targets=NUM_TARGETS), seed)
 
 
+def resnet_net(head=AAM, seed: int = 0, **backbone: Any) -> SpeakerNet:
+    """SpeakerNet(ResNetXvector(80 bins, embedding 512, ``backbone``; base32
+    layers 3-4-6-3 by default)) with ``head`` over 5994 classes and seeded
+    random weights, in f32 on the CPU: ``bench.py:75-81``."""
+    net = SpeakerNet(ResNetXvector(80, device="cpu", **{"embd_dim": 512, **backbone}), *head, num_targets=NUM_TARGETS)
+    return init_weights_(net, seed)
+
+
+def conformer_net(head=AAM, seed: int = 0, **backbone: Any) -> SpeakerNet:
+    """SpeakerNet(ConformerXvector(80 bins, ``backbone``; 6L-256D-4H conv2d,
+    embedding 256 by default)) with ``head`` over 5994 classes and seeded
+    random weights, in f32 on the CPU: ``bench.py:82-90``."""
+    kw = {"num_blocks": 6, "attention_dim": 256, "attention_heads": 4, "input_layer": "conv2d", **backbone}
+    net = SpeakerNet(ConformerXvector(80, device="cpu", **kw), *head, num_targets=NUM_TARGETS)
+    return init_weights_(net, seed)
+
+
+def narrow_net(family: str) -> Callable[..., SpeakerNet]:
+    """``make_net`` of the card-against-CPU step for ``family`` ("ecapa",
+    "resnet" or "conformer"): the narrow net of that family."""
+    if family == "ecapa":
+        return ecapa_net
+    make, kw = {"resnet": (resnet_net, NARROW_RESNET), "conformer": (conformer_net, NARROW_CONFORMER)}[family]
+    return lambda head=AAM, seed=0: make(head, seed, **kw)
+
+
 @dataclasses.dataclass
 class StepResult:
     metrics: Dict[str, float]
@@ -73,11 +111,12 @@ class StepResult:
 
 
 def sgd_step(device: Any, dtype: torch.dtype, x: torch.Tensor, y: torch.Tensor, head=SUBCENTER_TOPK,
-             seed: int = 0, wave_input: bool = False) -> StepResult:
-    """One SGD step (lr 0.1) of :func:`ecapa_net` on ``device`` in
-    ``dtype``, on waves (``wave_input``: the front end runs in the step,
-    the fbank kernel on a card) or on features."""
-    net = ecapa_net(head, seed).to(torch.float64 if dtype == torch.float64 else torch.float32)
+             seed: int = 0, wave_input: bool = False, make_net: Callable[..., Any] = ecapa_net) -> StepResult:
+    """One SGD step (lr 0.1) of ``make_net(head, seed)`` (the narrow ECAPA
+    by default) on ``device`` in ``dtype``, on waves (``wave_input``: the
+    front end runs in the step, the fbank kernel on a card) or on
+    features."""
+    net = make_net(head, seed).to(torch.float64 if dtype == torch.float64 else torch.float32)
     tx = sgd(0.1)
     state = init_train_state(net, tx, device)
     config = TrainStepConfig(compute_dtype=dtype, wave_input=wave_input, fbank_opts=OPTS)
@@ -89,20 +128,56 @@ def sgd_step(device: Any, dtype: torch.dtype, x: torch.Tensor, y: torch.Tensor, 
                       {k: v.double().cpu() for k, v in new.batch_stats.items()})
 
 
+def zero_grad_leaves(ref: Tensors) -> List[str]:
+    """The leaves of the update ``ref`` whose analytic gradient is 0:
+    :data:`ZERO_GRAD`, and any leaf whose update is rounding noise, under
+    1e-12 of the whole update's norm (read from a float64 update: the
+    ResNet's downsample BN shifts whose output reaches train-mode
+    BatchNorms only, which take every per-channel constant out)."""
+    total = float(torch.sqrt(sum((u ** 2).sum() for u in ref.values())))
+    return [k for k, u in ref.items() if k == ZERO_GRAD or float(u.norm()) <= 1e-12 * total]
+
+
 def worst_leaf(u: Tensors, ref: Tensors) -> Tuple[float, str, float]:
     """(the worst leaf's distance over its norm in ``ref``, that leaf, the
-    whole tree's distance over its norm), :data:`ZERO_GRAD` left out."""
-    errs = {k: float((u[k] - ref[k]).norm() / ref[k].norm()) for k in ref if k != ZERO_GRAD}
+    whole tree's distance over its norm), :func:`zero_grad_leaves` left
+    out."""
+    skip = set(zero_grad_leaves(ref))
+    keys = [k for k in ref if k not in skip]
+    errs = {k: float((u[k] - ref[k]).norm() / ref[k].norm()) for k in keys}
     worst = max(errs, key=errs.get)
-    keys = [k for k in ref if k != ZERO_GRAD]
     whole = float(torch.sqrt(sum(((u[k] - ref[k]) ** 2).sum() for k in keys))
                   / torch.sqrt(sum((ref[k] ** 2).sum() for k in keys)))
     return errs[worst], worst, whole
 
 
+def worst_stat(u: Tensors, ref: Tensors) -> Tuple[float, str, float]:
+    """:func:`worst_leaf` over BatchNorm running statistics, with one
+    change: a running mean under 1e-2 of its running std's norm in ``ref``
+    is the mean of a map whose mean is 0 by construction (the ResNet's
+    stem: a bias-free conv over CMVN'd features), a cancellation whose
+    relative error says nothing; its distance is taken over the std's
+    norm, the scale at which it enters the normalisation. ECAPA's running
+    means all sit above 4e-2 of their std, so its readings are
+    :func:`worst_leaf`'s."""
+    def scale(k: str) -> float:
+        norm = float(ref[k].norm())
+        var = ref.get(k[:-len("mean")] + "var") if k.endswith(".mean") else None
+        std = float(var.sqrt().norm()) if var is not None else 0.0
+        return std if norm < 1e-2 * std else norm
+
+    errs = {k: float((u[k] - ref[k]).norm()) / scale(k) for k in ref}
+    worst = max(errs, key=errs.get)
+    whole = float(torch.sqrt(sum(((u[k] - ref[k]) ** 2).sum() for k in ref))
+                  / torch.sqrt(sum((ref[k] ** 2).sum() for k in ref)))
+    return errs[worst], worst, whole
+
+
 def zero_grad_share(a: Tensors, b: Tensors) -> float:
     """The larger of the two :data:`ZERO_GRAD` updates over the norm of the
-    whole update ``b``."""
+    whole update ``b`` (0 for a net without that leaf)."""
+    if ZERO_GRAD not in b:
+        return 0.0
     total = float(torch.sqrt(sum((u ** 2).sum() for u in b.values())))
     return max(float(a[ZERO_GRAD].norm()), float(b[ZERO_GRAD].norm())) / total
 

@@ -23,6 +23,7 @@ forward in the compute type, the loss, the backward, the global-norm clip
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -60,11 +61,13 @@ class TrainStepConfig:
     # "max_t", "max_f"}), drawn from the step's generator
     spec_aug: bool = False
     spec_aug_params: Optional[dict] = None
+    # > 0: the net gets warmup = step / model_warmup_steps (a device
+    # tensor), which the Conformer's blocks blend by (JAX trainer.py:87-90)
+    model_warmup_steps: int = 0
     # the JAX step's options the port does not carry yet: setting one raises
     use_semi_orth: bool = False
     mixup_alpha: float = 0.0
     remat: Optional[str] = None
-    model_warmup_steps: int = 0
 
 
 def device_spec_augment(feats: torch.Tensor, generator: torch.Generator, num_t_mask: int = 1,
@@ -118,17 +121,21 @@ def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Opt
     must be a multiple of it. ``generator`` (on the state's device) draws
     SpecAugment and dropout. ``lambda_m`` and ``margin_offset`` feed the
     margin loss, ``lr_scale`` (ReduceOnPlateau's scale) scales the updates,
-    not the gradients. metrics: loss, accuracy, grad_norm, skipped (1.0 on
-    a kept state) and, given ``lr_schedule``, lr at the state's step times
-    lr_scale; all 0-dim tensors on the device.
+    not the gradients. A net whose ``forward`` takes ``warmup`` gets it:
+    ``step / model_warmup_steps`` in float32 on the device, or 1.0 when
+    ``model_warmup_steps`` is 0. metrics: loss, accuracy, grad_norm,
+    skipped (1.0 on a kept state) and, given ``lr_schedule``, lr at the
+    state's step times lr_scale; all 0-dim tensors on the device.
     """
-    for name, off in (("use_semi_orth", False), ("mixup_alpha", 0.0), ("remat", None), ("model_warmup_steps", 0)):
+    for name, off in (("use_semi_orth", False), ("mixup_alpha", 0.0), ("remat", None)):
         if getattr(config, name) != off:
             raise NotImplementedError(f"TrainStepConfig.{name} is not ported yet")
     opts = config.fbank_opts or FbankOptions()
     dtype = config.compute_dtype
+    net_takes_warmup = "warmup" in inspect.signature(type(net).forward).parameters
 
-    def loss_and_grads(params: Tensors, batch_stats: Tensors, x, y, mask, generator, lambda_m, margin_offset):
+    def loss_and_grads(params: Tensors, batch_stats: Tensors, x, y, mask, generator, lambda_m, margin_offset,
+                       warmup):
         if config.wave_input:
             # the wave is data: the front end needs no gradient
             with torch.no_grad():
@@ -138,9 +145,10 @@ def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Opt
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         tensors = {k: p.to(dtype) if p.dtype == torch.float32 else p for k, p in leaves.items()}
         tensors.update(batch_stats)
-        loss, logits, _ = torch.func.functional_call(
-            net, tensors, (x.to(dtype), y),
-            dict(mask=mask, lambda_m=lambda_m, margin_offset=margin_offset, generator=generator))
+        kwargs = dict(mask=mask, lambda_m=lambda_m, margin_offset=margin_offset, generator=generator)
+        if net_takes_warmup:
+            kwargs["warmup"] = warmup
+        loss, logits, _ = torch.func.functional_call(net, tensors, (x.to(dtype), y), kwargs)
         loss = loss.float()
         grads = torch.autograd.grad(loss, list(leaves.values()))
         # the buffers the BatchNorms assigned in train mode
@@ -155,12 +163,15 @@ def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Opt
         if x.shape[0] % a:
             raise ValueError(f"batch {x.shape[0]} not divisible by accum_grad {a}")
         mb = x.shape[0] // a
+        # the division stays on the device: the step never waits on the card
+        warmup = (state.step.to(torch.float32) / config.model_warmup_steps
+                  if config.model_warmup_steps > 0 else 1.0)
         grads, stats, loss, acc = None, state.batch_stats, 0.0, 0.0
         for i in range(a):
             part = slice(i * mb, (i + 1) * mb)
             loss_i, acc_i, stats, grads_i = loss_and_grads(
                 state.params, stats, x[part], y[part], None if mask is None else mask[part], generator,
-                lambda_m, margin_offset)
+                lambda_m, margin_offset, warmup)
             grads = grads_i if grads is None else torch._foreach_add(grads, grads_i)
             loss, acc = loss + loss_i, acc + acc_i
         if a > 1:

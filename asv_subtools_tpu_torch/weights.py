@@ -8,12 +8,18 @@ port's modules carry the flax module names, so each leaf maps by rule:
 * a flax 2-D Conv ``kernel [kh, kw, in, out]`` -> ``<path>.weight
   [out, in, kh, kw]`` (the port's maps are ``[B, C, T, F]``: H = T, W = F);
 * a flax Dense ``kernel [in, out]`` -> ``<path>.weight [out, in]``;
-* the ``_SplitGlobalConv`` kernel (module ``att1``) keeps ``[1, 3C, K]``
-  as ``<path>.kernel``;
-* ``bias``, BN ``scale`` (params) and ``mean``, ``var`` (batch_stats) map
-  one to one; so do the margin losses' classifier ``loss/weight``
-  (``[C * sub_k, D]``), their ring radius ``ring_r`` and the curricular
-  statistic ``curricular_t`` (batch_stats).
+* the ``_SplitGlobalConv`` kernel (module ``att1``, ``[1, 3C, K]``) keeps
+  its layout as ``<path>.kernel``. A plain 1x1 conv under the same name
+  (``[1, C, K]``, the attentive pooling without time attention) takes the
+  1-D conv rule; the two are told apart by the width of the pooling's
+  ``att2`` kernel ``[1, K, C]`` beside it;
+* ``bias``, BN and LayerNorm ``scale`` (params) and ``mean``, ``var``
+  (batch_stats) map one to one; so do the margin losses' classifier
+  ``loss/weight`` (``[C * sub_k, D]``), their ring radius ``ring_r``, the
+  curricular statistic ``curricular_t`` (batch_stats) and the relative
+  attention's ``pos_bias_u`` and ``pos_bias_v`` (``[H, Dh]``). The
+  Conformer's depthwise conv kernel ``[k, 1, D]`` takes the 1-D conv rule
+  (``[D, 1, k]``, one group per channel).
 
 A whole train state crosses too (:func:`train_state_from_variables` and
 :func:`train_state_to_variables`): the step, the ``SpeakerNet`` params,
@@ -22,15 +28,16 @@ the batch_stats and the optimizer state, whose moment trees (optax's
 
 Every leaf is consumed exactly once; a leaf no rule takes raises, and
 :func:`load_variables` raises on any port parameter left unset. The rules
-hold for every ported family (ECAPA-TDNN, ResNet x-vector); the ``*ecapa*``
-names are the original ones and stay as aliases.
+hold for every ported family (ECAPA-TDNN, ResNet x-vector, Conformer
+x-vector); the ``*ecapa*`` names are the original ones and stay as
+aliases.
 """
 
 from __future__ import annotations
 
 import math
 from collections.abc import Mapping
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,20 +47,35 @@ from .device import resolve_device
 from .train.trainer import TrainState
 
 _SPLIT_CONV = "att1"
-_ONE_TO_ONE_PARAMS = ("bias", "scale", "ring_r")
+_ONE_TO_ONE_PARAMS = ("bias", "scale", "ring_r", "pos_bias_u", "pos_bias_v")
 _STATS = ("mean", "var", "curricular_t")
 _MARGIN_LOSS = "loss"  # SpeakerNet's head: its "weight" is no Dense kernel
 
 
-def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = (),
+            parent: Optional[Mapping] = None) -> Iterator[Tuple[Tuple[str, ...], np.ndarray, Mapping]]:
+    """(path, leaf, the mapping that holds the leaf's module) over a tree."""
     for key, value in tree.items():
         if isinstance(value, Mapping):
-            yield from _leaves(value, prefix + (key,))
+            yield from _leaves(value, prefix + (key,), tree)
         else:
-            yield prefix + (key,), np.asarray(value)
+            yield prefix + (key,), np.asarray(value), parent or {}
 
 
-def _to_port(collection: str, path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarray]:
+def _is_split_conv(path: Tuple[str, ...], value: np.ndarray, siblings: Mapping) -> bool:
+    """An ``att1`` kernel is ``_SplitGlobalConv``'s ``[1, 3C, K]`` when its
+    pooling's ``att2`` (``[1, K, C]``) says its input is 3C wide; with C
+    wide it is a plain 1x1 conv (the attentive pooling without time
+    attention), which takes the 1-D conv rule."""
+    if path[-2:] != (_SPLIT_CONV, "kernel") or value.ndim != 3:
+        return False
+    att2 = np.shape(siblings.get("att2", {}).get("kernel"))
+    if len(att2) != 3 or value.shape[1] not in (att2[2], 3 * att2[2]):
+        raise ValueError(f"{'/'.join(path)} {value.shape}: no att2 kernel [1, K, C] beside it tells its input")
+    return value.shape[1] == 3 * att2[2]
+
+
+def _to_port(collection: str, path: Tuple[str, ...], value: np.ndarray, siblings: Mapping) -> Tuple[str, np.ndarray]:
     *mods, leaf = path
     key = lambda name: ".".join((*mods, name))
     if collection == "batch_stats" and leaf in _STATS:
@@ -61,7 +83,7 @@ def _to_port(collection: str, path: Tuple[str, ...], value: np.ndarray) -> Tuple
     if collection == "params":
         if leaf in _ONE_TO_ONE_PARAMS or (leaf == "weight" and mods and mods[-1] == _MARGIN_LOSS):
             return key(leaf), value
-        if leaf == "kernel" and mods and mods[-1] == _SPLIT_CONV and value.ndim == 3:
+        if _is_split_conv(path, value, siblings):
             return key("kernel"), value
         if leaf == "kernel" and value.ndim == 4:
             return key("weight"), value.transpose(3, 2, 0, 1)
@@ -79,8 +101,8 @@ def variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         raise ValueError(f"unexpected variable collections {sorted(extra)}")
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
-        for path, value in _leaves(variables.get(collection, {})):
-            key, arr = _to_port(collection, path, value)
+        for path, value, siblings in _leaves(variables.get(collection, {})):
+            key, arr = _to_port(collection, path, value, siblings)
             if key in out:
                 raise ValueError(f"two leaves map to {key}")
             out[key] = torch.from_numpy(np.ascontiguousarray(arr))
@@ -132,7 +154,9 @@ def load_variables(model: nn.Module, variables: Mapping) -> nn.Module:
 
 def init_weights_(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights in the flax initialisers' scale: kernels
-    normal with std 1/sqrt(fan_in) (lecun), biases 0, BN scale 1."""
+    normal with std 1/sqrt(fan_in) (lecun), biases 0, norm scales 1, the
+    relative attention's ``pos_bias_*`` uniform in +-sqrt(6 / (H + Dh))
+    (xavier)."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -145,6 +169,9 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
                 p.zero_()
             elif leaf == "scale":
                 p.fill_(1.0)
+            elif leaf in ("pos_bias_u", "pos_bias_v"):
+                limit = math.sqrt(6.0 / sum(p.shape))
+                p.copy_(((torch.rand(p.shape, generator=gen) * 2 - 1) * limit).to(device=p.device, dtype=p.dtype))
     return model
 
 

@@ -47,8 +47,8 @@ Phases (any failure raises and the script exits non-zero):
      statistics pooling on, held against the same model with the flag off
      fed by the plain front end and against an f32 model on the f32 plain
      front end; timed with the flag on and off; one batch profiled; then the Extractor run as in 6.
-     The launch counters are zeroed just before each of the three main
-     paths (6, 7 and 8) drives the port and read just after; every kernel
+     The launch counters are zeroed just before each of the six main
+     paths (6 to 11) drives the port and read just after; every kernel
      of a path must have been launched in it.
   8. the train step of ECAPA-TDNN C1024 (SpeakerNet with the sub-centre
      top-k AAM head over 5994 classes, seeded random weights, bf16
@@ -67,7 +67,30 @@ Phases (any failure raises and the script exits non-zero):
      each leaf against the f64 step, and the f64 step on the card against
      the CPU leaf by leaf. The counters are zeroed just before the first
      step and read just after.
-  9. a "kernels" JSON line, then the device JSON as the last line.
+  9. the train step of the ResNet34 x-vector (bench.py:75-81: base32,
+     layers 3-4-6-3, embedding 512, AAM m=0.2 over 5994 classes) on the
+     same terms as 8 (B=128 x 2 s, bf16 on f32 masters, adamW 1e-3, K1 in
+     the step): 30 steps on one fixed batch under the sync check, 20 of
+     them timed, one profiled, the last loss under half the first; then a
+     narrow ResNet's f32 and f64 steps, card against CPU, with 8's bounds
+     (the stem BN's running mean, the mean of a zero-mean map, measured
+     against its std: train/step_check.py worst_stat).
+ 10. the Conformer x-vector served at full width and depth (6L-256D-4H,
+     conv2d subsampling, embedding 256, bf16) behind make_wave_embed_fn on
+     one [128, 160000] batch, held against the same model fed by the
+     plain front end and against an f32 model on the f32 plain front end
+     (0.999: the bf16 model's own rounding moves it by about 4e-4 under
+     input changes of K1's size), and K1 through the f32 model (its
+     features against the plain bf16 front end's, 0.9999); timed; one
+     batch profiled; then the Extractor run as in 6.
+ 11. the train step of the Conformer x-vector (bench.py:82-90, dropout 0.1
+     drawn from the step's generator) as in 9, but for the last loss,
+     held below the first (as in 8) rather than under half; then five steps of the
+     recipe's configuration (recipes/configs/conformer.yaml: AM m=0.2,
+     model_warmup_steps 1000, adamW on the noam schedule) on a masked
+     batch of 1.0-2.0 s, where warmup < 1 blends every block; then a
+     narrow Conformer's card-against-CPU steps as in 9.
+ 12. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
 line) is device time over many launches back to back: one CUDA event, N
@@ -898,59 +921,119 @@ def no_host_sync(torch):
         torch.cuda.set_sync_debug_mode("default")
 
 
-def _card_against_cpu(torch):
-    """One f32 SGD step of SpeakerNet(EcapaTdnn(channels=256)) at B=8 on the
-    card (K1 in f32 mode, TF32 off) and on the CPU (the plain front end)
-    from the same state on the same waves, each held against the f64 step
-    on the plain front end's features; then the f64 step on the card
+def _card_against_cpu(torch, family: str = "ecapa"):
+    """One f32 SGD step of the narrow net of ``family`` at B=8 (ECAPA C256,
+    or the ResNet and Conformer of train/step_check.py's narrow_net) on
+    the card (K1 in f32 mode, TF32 off) and on the CPU (the plain front
+    end) from the same state on the same waves, each held against the f64
+    step on the plain front end's features; then the f64 step on the card
     against the CPU (train/step_check.py builds the case)."""
     from asv_subtools_tpu_torch.features import fused_fbank
-    from asv_subtools_tpu_torch.train.step_check import (AAM, ZERO_GRAD, modulated_waves, plain_features, rel,
-                                                         sgd_step, worst_leaf, zero_grad_share)
+    from asv_subtools_tpu_torch.train.step_check import (AAM, SUBCENTER_TOPK, ZERO_GRAD, modulated_waves, narrow_net,
+                                                         plain_features, rel, sgd_step, worst_leaf, worst_stat,
+                                                         zero_grad_share)
 
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    make = narrow_net(family)
+    head = SUBCENTER_TOPK if family == "ecapa" else AAM
+    what = {"ecapa": "SpeakerNet ECAPA C256", "resnet": "SpeakerNet ResNet base8 1-1-1-1",
+            "conformer": "SpeakerNet Conformer 2L-64D-2H, dropout 0"}[family]
     wave, y = modulated_waves(8, SEED + 30)
     feats, seed = plain_features(wave), SEED + 32
-    ref = sgd_step("cpu", torch.float64, feats, y, seed=seed)
+    ref = sgd_step("cpu", torch.float64, feats, y, head, seed, make_net=make)
     before = fused_fbank.launches
-    card = sgd_step("cuda", torch.float32, wave, y, seed=seed, wave_input=True)
+    card = sgd_step("cuda", torch.float32, wave, y, head, seed, wave_input=True, make_net=make)
     check(fused_fbank.launches == before + 1 and fused_fbank.last_route == "cuda_core",
           "the f32 step on the card did not run K1's f32 kernel once")
-    cpu = sgd_step("cpu", torch.float32, wave, y, seed=seed, wave_input=True)
+    cpu = sgd_step("cpu", torch.float32, wave, y, head, seed, wave_input=True, make_net=make)
     e_loss = rel(card.metrics["loss"], cpu.metrics["loss"])
     e_grad = rel(card.metrics["grad_norm"], cpu.metrics["grad_norm"])
     leaf = {d: worst_leaf(r.updates, ref.updates) for d, r in (("card", card), ("CPU", cpu))}
-    stats = {d: worst_leaf(r.batch_stats, ref.batch_stats) for d, r in (("card", card), ("CPU", cpu))}
+    stats = {d: worst_stat(r.batch_stats, ref.batch_stats) for d, r in (("card", card), ("CPU", cpu))
+             if ref.batch_stats}
     noise = zero_grad_share(card.updates, cpu.updates)
+    has_zero = ZERO_GRAD in ref.updates
     between = worst_leaf(card.updates, cpu.updates)  # printed, not held: no bound holds whatever the seed
-    print(f"train card vs CPU (SpeakerNet ECAPA C256, B=8 x 2 s, f32, TF32 off, one SGD step): loss "
+    print(f"train card vs CPU ({what}, B=8 x 2 s, f32, TF32 off, one SGD step): loss "
           f"{card.metrics['loss']:.6f} vs {cpu.metrics['loss']:.6f} (rel {e_loss:.2e}, tol {F32_LOSS_TOL}), grad_norm "
           f"{card.metrics['grad_norm']:.5f} vs {cpu.metrics['grad_norm']:.5f} (rel {e_grad:.2e}, tol "
           f"{F32_GRAD_NORM_TOL}), worst leaf update {between[0]:.2e} of the CPU's at {between[1]}; against the f64 "
           f"step, worst leaf update "
           + ", ".join(f"{d} {e:.2e} at {k} (whole {w:.1e})" for d, (e, k, w) in leaf.items()) + f" (tol {F32_LEAF_TOL}; "
-          f"{len(ref.updates) - 1} leaves), worst BN statistic "
-          + ", ".join(f"{d} {e:.2e} at {k}" for d, (e, k, _) in stats.items()) + f" (tol {F32_STATS_TOL}); "
-          f"{ZERO_GRAD} {noise:.1e} of the update (tol 1e-6)", flush=True)
+          f"{len(ref.updates)} leaves), worst BN statistic "
+          + (", ".join(f"{d} {e:.2e} at {k}" for d, (e, k, _) in stats.items()) or "none (no BatchNorm)")
+          + f" (tol {F32_STATS_TOL})" + (f"; {ZERO_GRAD} {noise:.1e} of the update (tol 1e-6)" if has_zero else ""),
+          flush=True)
     check(e_loss <= F32_LOSS_TOL and e_grad <= F32_GRAD_NORM_TOL and noise <= 1e-6
           and all(e <= F32_LEAF_TOL for e, _, _ in leaf.values())
           and all(e <= F32_STATS_TOL for e, _, _ in stats.values()),
-          "the f32 train step on the card or the CPU is off the f64 step, or the two disagree")
+          f"the f32 train step of {what} on the card or the CPU is off the f64 step, or the two disagree")
 
     # the same step in float64 on the same features: the port's step on
     # the card computes what it computes on the CPU, leaf by leaf. The head
     # is the AAM margin softmax, float64 throughout: the sub-centre head
     # computes in float32 whatever its input (as the JAX one does)
-    card, cpu = (sgd_step(d, torch.float64, feats, y, AAM, seed) for d in ("cuda", "cpu"))
+    card, cpu = (sgd_step(d, torch.float64, feats, y, AAM, seed, make_net=make) for d in ("cuda", "cpu"))
     e, k, _ = worst_leaf(card.updates, cpu.updates)
-    e_stats = worst_leaf(card.batch_stats, cpu.batch_stats)[0]
+    e_stats = worst_stat(card.batch_stats, cpu.batch_stats)[0] if cpu.batch_stats else 0.0
     e_grad = rel(card.metrics["grad_norm"], cpu.metrics["grad_norm"])
     noise = zero_grad_share(card.updates, cpu.updates)
-    print(f"train card vs CPU in float64 (same net and batch, features in): grad_norm rel {e_grad:.2e}, worst leaf "
+    print(f"train card vs CPU in float64 ({what}, same batch, features in): grad_norm rel {e_grad:.2e}, worst leaf "
           f"update {e:.2e} of its norm at {k}, worst BN statistic {e_stats:.2e} (tol {F64_LEAF_TOL}; "
-          f"{len(cpu.updates) - 1} leaves), {ZERO_GRAD} {noise:.1e} of the update (tol 1e-12)", flush=True)
+          f"{len(cpu.updates)} leaves)" + (f", {ZERO_GRAD} {noise:.1e} of the update (tol 1e-12)" if has_zero else ""),
+          flush=True)
     check(max(e_grad, e, e_stats) <= F64_LEAF_TOL and noise <= 1e-12,
-          "the float64 train step on the card disagrees with the CPU")
+          f"the float64 train step of {what} on the card disagrees with the CPU")
+
+
+def run_fixed_batch(torch, step, state, batch, gen, what: str, path: str, device_label: str,
+                    falls_to: float) -> dict:
+    """30 steps of ``step`` on one fixed batch from ``state``, queued back to
+    back, none of them allowed to wait on the card (no_host_sync: the host
+    queues steps ahead of the card, as a training loop does). The first step
+    is the main path's run: the launch counters are zeroed just before it
+    and read just after. Prints the median ms/step of 20 steps between CUDA
+    events after 3 warm-up steps, audio-s/s, the host's time to queue a step
+    and the peak memory; profiles one step; requires every loss finite,
+    none skipped and the last loss under ``falls_to`` times the first."""
+    b, samples = batch["x"].shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with no_host_sync(torch):
+        state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    counts = read_launches(path, ("fused_fbank",))
+    check(counts["fused_fbank"] == 1, f"K1 launched {counts['fused_fbank']} times in one step")
+    metrics, events, host_ms = [m], [], []
+    for _ in range(29):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        with no_host_sync(torch):
+            start.record()
+            state, m = step(state, batch, gen)
+            end.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    # after 3 warm-up steps (the first one and two of the loop), 20 timed
+    ms = float(np.median([s.elapsed_time(e) for s, e in events[2:22]]))
+    host = float(np.median(host_ms[2:22]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{what} [{b},{samples}] adamW: {ms:.2f} ms/step (median of 20 between CUDA events, steps queued back to "
+          f"back after 3 warm-up steps), {b * samples / 16000.0 / (ms / 1e3):.0f} audio-s/s; the host {host:.2f} ms "
+          f"to queue a step (median); no step waited on the card; K1 launches per step {counts['fused_fbank']}; "
+          f"peak memory {peak:.2f} GiB on {device_label}", flush=True)
+    profile_served_batch(torch, lambda: step(state, batch, gen), what=f"one {what} step")
+    losses = torch.stack([x["loss"] for x in metrics]).cpu()
+    skipped = float(torch.stack([x["skipped"] for x in metrics]).sum())
+    print(f"{what} 30 steps on one batch: loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f} "
+          f"(min {float(losses.min()):.4f}), skipped {skipped:.0f}, last grad_norm {float(metrics[-1]['grad_norm']):.3f}",
+          flush=True)
+    check(bool(torch.isfinite(losses).all()) and skipped == 0 and float(losses[-1]) < falls_to * float(losses[0]),
+          f"the 30 {what} steps did not run finite with the last loss under {falls_to} of the first")
+    return counts
 
 
 def phase_train(torch, device_label):
@@ -986,54 +1069,16 @@ def phase_train(torch, device_label):
           f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms (10 launches back to back), bound {bound:.4f} ms by {by} "
           f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
 
-    # 2.-4. bench's optimizer on one fixed batch: 30 steps from a fresh
-    # state. No step may wait on the card (no_host_sync): the host queues
-    # steps ahead of the card, as a training loop does
+    # 2.-4. bench's optimizer on one fixed batch: 30 steps from a fresh state
     config = TrainStepConfig(compute_dtype=torch.bfloat16, wave_input=True, fbank_opts=opts)
     net = ecapa_net(SUBCENTER_TOPK, SEED + 21, channels=1024)
     tx = get_optimizer("adamW", 1e-3)  # bench.py:115
     state = init_train_state(net, tx, dev)
     step = make_train_step(net, tx, config=config)
-    batch = {"x": wave, "y": labels}
     del k, p
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    # the main path: counters from zero
-    zero_launches()
-    with no_host_sync(torch):
-        state, m = step(state, batch, gen)
-    torch.cuda.synchronize()
-    counts = read_launches("train step", ("fused_fbank",))
-    check(counts["fused_fbank"] == 1, f"K1 launched {counts['fused_fbank']} times in one step")
-    metrics, events, host_ms = [m], [], []
-    for _ in range(29):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        with no_host_sync(torch):
-            start.record()
-            state, m = step(state, batch, gen)
-            end.record()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        metrics.append(m)
-        events.append((start, end))
-    torch.cuda.synchronize()
-    # after 3 warm-up steps (the first one and two of the loop), 20 timed
-    ms = float(np.median([s.elapsed_time(e) for s, e in events[2:22]]))
-    host = float(np.median(host_ms[2:22]))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train C1024 bf16 [{BATCH},{TRAIN_SAMPLES}] adamW: {ms:.2f} ms/step (median of 20 between CUDA events, "
-          f"steps queued back to back after 3 warm-up steps), {BATCH * TRAIN_SAMPLES / 16000.0 / (ms / 1e3):.0f} "
-          f"audio-s/s; the host {host:.2f} ms to queue a step (median); no step waited on the card; K1 launches "
-          f"per step {counts['fused_fbank']}; peak memory {peak:.2f} GiB on {device_label}", flush=True)
-    profile_served_batch(torch, lambda: step(state, batch, gen), what="one train step")
-    losses = torch.stack([x["loss"] for x in metrics]).cpu()
-    skipped = float(torch.stack([x["skipped"] for x in metrics]).sum())
-    print(f"train 30 steps on one batch: loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f} "
-          f"(min {float(losses.min()):.4f}), skipped {skipped:.0f}, last grad_norm {float(metrics[-1]['grad_norm']):.3f}",
-          flush=True)
-    check(bool(torch.isfinite(losses).all()) and skipped == 0 and float(losses[-1]) < float(losses[0]),
-          "the 30 train steps did not run finite with a falling loss")
-    del state, step, metrics
+    counts = run_fixed_batch(torch, step, state, {"x": wave, "y": labels}, gen, "train C1024 bf16", "train step",
+                             device_label, falls_to=1.0)
+    del state, step
     torch.cuda.empty_cache()
 
     # 5. the recipe's optimizer (recipes/voxceleb/run.py:100-130) with
@@ -1069,6 +1114,155 @@ def phase_train(torch, device_label):
     return counts
 
 
+def _train_batch(torch, seed: int):
+    """(fbank options, generator, waves [128, 32000], labels): bench.py's
+    training batch (bench.py:94-126), seeded."""
+    from asv_subtools_tpu_torch.train.step_check import NUM_TARGETS, OPTS
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wave = torch.randn((BATCH, TRAIN_SAMPLES), generator=gen, device=dev) * 1000.0
+    return OPTS, gen, wave, torch.randint(0, NUM_TARGETS, (BATCH,), generator=gen, device=dev)
+
+
+def phase_train_resnet(torch, device_label):
+    """The train step of the ResNet34 x-vector (bench.py:75-81: base32,
+    layers 3-4-6-3, embedding 512, AAM m=0.2 over 5994 classes) on raw
+    waves at B=128 x 2 s, bf16 on f32 masters, adamW 1e-3, K1 in the step;
+    then a narrow ResNet's step on the card against the CPU."""
+    from asv_subtools_tpu_torch.train import TrainStepConfig, get_optimizer, init_train_state, make_train_step
+    from asv_subtools_tpu_torch.train.step_check import resnet_net
+
+    opts, gen, wave, labels = _train_batch(torch, SEED + 50)
+    net = resnet_net(seed=SEED + 51)
+    tx = get_optimizer("adamW", 1e-3)
+    state = init_train_state(net, tx, "cuda")
+    step = make_train_step(net, tx, config=TrainStepConfig(compute_dtype=torch.bfloat16, wave_input=True,
+                                                           fbank_opts=opts))
+    counts = run_fixed_batch(torch, step, state, {"x": wave, "y": labels}, gen, "train ResNet34 bf16",
+                             "ResNet34 train step", device_label, falls_to=0.5)
+    del state, step, net
+    torch.cuda.empty_cache()
+    _card_against_cpu(torch, "resnet")
+    return counts
+
+
+def phase_served_conformer(torch, device_label):
+    """The Conformer x-vector served at full width and depth (bench.py:82-90:
+    6L-256D-4H, conv2d subsampling, embedding 256, seeded random weights,
+    bf16) behind make_wave_embed_fn on one [128, 160000] batch, held
+    against the same model fed by the plain front end and against an f32
+    model on the f32 plain front end; timed; one batch profiled; then the
+    Extractor run as in 6."""
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.models import ConformerXvector
+    from asv_subtools_tpu_torch.train.step_check import OPTS
+    from asv_subtools_tpu_torch.weights import init_weights_
+
+    dev = torch.device("cuda")
+    model32 = init_weights_(ConformerXvector(80, num_blocks=6, attention_dim=256, attention_heads=4,
+                                             input_layer="conv2d"), SEED + 60)
+    model16 = copy.deepcopy(model32).to(torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    wave = torch.randn((BATCH, SAMPLES), generator=gen, device=dev) * 1000.0
+    mask = torch.ones((BATCH, SAMPLES), dtype=torch.bool, device=dev)
+    embed = make_wave_embed_fn(lambda x, m: model16(x, m), OPTS, dtype=torch.bfloat16)
+
+    with torch.inference_mode():
+        ref16 = _plain_embed(torch, model16, OPTS, torch.bfloat16, torch.bfloat16)(wave, mask)
+        ref32 = _plain_embed(torch, model32, OPTS, torch.float32, torch.float32)(wave, mask)
+        # K1 on this path, apart from the bf16 model's own rounding: the f32
+        # model fed by K1 (bf16 DFT) against the f32 model fed by the plain
+        # bf16 front end
+        k1_32 = make_wave_embed_fn(lambda x, m: model32(x, m), OPTS, dtype=torch.float32)(wave, mask)
+        plain_32 = _plain_embed(torch, model32, OPTS, torch.bfloat16, torch.float32)(wave, mask)
+        waves = [wave * (1.0 + 1e-4 * i) for i in range(4)]
+        torch.cuda.synchronize()
+
+        # the main path: counters from zero
+        zero_launches()
+        emb = embed(waves[0], mask)
+        torch.cuda.synchronize()
+        check(tuple(emb.shape) == (BATCH, 256) and bool(torch.isfinite(emb.float()).all()),
+              "served Conformer embeddings not finite or of the wrong shape")
+        c16, c32 = float(cosine(emb, ref16).min()), float(cosine(emb, ref32).min())
+        ck1 = float(cosine(k1_32, plain_32).min())
+        # tolerance: the bf16 Conformer's embedding moves by about 4e-4 of
+        # cosine when its input moves by 3e-5 (the f32 model's does not), so
+        # two bf16 runs on front ends that differ by K1's rounding are held
+        # at the bar of bf16 against f32, 0.999; K1 itself through the f32
+        # model at 0.9999
+        print(f"served Conformer 6L-256D-4H bf16: min per-utterance cosine vs plain front end (bf16) {c16:.6f} "
+              f"(>= 0.999), vs f32 model + f32 plain front end {c32:.6f} (>= 0.999); the f32 model on K1's bf16 "
+              f"features vs on the plain bf16 front end {ck1:.7f} (>= 0.9999)", flush=True)
+        check(c16 >= 0.999 and c32 >= 0.999 and ck1 >= 0.9999,
+              "served Conformer embeddings disagree with the references")
+        ms = timed_batches(torch, embed, waves, mask, iters=6)
+        print(f"served Conformer bf16 [{BATCH},{SAMPLES}]: {ms:.2f} ms/batch, "
+              f"{BATCH * SAMPLES / 16.0 / ms:.0f} audio-s/s on {device_label}", flush=True)
+        profile_served_batch(torch, lambda: embed(waves[0], mask), what="one served Conformer batch")
+
+    server_run(torch, embed, "Conformer")
+    return read_launches("Conformer served", ("fused_fbank",))
+
+
+def phase_train_conformer(torch, device_label):
+    """The train step of the Conformer x-vector (bench.py:82-90: 6L-256D-4H
+    conv2d, embedding 256, dropout 0.1 from the step's generator, AAM m=0.2
+    over 5994 classes) on raw waves at B=128 x 2 s, bf16 on f32 masters,
+    adamW 1e-3, K1 in the step; then five steps of the recipe's
+    configuration (recipes/configs/conformer.yaml: AM m=0.2,
+    model_warmup_steps 1000, adamW on the noam schedule) on a masked batch
+    of 1.0-2.0 s, where warmup < 1 blends every block; then a narrow
+    Conformer's step on the card against the CPU."""
+    from asv_subtools_tpu_torch.features import fused_fbank
+    from asv_subtools_tpu_torch.train import TrainStepConfig, get_optimizer, init_train_state, make_train_step, noam
+    from asv_subtools_tpu_torch.train.step_check import conformer_net
+
+    dev = torch.device("cuda")
+    opts, gen, wave, labels = _train_batch(torch, SEED + 70)
+    net = conformer_net(seed=SEED + 71)
+    tx = get_optimizer("adamW", 1e-3)
+    state = init_train_state(net, tx, dev)
+    step = make_train_step(net, tx, config=TrainStepConfig(compute_dtype=torch.bfloat16, wave_input=True,
+                                                           fbank_opts=opts))
+    # the last loss below the first, ECAPA's criterion, not under half:
+    # from this random start the JAX step's own loss falls 16.50 -> 9.32 in
+    # 30 steps at B=32 and flattens there (the port's, on the same weights
+    # and features, step for step the same; PERF.md)
+    counts = run_fixed_batch(torch, step, state, {"x": wave, "y": labels}, gen, "train Conformer bf16",
+                             "Conformer train step", device_label, falls_to=1.0)
+    del state, step, net
+    torch.cuda.empty_cache()
+
+    lengths = torch.linspace(16000, TRAIN_SAMPLES, BATCH, device=dev).long()
+    smask = torch.arange(TRAIN_SAMPLES, device=dev)[None, :] < lengths[:, None]
+    masked = {"x": wave * smask, "y": labels, "mask": smask}
+    net = conformer_net(("margin_softmax", {"method": "am", "m": 0.2}), SEED + 72)
+    schedule = noam(base_lr=1.0, model_dim=256, warmup_steps=25000)
+    tx = get_optimizer("adamW", schedule)
+    state = init_train_state(net, tx, dev)
+    step = make_train_step(net, tx, lr_schedule=schedule, config=TrainStepConfig(
+        compute_dtype=torch.bfloat16, wave_input=True, fbank_opts=opts, model_warmup_steps=1000))
+    rows = []
+    for _ in range(5):
+        warmup = int(state.step) / 1000
+        before = fused_fbank.launches
+        with no_host_sync(torch):
+            state, m = step(state, masked, gen)
+        torch.cuda.synchronize()
+        check(fused_fbank.launches == before + 1, "K1 did not launch once in a recipe step")
+        rows.append((warmup, {k: float(v) for k, v in m.items()}))
+    print("train Conformer recipe step (AM m=0.2, model_warmup_steps 1000, adamW wd 1e-4 on noam base_lr 1.0 "
+          "model_dim 256 warmup 25000, lengths 1.0-2.0 s; K1 launches per step 1; no step waited on the card): "
+          + "; ".join(f"warmup {w:.3f} lr {r['lr']:.3e} loss {r['loss']:.4f}" for w, r in rows), flush=True)
+    check(all(np.isfinite(r["loss"]) and r["skipped"] == 0 for _, r in rows), "a Conformer recipe step was not finite")
+    del state, step, net
+    torch.cuda.empty_cache()
+    _card_against_cpu(torch, "conformer")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1096,6 +1290,12 @@ def main() -> int:
     paths.append(phase_served_resnet(torch, smi))
     torch.cuda.empty_cache()
     paths.append(phase_train(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_train_resnet(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_served_conformer(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_train_conformer(torch, smi))
     for kernel_name, k in kernels.items():
         k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -477,3 +477,125 @@ def test_fbank_kernel_at_the_training_shape(card, dft_dtype):
     p, _ = fused_fbank_plain(wave, opts, dft_dtype=dft_dtype, with_energy=False)
     assert k.shape == (16, 198, 80)
     torch.testing.assert_close(k, p, atol=1e-3, rtol=0)
+
+
+def _family_wave_step(card, family, mode):
+    """A bf16 wave-input step of the narrow ResNet or Conformer at B=8 with
+    adamW (the Conformer at dropout 0.1 with the model warm-up): no mask, a
+    sample mask of 1.0-2.0 s, or accum_grad 2 on that masked batch."""
+    from asv_subtools_tpu_torch.train import TrainStepConfig, get_optimizer, init_train_state, make_train_step
+    from asv_subtools_tpu_torch.train.step_check import (NARROW_CONFORMER, NARROW_RESNET, OPTS, conformer_net,
+                                                         modulated_waves, resnet_net)
+
+    wave, y = modulated_waves(8, 2)
+    batch = {"x": wave.to(card), "y": y.to(card)}
+    if mode != "unmasked":
+        lengths = torch.linspace(16000, 32000, 8, device=card).long()
+        batch["mask"] = torch.arange(32000, device=card)[None, :] < lengths[:, None]
+        batch["x"] = batch["x"] * batch["mask"]
+    if family == "resnet":
+        net = resnet_net(**NARROW_RESNET)
+    else:
+        net = conformer_net(**{**NARROW_CONFORMER, "dropout_rate": 0.1})
+    config = TrainStepConfig(compute_dtype=torch.bfloat16, wave_input=True, fbank_opts=OPTS,
+                             accum_grad=2 if mode == "accum_grad 2" else 1,
+                             model_warmup_steps=1000 if family == "conformer" else 0)
+    tx = get_optimizer("adamW", 1e-3)
+    return init_train_state(net, tx, card), make_train_step(net, tx, config=config), batch
+
+
+@pytest.mark.parametrize("mode", ["unmasked", "masked", "accum_grad 2"])
+@pytest.mark.parametrize("family", ["resnet", "conformer"])
+def test_family_train_step_never_waits_on_the_card(card, family, mode):
+    """The ResNet and Conformer steps, after a first one, under
+    torch.cuda.set_sync_debug_mode("error"); K1 launches once a microbatch."""
+    state, step, batch = _family_wave_step(card, family, mode)
+    gen = torch.Generator(device=card).manual_seed(0)
+    state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    before = fused_fbank.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fused_fbank.launches == before + (2 if mode == "accum_grad 2" else 1)
+    assert bool(torch.isfinite(m["loss"])) and float(m["skipped"]) == 0.0
+
+
+@pytest.mark.parametrize("family", ["resnet", "conformer"])
+def test_family_train_step_on_the_card_matches_the_cpu(card, family):
+    """The narrow ResNet and Conformer (dropout 0): the float64 step on the
+    same features, card against CPU, each leaf to F64_LEAF_TOL; the float32
+    wave step (K1's f32 mode, TF32 off), loss and grad_norm to 1e-4 of the
+    CPU's and on each device every leaf and BN statistic against the f64
+    step (F32_LEAF_TOL, F32_STATS_TOL), the bounds of the ECAPA step. The
+    ResNet stem's running mean, a cancellation, is measured against its
+    std (step_check.worst_stat)."""
+    from asv_subtools_tpu_torch.train.step_check import (AAM, modulated_waves, narrow_net, plain_features, rel,
+                                                         sgd_step, worst_leaf, worst_stat)
+
+    torch.backends.cudnn.allow_tf32 = False
+    make = narrow_net(family)
+    wave, y = modulated_waves(8, 3)
+    feats = plain_features(wave)
+    cd, cpu = (sgd_step(d, torch.float64, feats, y, AAM, make_net=make) for d in (card, torch.device("cpu")))
+    assert worst_leaf(cd.updates, cpu.updates)[0] <= F64_LEAF_TOL
+    for key in ("loss", "grad_norm"):
+        assert rel(cd.metrics[key], cpu.metrics[key]) <= 1e-10, key
+    ref = sgd_step("cpu", torch.float64, feats, y, AAM, make_net=make)
+    cd = sgd_step(card, torch.float32, wave, y, AAM, wave_input=True, make_net=make)
+    cpu = sgd_step("cpu", torch.float32, wave, y, AAM, wave_input=True, make_net=make)
+    for key in ("loss", "grad_norm"):
+        assert rel(cd.metrics[key], cpu.metrics[key]) <= 1e-4, key
+    for r in (cd, cpu):
+        assert worst_leaf(r.updates, ref.updates)[0] <= F32_LEAF_TOL
+        if ref.batch_stats:
+            assert worst_stat(r.batch_stats, ref.batch_stats)[0] <= F32_STATS_TOL
+
+
+def test_resnet_fused_pooling_flag_leaves_training_alone(card):
+    """A train-mode ResNet with the fused statistics pooling flag on launches
+    no K4 and gets the trunk gradients of the unfused model bit for bit."""
+    from asv_subtools_tpu_torch.models import ResNetXvector
+
+    x = torch.randn((4, 120, 80), generator=torch.Generator(device=card).manual_seed(4), device=card)
+    grads = {}
+    for fused in (False, True):
+        torch.manual_seed(0)
+        model = ResNetXvector(80, layers=(1, 1, 1, 1), base_planes=8, embd_dim=16,
+                              pooling_params={"fused_inference": fused}, device=card).train()
+        torch.backends.cudnn.deterministic = True
+        before = fused_stats_pooling.launches
+        model(x).square().sum().backward()
+        assert fused_stats_pooling.launches == before
+        grads[fused] = {k: p.grad for k, p in model.resnet.named_parameters()}
+    torch.backends.cudnn.deterministic = False
+    for key, g in grads[False].items():
+        assert float(g.abs().max()) > 0 and torch.equal(g, grads[True][key]), key
+
+
+def test_served_conformer_bf16_against_f32(card):
+    """The bench's Conformer (6L-256D-4H conv2d, seeded random weights)
+    behind make_wave_embed_fn: bf16 against the f32 model on the f32 plain
+    front end, per-utterance cosine >= 0.999, on ragged 1-4 s waves."""
+    import copy
+
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.features import cmvn_utterance
+    from asv_subtools_tpu_torch.train.step_check import OPTS, conformer_net
+
+    model32 = conformer_net(seed=5).backbone.to(card).eval()
+    model16 = copy.deepcopy(model32).to(torch.bfloat16)
+    gen = torch.Generator(device=card).manual_seed(6)
+    wave = torch.randn((8, 64000), generator=gen, device=card) * 1000.0
+    mask = torch.arange(64000, device=card)[None, :] < torch.linspace(16000, 64000, 8, device=card).long()[:, None]
+    with torch.inference_mode():
+        emb = make_wave_embed_fn(lambda x, m: model16(x, m), OPTS, dtype=torch.bfloat16)(wave * mask, mask)
+        feats, _ = fused_fbank_plain(wave * mask, OPTS, dft_dtype=torch.float32, with_energy=False)
+        n = torch.clamp_min((mask.sum(1) - 400) // 160 + 1, 1)
+        fmask = torch.arange(feats.shape[1], device=card)[None, :] < n[:, None]
+        ref = model32(cmvn_utterance(feats, mask=fmask) * fmask[..., None], fmask)
+    assert emb.shape == (8, 256) and bool(torch.isfinite(emb.float()).all())
+    cos = torch.nn.functional.cosine_similarity(emb.float(), ref, dim=-1)
+    assert float(cos.min()) >= 0.999, cos

@@ -21,6 +21,7 @@ from asv_subtools_tpu_torch.models import EcapaTdnn, SpeakerNet
 from asv_subtools_tpu_torch.train import (
     TrainStepConfig,
     get_optimizer,
+    init_train_state,
     make_train_step,
     no_weight_decay_mask,
 )
@@ -125,8 +126,18 @@ def test_optimizers_not_ported_raise(kw):
 @pytest.mark.parametrize("kw", [dict(mixup_alpha=0.2), dict(use_semi_orth=True), dict(remat="full"),
                                 dict(model_warmup_steps=10)], ids=str)
 def test_step_options_not_ported_raise(kw):
+    """Each option raises, but model_warmup_steps, which is ported now (the
+    Conformer's warm-up; tests/test_torch_train_conformer.py): its step
+    builds and runs on a backbone that takes no warmup."""
     net = SpeakerNet(EcapaTdnn(input_dim=8, channels=16, mfa_conv=32, embd_dim=8, device="cpu"),
                      "margin_softmax_v1", {"sub_k": 2}, num_targets=5)
+    if "model_warmup_steps" in kw:
+        step = make_train_step(net, get_optimizer("sgd", 0.1), config=TrainStepConfig(**kw))
+        state = init_train_state(net, get_optimizer("sgd", 0.1), "cpu")
+        batch = {"x": torch.randn(2, 30, 8, generator=torch.Generator().manual_seed(1)), "y": torch.tensor([0, 3])}
+        new, m = step(state, batch, torch.Generator().manual_seed(0))
+        assert int(new.step) == 1 and bool(torch.isfinite(m["loss"]))
+        return
     with pytest.raises(NotImplementedError):
         make_train_step(net, get_optimizer("sgd", 0.1), config=TrainStepConfig(**kw))
 

@@ -54,7 +54,7 @@ def _port(path, x, mask):
             return fused_stats_pooling_plain(xt, m).numpy()
         if path == "wrapper":
             return fused_stats_pooling(xt, m).numpy()
-        return StatisticsPooling(fused_inference=path == "fused")(xt, m).numpy()
+        return StatisticsPooling(fused_inference=path == "fused").eval()(xt, m).numpy()
 
 
 PATHS = ["plain", "wrapper", "fused", "unfused"]
@@ -134,7 +134,7 @@ def test_bf16_input_is_read_in_its_own_type_and_summed_in_f32(path):
             assert got.dtype == torch.float32
             np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
         else:
-            got = StatisticsPooling(fused_inference=True)(xb, m)
+            got = StatisticsPooling(fused_inference=True).eval()(xb, m)
             assert got.dtype == torch.bfloat16  # the module casts to x's type
             np.testing.assert_allclose(got.float().numpy(), ref, rtol=1e-2, atol=1e-2)  # one bf16 rounding
 

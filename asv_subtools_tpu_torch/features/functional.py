@@ -145,9 +145,19 @@ def _process_window(
     return frames, raw_log_energy
 
 
-def power_spectrum(padded_frames: torch.Tensor, opts: FrameOptions, *, keep_bins: int) -> torch.Tensor:
-    """Power spectrum of windowed frames (first `keep_bins` rfft bins), as
-    two real GEMMs against the DFT matrices (the JAX "gemm" mode)."""
+def power_spectrum(padded_frames: torch.Tensor, opts: FrameOptions, *, keep_bins: int,
+                   fft_mode: str = "gemm") -> torch.Tensor:
+    """Power spectrum of windowed frames (first `keep_bins` rfft bins).
+
+    fft_mode="gemm" (the default): two real GEMMs against the DFT matrices
+    (the JAX "gemm" mode). "rfft": an FFT in float64, the power cast back
+    to float32 (the JAX package's numpy host path, whose np.fft computes
+    in float64)."""
+    if fft_mode == "rfft":
+        spec = torch.fft.rfft(padded_frames.to(torch.float64), dim=-1)
+        return (spec.real * spec.real + spec.imag * spec.imag).to(torch.float32)[..., :keep_bins]
+    if fft_mode != "gemm":
+        raise ValueError(f"unknown fft_mode {fft_mode!r}")
     c, s = dft_matrices(opts.padded_window_size, keep_bins)
     dev = padded_frames.device
     re = padded_frames @ torch.as_tensor(c, device=dev)
@@ -155,8 +165,9 @@ def power_spectrum(padded_frames: torch.Tensor, opts: FrameOptions, *, keep_bins
     return re * re + im * im
 
 
-def compute_fbank(wave: torch.Tensor, opts: FbankOptions = FbankOptions()) -> torch.Tensor:
+def compute_fbank(wave: torch.Tensor, opts: FbankOptions = FbankOptions(), *, fft_mode: str = "gemm") -> torch.Tensor:
     """Log-mel filterbank. wave [..., num_samples] -> [..., num_frames, dim].
+    ``fft_mode`` as in :func:`power_spectrum`.
 
     Parity: reference runtime/kaldifeat/csrc/feature-fbank.cc:46-108.
     """
@@ -168,7 +179,7 @@ def compute_fbank(wave: torch.Tensor, opts: FbankOptions = FbankOptions()) -> to
         raw_log_energy = torch.log(torch.clamp_min((padded * padded).sum(-1), EPSILON))
 
     keep = fo.padded_window_size // 2  # highest bin dropped
-    spectrum = power_spectrum(padded, fo, keep_bins=keep)
+    spectrum = power_spectrum(padded, fo, keep_bins=keep, fft_mode=fft_mode)
     if not opts.use_power:
         spectrum = torch.sqrt(spectrum)
     mel = spectrum @ torch.as_tensor(mel_banks(opts.mel_opts, fo), device=wave.device)

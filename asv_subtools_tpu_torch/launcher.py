@@ -1,0 +1,407 @@
+"""Stage-gated experiment launcher (counterpart: asv_subtools_tpu/launcher.py;
+parity: pytorch/launcher/run*.py).
+
+One python entry replaces the reference's launcher + shell pipeline:
+  stage 0: build egs (data lists, speaker map, online wave pipeline)
+  stage 1: train (epochs of train steps on one device, validation,
+           a checkpoint each epoch)
+  stage 2: extract embeddings (bucketed batch extractor) -> xvector ark/scp
+
+Driven by a params dict merged over defaults with assign_params_dict -
+the reference launcher idiom (runEcapaXvector_online.py:99-445). The
+Launcher runs on ``device``: the CUDA card unless ``device="cpu"``; it
+raises without a card.
+
+Not ported yet; each raises NotImplementedError naming its ROADMAP item:
+the offline chunk egs, SAM, ``find_lr`` (Queue 1 item 4), ``fsdp`` and
+``num_model > 1`` (item 5), the x-vector, multi-task and FD-AL models
+(item 8), ``score`` and ``gather_results_from_epochs`` (item 9), the
+native host front end (item 10) and host mfcc/pitch features (item 11).
+
+Two choices differ from the JAX Launcher: the held-out validation egs
+keep their last, partial batch (the JAX egs drop it, so a hold-out
+smaller than a batch validates on nothing), and ``train(resume_from=...)``
+continues the epoch count from the checkpoint's sidecar rather than
+restarting it at 1 (which would write over the earlier checkpoints).
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+from typing import Any, Dict, Optional
+
+import torch
+
+from .data import Prefetcher, WavEgs, WavEgsXvector, build_spk2int
+from .device import resolve_device
+from .extract import ExtractConfig, Extractor
+from .features.config import FbankOptions, MelOptions
+from .models import MODELS, SpeakerNet
+from .nn.loss import LambdaMAnneal, MarginWarm
+from .train import (ReduceOnPlateau, Reporter, Trainer, TrainStepConfig, get_lr_schedule, get_optimizer,
+                    load_checkpoint, load_transfer, save_checkpoint)
+from .train.checkpoint import read_checkpoint_info
+from .utils import assign_params_dict, init_logger, set_all_seed
+from .weights import init_weights_
+
+DEFAULT_PARAMS: Dict[str, Any] = {
+    "seed": 1024,
+    "exp_dir": "exp/test",
+    # data
+    "data": {
+        "train_wav_scp": "",
+        "train_utt2spk": "",
+        "eval_wav_scp": "",
+        "chunk_seconds": 2.015,
+        "batch_size": 64,
+        "speed_perturb": False,
+        "shuffle_buffer": 1000,
+        "compute_feat": True,
+        # fbank only (mfcc and the _pitch variants: ROADMAP item 11)
+        "feat_type": "fbank",
+        # host feature backend: "numpy" (the port's torch CPU fbank, which
+        # matches the JAX package's numpy path); "native" is ROADMAP item 10
+        "feat_backend": "numpy",
+        "spec_aug": False,
+        "valid_utts": 0,  # hold out N utts for validation (plateau/reporting)
+        # fbank bins for BOTH training egs and extraction (None = library
+        # default 23; the reference's voxceleb recipes use 80/81-fbank)
+        "num_bins": None,
+        # host pipeline threads for the per-sample stages (decode/aug/feats)
+        # - ordered fan-out, so results are identical to workers=1
+        "workers": 8,
+        # waveform augmentation chain (reference speech_aug yaml):
+        # {"mode": "random", "clean_prob": 0.25, "stages": [
+        #   {"type": "add_noise", "csv": ...}, {"type": "add_reverb", ...}]}
+        "speech_aug": None,
+        # >1 = persistent pool of spawn PROCESSES (MultiprocessLoader)
+        "num_workers": 1,
+        # "offline" (the chunk egs) is ROADMAP item 4
+        "egs_type": "online",
+        "egs_dir": "",
+    },
+    # model
+    "model": {"name": "ecapa_tdnn", "params": {}},
+    "loss": {"name": "margin_softmax", "params": {"method": "aam", "m": 0.2}},
+    # training
+    "train": {
+        "epochs": 6,
+        "optimizer": {"name": "adamW", "learning_rate": 1e-3, "weight_decay": 1e-4},
+        "lr_schedule": {"name": "warmR", "base_lr": 1e-3, "t_0": 10000},
+        "max_change": 10.0,
+        "accum_grad": 1,
+        "compute_dtype": "bfloat16",
+        "use_semi_orth": False,
+        "report_interval": 100,
+        "margin_warm": None,  # {"start_epoch", "end_epoch", "offset_margin", "init_lambda"}
+        # transformer model-level warmup (reference trainer_online.py:227:
+        # warmup = cur_step / warmup_steps fed to the encoder's
+        # layer-bypass alpha); 0 = off
+        "model_warmup_steps": 0,
+        # ROADMAP item 5: model-axis sharding and fully-sharded data parallelism
+        "num_model": 1,
+        "fsdp": False,
+    },
+    # extraction: mode "feature" (host fbank) or "wave" (the fused fbank kernel)
+    "extract": {
+        "buckets": [200, 400, 800, 1600, 3200, 6400, 10000],
+        "batch": 32,
+        "mode": "feature",
+        "workers": 8,
+    },
+}
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+class Launcher:
+    def __init__(self, params: Optional[Dict] = None, device: Any = None):
+        params = params or {}
+        self.params = assign_params_dict(DEFAULT_PARAMS, params, support_unknown=True)
+        # factory-selection sub-dicts replace the default wholesale when the
+        # user picks a different implementation (merging a warmR default's
+        # t_0 into a "constant" schedule would be wrong)
+        for section, key in [("train", "optimizer"), ("train", "lr_schedule")]:
+            user = params.get(section, {}).get(key)
+            if user and user.get("name") != DEFAULT_PARAMS[section][key]["name"]:
+                self.params[section][key] = dict(user)
+        for section in ("model", "loss"):
+            user = params.get(section, {})
+            if user.get("name") and user["name"] != DEFAULT_PARAMS[section]["name"]:
+                self.params[section] = {
+                    "name": user["name"],
+                    "params": dict(user.get("params", {})),
+                }
+        self.device = resolve_device(device)
+        self.logger = init_logger()
+        set_all_seed(self.params["seed"])
+        if int(self.params["train"].get("num_model", 1)) > 1:
+            raise _not_ported("train.num_model > 1 (the model-sharded classifier)", 5)
+        self.spk2int: Optional[Dict] = None
+        self.net: Optional[SpeakerNet] = None
+        self.state = None
+        self.valid_egs = None
+        self.trainer: Optional[Trainer] = None
+        self.epoch_stats: list = []
+
+    # -- stage 0 ------------------------------------------------------------
+    def build_egs(self):
+        p = self.params["data"]
+        if p.get("feat_type", "fbank") != "fbank" and not p.get("compute_feat", True):
+            # wave-input training runs the fused fbank only; a
+            # silently-ignored mfcc/pitch selection would train on the
+            # wrong features
+            raise ValueError(
+                f"data.feat_type={p['feat_type']!r} requires host feature "
+                "computation (data.compute_feat=True); the wave-input path "
+                "computes fbank on the device only")
+        if p.get("feat_type", "fbank") != "fbank":
+            raise _not_ported(f"data.feat_type={p['feat_type']!r} (host mfcc and pitch features)", 11)
+        if p.get("feat_backend", "numpy") != "numpy":
+            raise _not_ported(f"data.feat_backend={p['feat_backend']!r} (the native host front end)", 10)
+        if p.get("egs_type", "online") == "offline":
+            raise _not_ported("data.egs_type='offline' (the chunk egs)", 4)
+        self.feat_opts = FbankOptions(mel_opts=MelOptions(num_bins=int(p["num_bins"]))) if p.get("num_bins") else None
+        opts = self.feat_opts or FbankOptions()
+        # the width the net sees: the in-step fbank has no energy column
+        self.feat_dim = opts.dim if p.get("compute_feat", True) else opts.mel_opts.num_bins
+        self.spk2int = build_spk2int(p["train_utt2spk"])
+        num_spks = len(self.spk2int)
+        if p.get("speed_perturb"):
+            num_spks *= 3
+        self.num_targets = num_spks
+        self.logger.info("egs: %d speakers (incl. sp-aug)", num_spks)
+
+        train_scp, train_u2s = p["train_wav_scp"], p["train_utt2spk"]
+        self.valid_egs = None
+        n_valid = int(p.get("valid_utts", 0))
+        if n_valid > 0:
+            # hold out utterances keeping >=2 per speaker in train
+            from .datadir import DataDir
+
+            dd = DataDir.read(os.path.dirname(train_scp))
+            train_dd, valid_dd = dd.valid_split(num_utts=n_valid, seed=self.params["seed"])
+            split_dir = os.path.join(self.params["exp_dir"], "egs_split")
+            train_dd.write(os.path.join(split_dir, "train"))
+            valid_dd.write(os.path.join(split_dir, "valid"))
+            train_scp = os.path.join(split_dir, "train", "wav.scp")
+            train_u2s = os.path.join(split_dir, "train", "utt2spk")
+            self.valid_egs = WavEgs(
+                os.path.join(split_dir, "valid", "wav.scp"),
+                os.path.join(split_dir, "valid", "utt2spk"),
+                self.spk2int,
+                chunk_seconds=p["chunk_seconds"],
+                batch_size=p["batch_size"],
+                # always features: the eval step applies the net directly
+                # (host compute_feats CMVNs identically to the in-step
+                # wave path, so wave-trained models validate consistently)
+                compute_feat=True,
+                feat_opts=self.feat_opts,
+                shuffle_buffer=1,
+                seed=self.params["seed"],
+                drop_last=False,
+            )
+            self.logger.info("valid split: %d utts held out", len(valid_dd))
+
+        from .data.dataset import _build_train_egs
+
+        compute_feat = p.get("compute_feat", True)
+        make_train_egs = functools.partial(
+            _build_train_egs,
+            dict(
+                train_scp=train_scp,
+                train_u2s=train_u2s,
+                spk2int=self.spk2int,
+                chunk_seconds=p["chunk_seconds"],
+                batch_size=p["batch_size"],
+                speed_perturb=p.get("speed_perturb", False),
+                speech_aug=p.get("speech_aug"),
+                compute_feat=compute_feat,
+                # a wave pipeline needs no options: unpickling them in a
+                # spawn worker would import the features package (torch)
+                feat_opts=self.feat_opts if compute_feat else None,
+                feat_type=p.get("feat_type", "fbank"),
+                feat_backend=p.get("feat_backend", "numpy"),
+                spec_aug=p.get("spec_aug", False),
+                shuffle_buffer=p["shuffle_buffer"],
+                seed=self.params["seed"],
+                workers=p.get("workers", 1),
+            ),
+        )
+        n_proc = int(p.get("num_workers", 1))
+        if n_proc > 1:
+            from .data import MultiprocessLoader
+
+            # spawn-safe: partial(module-level fn, primitives dict)
+            return MultiprocessLoader(make_train_egs, num_workers=n_proc)
+        return make_train_egs()
+
+    def build_model(self) -> SpeakerNet:
+        """The SpeakerNet of ``model`` and ``loss`` on the launcher's
+        device, its weights drawn from ``seed``. The backbone's
+        ``input_dim`` is the width of the features the egs give."""
+        m, l = self.params["model"], self.params["loss"]
+        mparams = dict(m.get("params", {}))
+        mparams.setdefault("input_dim", self.feat_dim)
+        backbone = MODELS[m["name"]](**mparams, device=self.device)
+        self.net = SpeakerNet(backbone=backbone, loss_name=l["name"], loss_params=l.get("params", {}),
+                              num_targets=self.num_targets)
+        init_weights_(self.net, self.params["seed"])
+        return self.net
+
+    # -- stage 1 ------------------------------------------------------------
+    def train(self, egs, resume_from: Optional[str] = None):
+        t = self.params["train"]
+        if t.get("fsdp"):
+            raise _not_ported("train.fsdp", 5)
+        if t.get("sam"):
+            raise _not_ported("train.sam (the two-pass SAM step)", 4)
+        opt = dict(t["optimizer"])
+        sched_cfg = dict(t["lr_schedule"])
+        sched_name = sched_cfg.pop("name")
+        plateau = None
+        if sched_name == "reduceP":
+            # reduceP = constant base lr + host-side ReduceOnPlateau driven
+            # by the valid loss (reference lr_scheduler_online.py:89-117);
+            # the scale enters the step as its lr_scale input
+            plateau = ReduceOnPlateau(**{k: v for k, v in sched_cfg.items() if k != "base_lr"})
+            schedule = get_lr_schedule("constant", base_lr=sched_cfg.get("base_lr", 1e-3))
+        else:
+            schedule = get_lr_schedule(sched_name, **sched_cfg)
+        opt["learning_rate"] = schedule
+        tx = get_optimizer(opt.pop("name"), **opt)
+        margin_warm = None
+        if t.get("margin_warm"):
+            margin_warm = MarginWarm(**t["margin_warm"])
+        elif t.get("lambda_m_anneal"):
+            # the reference's step_params["m"] lambda annealing
+            margin_warm = LambdaMAnneal(**t["lambda_m_anneal"])
+        wave = not self.params["data"].get("compute_feat", True)
+        config = TrainStepConfig(
+            max_change=t["max_change"],
+            accum_grad=t["accum_grad"],
+            compute_dtype=torch.bfloat16 if t["compute_dtype"] == "bfloat16" else torch.float32,
+            use_semi_orth=t.get("use_semi_orth", False),
+            # data.compute_feat=False -> wave-input training: the host only
+            # decodes/augments waveforms; the fused fbank kernel, CMVN and
+            # SpecAugment run inside the step
+            wave_input=wave,
+            fbank_opts=self.feat_opts,
+            spec_aug=wave and self.params["data"].get("spec_aug", False),
+            model_warmup_steps=int(t.get("model_warmup_steps", 0) or 0),
+        )
+        reporter = Reporter(log_dir=os.path.join(self.params["exp_dir"], "log"))
+        trainer = Trainer(self.net, tx, lr_schedule=schedule, config=config, margin_warm=margin_warm,
+                          plateau=plateau, report_interval=t["report_interval"], reporter=reporter,
+                          device=self.device)
+        self.trainer = trainer
+        state = trainer.init_state()
+        start_epoch = 0
+        if resume_from:
+            state = load_checkpoint(resume_from, state)
+            epoch = read_checkpoint_info(resume_from).get("epoch")
+            start_epoch = epoch if isinstance(epoch, int) else 0
+            self.logger.info("resumed from %s at step %d, epoch %d", resume_from, int(state.step), start_epoch)
+        else:
+            # transfer-learning init (the reference's LM-finetune idiom,
+            # framework.py:133-143): train.transfer = {"from": ckpt,
+            # "exclude": ["loss"], ...} copies matching top-level subtrees
+            # from a previous phase's checkpoint
+            tr = t.get("transfer") or self.params.get("transfer")
+            if tr and tr.get("from"):
+                state.params = load_transfer(state.params, tr["from"], include=tr.get("include"),
+                                             exclude=tr.get("exclude"), rename=tr.get("rename"))
+                self.logger.info("transfer init from %s (exclude=%s)", tr["from"], tr.get("exclude"))
+        if isinstance(margin_warm, MarginWarm) and margin_warm.epoch_iter is None:
+            # no epoch_iter given: 1000 steps an epoch, as the JAX Launcher
+            # assumes (launcher.py:502-504; there LambdaMAnneal, which has no
+            # epoch_iter, fails on this line)
+            margin_warm.update_step_range(1000, overwrite=True)
+        generator = torch.Generator(device=self.device).manual_seed(self.params["seed"])
+        ckpt_dir = os.path.join(self.params["exp_dir"], "checkpoints")
+        pin = self.device.type == "cuda"
+        for epoch in range(start_epoch, t["epochs"]):
+            egs.set_epoch(epoch)
+            state, metrics = trainer.run_epoch(state, Prefetcher(egs, pin_memory=pin), generator, epoch=epoch)
+            stats = dict(trainer.epoch_stats, epoch=epoch + 1)
+            if self.valid_egs is not None:
+                vmetrics = trainer.validate(state, iter(self.valid_egs))
+                metrics = {**metrics, **{f"valid_{k}": v for k, v in vmetrics.items()}}
+                if trainer.plateau is not None:
+                    trainer.plateau.update(vmetrics["loss"])
+            save_checkpoint(ckpt_dir, state, epoch + 1, info=metrics)
+            self.epoch_stats.append(dict(stats, metrics=metrics))
+            self.logger.info("epoch %d: %s", epoch + 1, metrics)
+        reporter.close()
+        if hasattr(egs, "close"):  # stop a MultiprocessLoader pool
+            egs.close()
+        self.state = state
+        return state
+
+    def find_lr(self, egs, start_lr: float = 1e-8, end_lr: float = 1.0, num_steps: int = 100):
+        raise _not_ported("Launcher.find_lr (the LR range finder)", 4)
+
+    # -- stage 2 ------------------------------------------------------------
+    def extract(self, wav_scp: str, out_prefix: str, state=None) -> Dict:
+        """Embeddings of every utterance of ``wav_scp`` from the backbone of
+        ``state`` (the trained state by default), written to
+        ``out_prefix``.ark/.scp; returns the extractor's stats."""
+        state = state if state is not None else self.state
+        e = self.params["extract"]
+        backbone = self.net.backbone
+        tensors = {k[len("backbone."):]: v for k, v in {**state.params, **state.batch_stats}.items()
+                   if k.startswith("backbone.")}
+
+        def model_apply(x, mask):
+            backbone.eval()
+            return torch.func.functional_call(backbone, tensors, (x, mask))
+
+        if e.get("mode", "feature") == "wave":
+            if self.params["data"].get("feat_type", "fbank") != "fbank":
+                raise ValueError(
+                    "extract.mode='wave' computes fbank on the device only; use "
+                    "mode='feature' for "
+                    f"feat_type={self.params['data']['feat_type']!r}")
+            # the fused fbank kernel: the host only decodes wav
+            from .data import ParallelMapper
+            from .extract import WAVE_BUCKETS, make_wave_embed_fn
+            from .io import read_wav
+
+            embed_fn = make_wave_embed_fn(model_apply, fbank_opts=getattr(self, "feat_opts", None))
+            ex = Extractor(embed_fn, ExtractConfig(buckets=WAVE_BUCKETS, default_batch=e["batch"],
+                                                   max_chunk=WAVE_BUCKETS[-1]), device=self.device)
+            entries = []
+            with open(wav_scp) as f:
+                for line in f:
+                    parts = line.split(None, 1)
+                    if len(parts) == 2:
+                        entries.append((parts[0], parts[1].strip()))
+
+            def decode(kv):
+                k, path = kv
+                wav, _sr = read_wav(path)
+                return k, (wav[0] if wav.ndim > 1 else wav)
+
+            items = ParallelMapper(decode, entries, workers=e.get("workers", 8))
+        else:
+            ex = Extractor(model_apply, ExtractConfig(buckets=tuple(e["buckets"]), default_batch=e["batch"]),
+                           device=self.device)
+            items = iter(WavEgsXvector(
+                wav_scp, feat_opts=getattr(self, "feat_opts", None),
+                feat_type=self.params["data"].get("feat_type", "fbank"),
+                feat_backend=self.params["data"].get("feat_backend", "numpy"),
+                workers=e.get("workers", 1),
+            ))
+        stats = ex.extract_to_ark(iter(items), out_prefix + ".ark", out_prefix + ".scp")
+        self.logger.info("extraction: %s", stats)
+        return stats
+
+    # -- stage 3 ------------------------------------------------------------
+    def score(self, *args, **kwargs):
+        raise _not_ported("Launcher.score (the scoring back end)", 9)
+
+    def gather_results_from_epochs(self, *args, **kwargs):
+        raise _not_ported("Launcher.gather_results_from_epochs (the scoring back end)", 9)

@@ -1,0 +1,44 @@
+"""A synthetic Kaldi-style corpus for smoke runs of the recipe: sinusoid-
+mixture speakers (speaker s at a fundamental of 80 + 60 s Hz with four
+harmonics of random phase, plus white noise), as the JAX package's launcher
+test builds them (tests/test_launcher.py). numpy only; seeded."""
+
+import os
+from typing import Tuple
+
+import numpy as np
+
+from ..io.wav import write_wav
+
+SR = 16000
+
+
+def write_corpus(root: str, num_spks: int = 4, train_per_spk: int = 6, eval_per_spk: int = 2,
+                 dur: Tuple[float, float] = (1.2, 2.2), eval_dur: Tuple[float, float] = None, seed: int = 7) -> str:
+    """Write ``root``/train/{wav.scp,utt2spk} and ``root``/eval/{wav.scp,utt2spk}
+    over wavs in ``root``/wav: per speaker ``train_per_spk`` utterances of
+    ``dur`` seconds (uniform) and ``eval_per_spk`` of ``eval_dur`` (default
+    ``dur``). Keys are ``s<spk>-u<i>``. Returns ``root``."""
+    rng = np.random.default_rng(seed)
+    lines = {"train": ([], []), "eval": ([], [])}
+    os.makedirs(os.path.join(root, "wav"), exist_ok=True)
+    for spk in range(num_spks):
+        f0 = 80.0 + 60.0 * spk
+        for i in range(train_per_spk + eval_per_spk):
+            subset = "train" if i < train_per_spk else "eval"
+            key = f"s{spk:02d}-u{i}"
+            lo, hi = dur if subset == "train" or eval_dur is None else eval_dur
+            t = np.arange(int(SR * rng.uniform(lo, hi))) / SR
+            wav = sum(np.sin(2 * np.pi * f0 * (h + 1) * t + rng.uniform(0, 6.28)) / (h + 1) for h in range(4))
+            wav = (wav * 3000 + rng.normal(size=len(t)) * 100).astype(np.float32)
+            path = os.path.join(root, "wav", f"{key}.wav")
+            write_wav(path, wav, SR)
+            lines[subset][0].append(f"{key} {path}")
+            lines[subset][1].append(f"{key} spk{spk:02d}")
+    for subset, (wav_lines, spk_lines) in lines.items():
+        os.makedirs(os.path.join(root, subset), exist_ok=True)
+        with open(os.path.join(root, subset, "wav.scp"), "w") as f:
+            f.write("\n".join(wav_lines) + "\n")
+        with open(os.path.join(root, subset, "utt2spk"), "w") as f:
+            f.write("\n".join(spk_lines) + "\n")
+    return root

@@ -9,24 +9,35 @@ from .lr_scheduler import (
     warm_restarts,
 )
 from .optim import GradientTransformation, get_optimizer, no_weight_decay_mask, sgd
-from .trainer import TrainState, TrainStepConfig, device_spec_augment, init_train_state, make_train_step
+from .checkpoint import load_checkpoint, load_transfer, save_checkpoint
+from .reporter import Reporter, grab_metric, read_report_csv
+from .trainer import (TrainState, Trainer, TrainStepConfig, device_spec_augment, init_train_state, make_eval_step,
+                      make_train_step)
 
 __all__ = [
     "GradientTransformation",
     "ReduceOnPlateau",
+    "Reporter",
     "TrainState",
     "TrainStepConfig",
+    "Trainer",
     "constant",
     "cycle_end_steps",
     "cyclic",
     "device_spec_augment",
     "get_lr_schedule",
     "get_optimizer",
+    "grab_metric",
     "init_train_state",
+    "load_checkpoint",
+    "load_transfer",
+    "make_eval_step",
     "make_train_step",
     "no_weight_decay_mask",
     "noam",
     "one_cycle",
+    "read_report_csv",
+    "save_checkpoint",
     "sgd",
     "warm_restarts",
 ]

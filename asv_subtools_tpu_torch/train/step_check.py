@@ -17,6 +17,10 @@ noise gives every row the same pooled statistics after CMVN, and a
 train-mode BatchNorm over such a batch divides rounding by a near-zero
 spread.
 
+The host's waits on the card in a piece of code (:func:`host_waits`,
+used by chip_smoke.py and the card tests) are the warnings that
+``torch.cuda.set_sync_debug_mode("warn")`` raises, one a wait.
+
 Leaf distances skip the leaves whose analytic gradient is 0, where both
 updates are rounding noise: ``backbone.stats.att2.bias`` (ECAPA's and the
 Conformer's attentive pooling: a per-channel constant under a softmax
@@ -184,3 +188,24 @@ def zero_grad_share(a: Tensors, b: Tensors) -> float:
 
 def rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
+
+
+SYNC_WARNING = "called a synchronizing CUDA operation"  # what set_sync_debug_mode("warn") raises
+
+
+def host_waits(fn: Callable[[], Any]) -> Tuple[Any, List[str]]:
+    """(fn(), the place, file:line, of each time it waited on the card).
+
+    The mode is set before the recording starts: the first switch in a
+    process raises a warning of its own (that the mode is a prototype),
+    which is not a wait."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{w.filename}:{w.lineno}" for w in caught if SYNC_WARNING in str(w.message)]

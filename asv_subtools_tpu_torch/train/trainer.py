@@ -1,4 +1,5 @@
-"""The train step (counterpart: asv_subtools_tpu/train/trainer.py:56-376).
+"""The train step and the epoch loop (counterpart:
+asv_subtools_tpu/train/trainer.py:56-376 and :379-678).
 
 One call of the step runs the whole optimisation step on the state's
 device: (in wave mode) the fused fbank kernel and utterance CMVN, the
@@ -18,20 +19,27 @@ forward in the compute type, the loss, the backward, the global-norm clip
   state and BN statistics through ``torch.where`` on the device; the step
   counter advances all the same. No metric leaves the device: the step
   never syncs with the host.
+* ``Trainer`` runs epochs of steps on one device. The host waits on the
+  card only where the JAX Trainer fetches: the step counter once an
+  epoch, the metrics at each report point, the validation's sums, and the
+  epoch means at its end.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Any, Callable, Dict, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..device import resolve_device
 from ..features.config import FbankOptions
 from ..features.fused_fbank import wave_features
+from ..nn.loss import MarginWarm, cross_entropy
 from ..nn.loss import accuracy as compute_accuracy
 from .optim import GradientTransformation
 
@@ -197,3 +205,165 @@ def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Opt
         return TrainState(step=state.step + 1, params=new_params, batch_stats=stats, opt_state=opt_state), metrics
 
     return step
+
+
+def make_eval_step(net: nn.Module) -> Callable:
+    """Build ``step(state, batch) -> {"loss_sum", "acc_sum", "n"}``, 0-dim
+    tensors on the state's device (JAX trainer.py:379-417).
+
+    The net runs in eval mode on the master weights, in their type, under
+    ``torch.no_grad``. batch = {"x", "y", optional "mask", optional
+    "weight" [B]}: a row of weight 0 contributes nothing; without weights
+    every row counts once. The loss is the per-row cross entropy of the
+    head's logits (no margin in eval mode)."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        net.eval()
+        x, y = batch["x"], batch["y"]
+        dtype = next(p.dtype for p in state.params.values() if p.is_floating_point())
+        with torch.no_grad():
+            _, logits, _ = torch.func.functional_call(net, {**state.params, **state.batch_stats},
+                                                      (x.to(dtype), y), {"mask": batch.get("mask")})
+            w = batch.get("weight")
+            if w is None:
+                w = torch.ones(y.shape[0], dtype=torch.float32, device=y.device)
+            correct = (logits.argmax(-1) == y).to(w.dtype)
+            per_row = cross_entropy(logits, y, reduction="none")
+            return {"loss_sum": (per_row * w).sum(), "acc_sum": (correct * w).sum(), "n": w.sum()}
+
+    return step
+
+
+def _fetch(values: Dict[str, Any]) -> Dict[str, float]:
+    """Device scalars (and Python numbers) -> host floats, the tensors in
+    one copy: one wait on the card."""
+    out = {k: float(v) for k, v in values.items() if not isinstance(v, torch.Tensor)}
+    tensors = {k: v for k, v in values.items() if isinstance(v, torch.Tensor)}
+    if tensors:
+        out.update(zip(tensors, torch.stack([v.detach().to(torch.float64).reshape(()) for v in tensors.values()])
+                       .tolist()))
+    return {k: out[k] for k in values}
+
+
+class Trainer:
+    """Epoch loop: host batches -> train steps on one device -> report,
+    validate (JAX trainer.py:472-678, with no mesh).
+
+    ``device`` is the CUDA card unless ``device="cpu"``; the state lives
+    there. Batches may hold numpy arrays or (pinned) CPU tensors: each goes
+    to the device with ``non_blocking=True``, labels as int64. The margin
+    warm-up (``MarginWarm`` or ``LambdaMAnneal``) and the plateau scale
+    reach the step as Python floats, read from the host step counter.
+    ``epoch_stats`` describes the last epoch: its first step, its steps,
+    its wall time, the host's wait for each batch, the host's time from
+    each batch's arrival to the end of its step's turn (the copy, the
+    queued step and, at a report point, the fetch) and, on a CUDA device,
+    each step's time between two CUDA events."""
+
+    def __init__(self, net: nn.Module, tx: GradientTransformation, lr_schedule: Optional[Callable] = None,
+                 config: TrainStepConfig = TrainStepConfig(), margin_warm=None, plateau=None,
+                 report_interval: int = 100, reporter=None, device: Any = None):
+        self.net = net
+        self.tx = tx
+        self.lr_schedule = lr_schedule
+        self.config = config
+        self.margin_warm = margin_warm
+        self.plateau = plateau
+        self.report_interval = report_interval
+        self.reporter = reporter
+        self.device = resolve_device(device)
+        self.epoch_stats: Dict[str, Any] = {}
+        self._train_step = make_train_step(net, tx, lr_schedule, config)
+        self._eval_step = make_eval_step(net)
+
+    def init_state(self) -> TrainState:
+        """Step 0 from the net's weights, on the trainer's device."""
+        return init_train_state(self.net, self.tx, self.device)
+
+    def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        out = {}
+        for k in ("x", "y", "mask"):
+            if k in batch:
+                v = batch[k]
+                v = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+                out[k] = v.to(self.device, non_blocking=True)
+        out["y"] = out["y"].long()
+        return out
+
+    def run_epoch(self, state: TrainState, data_iter: Iterable[Dict], generator: torch.Generator, epoch: int = 0,
+                  valid_iter: Optional[Callable] = None) -> Tuple[TrainState, Dict]:
+        """One epoch over ``data_iter`` of host batches; returns the final
+        state and the EPOCH-MEAN metrics (skipped = total skipped steps;
+        the other keys from the last step). The sums stay on the device
+        and are fetched once at the end. ``generator`` (on the device)
+        draws SpecAugment and dropout."""
+        sums: Dict[str, Any] = {}
+        metrics: Dict[str, torch.Tensor] = {}
+        n = 0
+        waits, turns, events = [], [], []
+        t0 = epoch_t0 = time.perf_counter()
+        # the step counter on the host, read once: reading the state's
+        # each step would wait on the previous step
+        host_step = int(state.step)
+        it = iter(data_iter)
+        while True:
+            w0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            w1 = time.perf_counter()
+            waits.append(w1 - w0)
+            if self.margin_warm is not None:
+                moff, lam = self.margin_warm.step(host_step + n)
+                if isinstance(self.margin_warm, MarginWarm):
+                    # step_iter clamps the warm lambda (reference
+                    # ecapa_tdnn_xvector.py:526: max(1e-3, lambda_m)); the
+                    # "m" annealing (LambdaMAnneal) does not
+                    lam = max(1e-3, lam)
+            else:
+                moff, lam = 0.0, 1.0
+            lr_scale = self.plateau.scale if self.plateau is not None else 1.0
+            batch = self._to_device(batch)
+            if self.device.type == "cuda":
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+            state, metrics = self._train_step(state, batch, generator, float(lam), float(moff), float(lr_scale))
+            if self.device.type == "cuda":
+                end.record()
+                events.append((start, end))
+            n += 1
+            for k in ("loss", "accuracy", "skipped"):
+                sums[k] = metrics[k] if k not in sums else sums[k] + metrics[k]
+            if n % self.report_interval == 0:
+                m = _fetch(metrics)
+                rate = self.report_interval / (time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                if self.reporter is not None:
+                    self.reporter.update(epoch=epoch, iteration=n, steps_per_sec=rate, **m)
+                if valid_iter is not None and self.plateau is not None:
+                    self.plateau.update(self.validate(state, valid_iter())["loss"])
+            turns.append(time.perf_counter() - w1)
+        self.epoch_stats = {"first_step": host_step, "steps": n, "wall_s": time.perf_counter() - epoch_t0,
+                            "data_wait_s": waits, "turn_s": turns}
+        if not n:
+            return state, {}
+        out = _fetch({**metrics, **{f"sum_{k}": v for k, v in sums.items()}})
+        for k in ("loss", "accuracy"):
+            out[k] = out.pop(f"sum_{k}") / n
+        out["skipped"] = out.pop("sum_skipped")  # TOTAL skipped steps
+        if events:
+            self.epoch_stats["step_ms"] = [s.elapsed_time(e) for s, e in events]
+        return state, out
+
+    def validate(self, state: TrainState, valid_iter: Iterable[Dict]) -> Dict[str, float]:
+        """Weighted loss and accuracy over ``valid_iter``'s batches (every
+        row weight 1); the sums are fetched once at the end."""
+        sums: Dict[str, Any] = {"loss_sum": 0.0, "acc_sum": 0.0, "n": 0.0}
+        for batch in valid_iter:
+            batch = self._to_device(batch)
+            batch["weight"] = torch.ones(batch["y"].shape[0], dtype=torch.float32, device=self.device)
+            m = self._eval_step(state, batch)
+            sums = {k: sums[k] + m[k] for k in sums}
+        got = _fetch(sums)
+        count = max(got["n"], 1.0)
+        return {"loss": got["loss_sum"] / count, "accuracy": got["acc_sum"] / count}

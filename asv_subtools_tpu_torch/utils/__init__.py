@@ -1,0 +1,37 @@
+"""Support utilities: config merging, logging, seeding (the port's own copy
+of asv_subtools_tpu/utils/__init__.py)."""
+
+import logging
+import random
+
+import numpy as np
+
+from .params import assign_params_dict, load_yaml, save_yaml, split_params
+
+
+def set_all_seed(seed: int = 1024) -> None:
+    """Seed python, numpy and torch (parity: utils.set_all_seed utils.py:293)."""
+    import torch
+
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def init_logger(name: str = "asv_subtools_tpu_torch", level: int = logging.INFO):
+    """Stdout logger with the reference's formatter shape (launchers :83-91)."""
+    logger = logging.getLogger(name)
+    if not logger.handlers:
+        handler = logging.StreamHandler()
+        handler.setFormatter(
+            logging.Formatter(
+                "%(asctime)s [ %(pathname)s:%(lineno)s - %(funcName)s ] "
+                "%(levelname)s %(message)s"
+            )
+        )
+        logger.addHandler(handler)
+    logger.setLevel(level)
+    return logger
+
+
+__all__ = ["assign_params_dict", "init_logger", "load_yaml", "save_yaml", "set_all_seed", "split_params"]

@@ -47,8 +47,8 @@ Phases (any failure raises and the script exits non-zero):
      statistics pooling on, held against the same model with the flag off
      fed by the plain front end and against an f32 model on the f32 plain
      front end; timed with the flag on and off; one batch profiled; then the Extractor run as in 6.
-     The launch counters are zeroed just before each of the six main
-     paths (6 to 11) drives the port and read just after; every kernel
+     The launch counters are zeroed just before each of the seven main
+     paths (6 to 12) drives the port and read just after; every kernel
      of a path must have been launched in it.
   8. the train step of ECAPA-TDNN C1024 (SpeakerNet with the sub-centre
      top-k AAM head over 5994 classes, seeded random weights, bf16
@@ -90,7 +90,39 @@ Phases (any failure raises and the script exits non-zero):
      model_warmup_steps 1000, adamW on the noam schedule) on a masked
      batch of 1.0-2.0 s, where warmup < 1 blends every block; then a
      narrow Conformer's card-against-CPU steps as in 9.
- 12. a "kernels" JSON line, then the device JSON as the last line.
+ 12. the recipe's stages 0-2 through the port's Launcher
+     (recipes/voxceleb/run.py:80-130 as asv_subtools_tpu_torch.recipes.voxceleb
+     builds them: ECAPA-TDNN C1024, embedding 192, the sub-centre top-k
+     AAM head, adamW 1e-3 wd 5e-5 on the cyclic schedule, MarginWarm over
+     epochs 1-3, bf16, 80 bins, wave input with SpecAugment and speed
+     perturbation, 2.015 s chunks, B=128, 64 utterances held out for
+     validation, two spawn loader workers; the shuffle buffer cut from
+     1,000 to 256 with the corpus) on a synthetic corpus written to a
+     temporary directory (64 sinusoid speakers, 40 training utterances of
+     2.5-4.0 s each and 2 evaluation utterances of 1.5-12 s): first K1
+     against its plain version at the recipe's shapes (a train batch of
+     128 corpus waves at 32,240 samples, and an extraction batch at its
+     bucket), outside the counted window; then two epochs, a resume from
+     checkpoints/2.params for a third, and the evaluation list extracted
+     to ark/scp in wave mode. Per epoch: steps, median ms/step (CUDA
+     events), the host's wait for each batch and its turn per step, loss,
+     accuracy, validation loss, and the same from the third step on (the
+     steady pace, after the pool's start and the shuffle buffers' fill);
+     then the extraction's stats and the EER of all evaluation pairs (not
+     gated). Checks: every loss finite; K1 launched once a step and once
+     an extraction batch; the host waits in an epoch (counted under
+     set_sync_debug_mode("warn")) are exactly the Trainer's fetches: the
+     step counter at the start, each report point and the end; every
+     loader worker reports, at the end of each epoch it served, an empty
+     CUDA_VISIBLE_DEVICES and no CUDA initialised; the checkpoint reloads
+     bit for bit and the resumed epoch starts at its step; the ark/scp
+     reads back; the first 8 evaluation embeddings against the same model
+     through the plain front end at cosine 0.9999. Last, outside the
+     counted window, the resumed Trainer runs four more epochs in turns:
+     from batches held in pinned memory (no loader, no Prefetcher thread),
+     from the live loader through the Prefetcher, the live loader, memory;
+     their steady ms/step and host turn per step are printed side by side.
+ 13. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
 line) is device time over many launches back to back: one CUDA event, N
@@ -103,7 +135,10 @@ enough where the host takes longer to enqueue a call than the card takes
 to run it: for K4 and torch.std_mean (tens of microseconds) the kernels'
 own durations are also read from torch.profiler, summed per call; that is
 the kernels line's time for K4, and the per-call time (events around one
-call on an idle card: what a lone caller waits) is printed beside it.
+call on an idle card: what a lone caller waits) is printed beside it. A
+profiler reading is refused, and the back-to-back time taken instead,
+where the trace holds fewer kernels with a device duration than the host
+launched (a trace that lost kernels reads short).
 
 f32 comparisons run in true f32: this script sets
 torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
@@ -179,9 +214,9 @@ def turns_ms(torch, run_plain, run_kernel, n: int):
     return min(p1, p2), min(k1, k2)
 
 
-def profiled_split(torch, fn, n: int = 20) -> dict:
-    """{kernel name: ms per call} of the kernels' own device durations over
-    n calls under torch.profiler; empty if the profiler saw no device time."""
+def _profile(torch, fn, n: int):
+    """({kernel name: ms per call}, kernels with a device duration, kernel
+    launches the host made) over n calls under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,18 +226,31 @@ def profiled_split(torch, fn, n: int = 20) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    split = {}
+    split, kernels, launched = {}, 0, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and e.device_time_total > 0:
             split[e.name] = split.get(e.name, 0.0) + e.device_time_total / 1e3 / n
-    return split
+            kernels += not e.name.startswith(("Memcpy", "Memset"))
+        elif "LaunchKernel" in e.name:  # cudaLaunchKernel, cudaLaunchKernelExC, cuLaunchKernel(Ex)
+            launched += 1
+    return split, kernels, launched
+
+
+def profiled_split(torch, fn, n: int = 20) -> dict:
+    """{kernel name: ms per call} of the kernels' own device durations over
+    n calls under torch.profiler; empty if the profiler saw no device time."""
+    return _profile(torch, fn, n)[0]
 
 
 def profiled_ms(torch, fn, n: int = 20):
-    """ms per call of the kernels' own device durations, summed over n
-    calls under torch.profiler; None if the profiler saw no device time."""
-    split = profiled_split(torch, fn, n)
-    return sum(split.values()) if split else None
+    """(ms per call of the kernels' own device durations, summed over n
+    calls under torch.profiler, or None; what the profiler saw). The
+    reading is refused (None) where the profiler saw no device time, or
+    fewer kernels with a device duration than the host launched: a trace
+    that lost kernels reads short."""
+    split, kernels, launched = _profile(torch, fn, n)
+    seen = f"{kernels} kernels with a device duration for {launched} launches over {n} calls"
+    return (sum(split.values()) if split and kernels >= launched else None), seen
 
 
 def print_split(what: str, split: dict) -> None:
@@ -592,18 +640,20 @@ def phase_stats_pooling(torch):
             back = {"kernel": ms_k, "plain": ms_p, "direct": device_ms(torch, runs["direct"], n=50),
                     "library": device_ms(torch, runs["library"], n=50)}
             lone = {name: median_ms(torch, fn) for name, fn in runs.items()}
-            prof = {name: profiled_ms(torch, fn) for name, fn in runs.items()}
+            prof, seen = {}, {}
+            for name, fn in runs.items():
+                prof[name], seen[name] = profiled_ms(torch, fn)
             nbytes = x.element_size() * x.numel() + b * t + 4 * 2 * b * d  # x, mask, f32 out
             bound, by = bound_ms(nbytes, 4.0 * b * t * d, peak="f32")
             fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
             for name, what in (("kernel", "ring kernel"), ("direct", "direct kernel"),
                                ("library", "torch.std_mean"), ("plain", "plain version")):
-                print(f"K4 bf16 [{b},{t},{d}] {what} (ms): kernels' device durations {fmt(prof[name])}, "
-                      f"50 launches back to back {back[name]:.4f}, one call on an idle card {lone[name]:.4f}",
-                      flush=True)
+                print(f"K4 bf16 [{b},{t},{d}] {what} (ms): kernels' device durations {fmt(prof[name])} "
+                      f"({seen[name]}), 50 launches back to back {back[name]:.4f}, one call on an idle card "
+                      f"{lone[name]:.4f}", flush=True)
             print(f"K4 bf16 [{b},{t},{d}] bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB)", flush=True)
             # the kernel's time is its device duration; back to back where
-            # the profiler saw nothing
+            # the profiler's reading was refused
             results[(b, t, d)] = {name: prof[name] if prof[name] is not None else back[name] for name in runs}
             results[(b, t, d)].update(bound=bound, by=by)
     r = results[(BATCH, 125, 2560)]
@@ -1263,6 +1313,272 @@ def phase_train_conformer(torch, device_label):
     return counts
 
 
+# 40 training utterances a speaker: 2,496 after the 64 held out, 18 steps an
+# epoch for two workers (each batches its own 1,248 and drops the rest)
+RECIPE_SPEAKERS, RECIPE_TRAIN_UTTS, RECIPE_EVAL_UTTS = 64, 40, 2
+RECIPE_SHUFFLE = 256  # the recipe's 1,000 is most of a worker's shard here
+RECIPE_STEADY = 2  # an epoch's first steps wait for the pool and the shuffle buffers
+RECIPE_COSINE = 0.9999  # PERF.md section 2: K1's embeddings against the plain front end's
+
+
+@contextlib.contextmanager
+def counted_host_waits(counts: dict):
+    """Count the host's waits on the card in Trainer.run_epoch and
+    Trainer.validate, call by call (train/step_check.py host_waits):
+    counts[name] their numbers, counts[name + " places"] where they were."""
+    from asv_subtools_tpu_torch.train import Trainer
+    from asv_subtools_tpu_torch.train.step_check import host_waits
+
+    originals = {name: getattr(Trainer, name) for name in ("run_epoch", "validate")}
+
+    def counting(name, fn):
+        def wrapper(self, *args, **kwargs):
+            out, places = host_waits(lambda: fn(self, *args, **kwargs))
+            counts.setdefault(name, []).append(len(places))
+            counts.setdefault(f"{name} places", []).append(places)
+            return out
+
+        return wrapper
+
+    for name, fn in originals.items():
+        setattr(Trainer, name, counting(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in originals.items():
+            setattr(Trainer, name, fn)
+
+
+def _tree_equal(torch, a, b) -> bool:
+    """Two nested dicts of tensors hold the same keys and bit-equal tensors."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_tree_equal(torch, a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def _pace(stats: dict, skip: int = RECIPE_STEADY) -> dict:
+    """An epoch's pace from its (skip + 1)-th step on: median ms/step
+    (CUDA events), median host turn per step, and the host's wait for data
+    as a share of the host's time (wait + turn) over those steps."""
+    wait, turn = stats["data_wait_s"][skip:], stats["turn_s"][skip:]
+    return {"ms": float(np.median(stats["step_ms"][skip:])), "turn_ms": float(np.median(turn)) * 1e3,
+            "wait_ms": float(np.median(wait)) * 1e3, "share": sum(wait) / (sum(wait) + sum(turn)),
+            "start_s": sum(stats["data_wait_s"][:skip])}
+
+
+def _print_epochs(what: str, launcher, waits: list, device_label: str) -> None:
+    for stats, n_waits in zip(launcher.epoch_stats, waits):
+        m, wait, step_ms = stats["metrics"], stats["data_wait_s"], stats["step_ms"]
+        pace = _pace(stats)
+        print(f"recipe {what} epoch {stats['epoch']}: {stats['steps']} steps from step {stats['first_step']}, "
+              f"{float(np.median(step_ms)):.2f} ms/step (median, CUDA events; "
+              + ", ".join(f"{x:.1f}" for x in step_ms) + "), "
+              f"the host's wait for the next batch {float(np.median(wait)) * 1e3:.1f} ms median, "
+              f"{sum(wait) * 1e3:.0f} ms in all ({sum(wait) / stats['wall_s']:.0%} of the epoch's "
+              f"{stats['wall_s']:.2f} s); from step {RECIPE_STEADY + 1} on: {pace['ms']:.2f} ms/step, the host's turn "
+              f"{pace['turn_ms']:.2f} ms, its wait {pace['wait_ms']:.2f} ms (median), data wait {pace['share']:.1%} "
+              f"of the host's time (the first {RECIPE_STEADY} batches waited {pace['start_s']:.2f} s); "
+              f"loss {m['loss']:.4f}, accuracy {m['accuracy']:.4f}, lr {m['lr']:.3e}, validation loss "
+              f"{m['valid_loss']:.4f} (accuracy {m['valid_accuracy']:.4f}); {n_waits} host waits in the epoch; "
+              f"on {device_label}", flush=True)
+
+
+def _k1_recipe_shapes(torch, opts, root: str, extract_batch: int) -> dict:
+    """K1 against its plain version (bf16 DFT, phase 2's tolerance) at the
+    recipe's shapes, on the corpus's own waves: a train batch of 128
+    training waves cut to the 2.015 s chunk, and one extraction batch of
+    evaluation waves zero-padded to their bucket."""
+    from asv_subtools_tpu_torch.extract import WAVE_BUCKETS
+    from asv_subtools_tpu_torch.features import fused_fbank, fused_fbank_plain
+    from asv_subtools_tpu_torch.io import read_wav
+
+    dev, tol, chunk = torch.device("cuda"), 1e-3, int(2.015 * 16000)
+
+    def waves(subset):
+        with open(f"{root}/{subset}/wav.scp") as f:
+            return [read_wav(line.split()[1])[0] for line in f if line.strip()]
+
+    train = np.stack([w[:chunk] for w in waves("train")[:BATCH]])
+    by_bucket: dict = {}
+    for w in waves("eval"):
+        by_bucket.setdefault(next(b for b in WAVE_BUCKETS if len(w) <= b), []).append(w)
+    bucket, group = max(by_bucket.items(), key=lambda kv: (len(kv[1]), kv[0]))
+    extract = np.zeros((min(len(group), extract_batch), bucket), np.float32)
+    for row, w in zip(extract, group):
+        row[: len(w)] = w
+    errs = {}
+    for what, x in (("train", train), ("extraction", extract)):
+        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        k, _ = fused_fbank(x, opts, dft_dtype=torch.bfloat16, with_energy=False)
+        route = fused_fbank.last_route
+        p, _ = fused_fbank_plain(x, opts, dft_dtype=torch.bfloat16, with_energy=False)
+        torch.cuda.synchronize()
+        t = opts.frame_opts.num_frames(x.shape[1])
+        errs[what] = max_abs(k, p)
+        print(f"recipe K1 bf16 {what} batch [{x.shape[0]},{x.shape[1]}] -> [{x.shape[0]},{t},80] ({route}), the "
+              f"corpus's waves: max abs err {errs[what]:.3e} (tol {tol})", flush=True)
+        check(route == "tensor_core" and tuple(k.shape) == (x.shape[0], t, 80) and errs[what] <= tol,
+              f"K1 at the recipe's {what} shape disagrees with its plain version")
+    return errs
+
+
+def phase_recipe(torch, device_label):
+    """The recipe's stages 0-2 through the port's Launcher (see 12 above)."""
+    import os
+
+    from asv_subtools_tpu_torch.backend import compute_eer
+    from asv_subtools_tpu_torch.data import Prefetcher
+    from asv_subtools_tpu_torch.extract import WAVE_BUCKETS
+    from asv_subtools_tpu_torch.features import FbankOptions, MelOptions, fused_fbank
+    from asv_subtools_tpu_torch.io import read_vec_flt_scp, read_wav
+    from asv_subtools_tpu_torch.launcher import Launcher
+    from asv_subtools_tpu_torch.recipes.synthetic import write_corpus
+    from asv_subtools_tpu_torch.recipes.voxceleb import recipe_params
+    from asv_subtools_tpu_torch.train import load_checkpoint
+
+    dev = torch.device("cuda")
+    opts = FbankOptions(mel_opts=MelOptions(num_bins=80))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_corpus(tmp, num_spks=RECIPE_SPEAKERS, train_per_spk=RECIPE_TRAIN_UTTS, eval_per_spk=RECIPE_EVAL_UTTS,
+                     dur=(2.5, 4.0), eval_dur=(1.5, 12.0), seed=SEED + 80)
+        print(f"recipe corpus: {RECIPE_SPEAKERS} speakers x ({RECIPE_TRAIN_UTTS} train of 2.5-4.0 s + "
+              f"{RECIPE_EVAL_UTTS} eval of 1.5-12 s) written in {time.perf_counter() - t0:.1f} s", flush=True)
+        # the recipe's own parameters; the cyclic schedule's half period cut
+        # to half of this run's 54 steps (the recipe's --step-size-up for
+        # short runs)
+        params = recipe_params(tmp, f"{tmp}/exp", epochs=2, batch_size=BATCH, channels=1024, step_size_up=27)
+        params["data"].update(valid_utts=64, num_workers=2, shuffle_buffer=RECIPE_SHUFFLE)
+        params["train"]["report_interval"] = 6
+        # outside the counted window; it also brings K1's constants for the
+        # recipe's options to the card, ahead of the epochs whose waits count
+        k1_errs = _k1_recipe_shapes(torch, opts, tmp, params["extract"]["batch"])
+        waits: dict = {}
+        zero_launches()
+
+        # stage 0-1: two epochs
+        launcher = Launcher(params)
+        egs = launcher.build_egs()
+        launcher.build_model()
+        with counted_host_waits(waits):
+            state = launcher.train(egs)
+        torch.cuda.synchronize()
+        steps = sum(s["steps"] for s in launcher.epoch_stats)
+        k1_train = fused_fbank.launches
+        _print_epochs("stage 1", launcher, waits["run_epoch"], device_label)
+        ckpt = f"{tmp}/exp/checkpoints/2.params"
+        loaded = load_checkpoint(ckpt, state, restore_optimizer=True)
+        same = all(_tree_equal(torch, getattr(loaded, f), getattr(state, f))
+                   for f in ("params", "batch_stats", "opt_state")) and int(loaded.step) == int(state.step)
+        saved_step = int(state.step)
+
+        # stage 1 resumed: a third epoch from checkpoints/2.params
+        params["train"]["epochs"] = 3
+        resumed = Launcher(params)
+        egs2 = resumed.build_egs()
+        resumed.build_model()
+        with counted_host_waits(waits):
+            resumed.train(egs2, resume_from=ckpt)
+        torch.cuda.synchronize()
+        _print_epochs("stage 1 resumed", resumed, waits["run_epoch"][2:], device_label)
+        steps3 = resumed.epoch_stats[0]["steps"]
+        k1_resumed = fused_fbank.launches - k1_train
+
+        # stage 2: the evaluation list to ark/scp in wave mode
+        stats = resumed.extract(f"{tmp}/eval/wav.scp", f"{tmp}/exp/xvector_eval")
+        counts = read_launches("recipe", ("fused_fbank",))
+        k1_extract = fused_fbank.launches - k1_train - k1_resumed
+        reports = egs.worker_reports + egs2.worker_reports
+        embs = dict(read_vec_flt_scp(f"{tmp}/exp/xvector_eval.scp"))
+        with open(f"{tmp}/eval/wav.scp") as f:
+            eval_list = [line.split() for line in f if line.strip()]
+
+        # the first 8 evaluation utterances through the plain front end, each
+        # in its own bucket-padded batch of one, the same model and weights
+        backbone = resumed.net.backbone
+        tensors = {k[len("backbone."):]: v for k, v in {**resumed.state.params, **resumed.state.batch_stats}.items()
+                   if k.startswith("backbone.")}
+        plain = _plain_embed(torch, lambda x, m: torch.func.functional_call(backbone.eval(), tensors, (x, m)),
+                             opts, torch.bfloat16, torch.float32)
+        cos = []
+        with torch.inference_mode():
+            for key, path in eval_list[:8]:
+                wav, _ = read_wav(path)
+                bucket = next(b for b in WAVE_BUCKETS if len(wav) <= b)
+                x = torch.zeros((1, bucket), device=dev)
+                x[0, : len(wav)] = torch.as_tensor(wav, device=dev)
+                mask = torch.arange(bucket, device=dev)[None, :] < len(wav)
+                ref = plain(x, mask)[0]
+                cos.append(float(cosine(torch.as_tensor(embs[key], device=dev)[None], ref[None])[0]))
+
+        # the steady pace, outside the counted window: the resumed Trainer's
+        # epochs from batches held in pinned memory (no loader, no Prefetcher
+        # thread) and from the live loader through the Prefetcher, as
+        # Launcher.train feeds them, in turns
+        trainer, pstate = resumed.trainer, resumed.state
+        egs2.set_epoch(3)
+        held = list(Prefetcher(egs2, pin_memory=True))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 81)
+        pace: dict = {"memory": [], "loader": []}
+        try:
+            for source in ("memory", "loader", "loader", "memory"):
+                egs2.set_epoch(4)
+                pstate, m = trainer.run_epoch(pstate, held if source == "memory" else Prefetcher(egs2, pin_memory=True),
+                                              gen, epoch=4)
+                check(np.isfinite(m["loss"]), f"a pace epoch from {source} had a loss that was not finite")
+                pace[source].append(_pace(trainer.epoch_stats))
+        finally:
+            egs2.close()
+        reports_all = egs.worker_reports + egs2.worker_reports
+        del held, pstate
+    for source, runs in pace.items():
+        print(f"recipe pace from {source} ({'batches held in pinned memory' if source == 'memory' else 'two spawn workers through the Prefetcher'}), "
+              f"from step {RECIPE_STEADY + 1} of each epoch on, two epochs: "
+              + "; ".join(f"{r['ms']:.2f} ms/step, the host's turn {r['turn_ms']:.2f} ms, its wait {r['wait_ms']:.2f} ms, "
+                          f"data wait {r['share']:.1%} of the host's time" for r in runs)
+              + f"; on {device_label}", flush=True)
+    keys = [k for k, _ in eval_list]
+    mat = np.stack([embs[k] for k in keys])
+    mat /= np.linalg.norm(mat, axis=1, keepdims=True)
+    iu = np.triu_indices(len(keys), 1)
+    spk = np.asarray([k.split("-")[0] for k in keys])
+    eer, _ = compute_eer((mat @ mat.T)[iu], (spk[:, None] == spk[None, :])[iu].astype(np.int64))
+    print(f"recipe stage 2: {stats['utts']} utterances in {stats['batches']} batches, {stats['wall_s']:.2f} s wall, "
+          f"{stats['device_s']:.2f} s in the embed calls, {stats['frames']} samples; ark/scp keys {len(embs)}; EER of "
+          f"the {len(iu[0])} evaluation pairs {eer:.4f} (not gated); cosine of the first 8 against the plain front "
+          f"end: min {min(cos):.6f} (gate {RECIPE_COSINE})", flush=True)
+    served = 2 * (len(launcher.epoch_stats) + len(resumed.epoch_stats))
+    print(f"recipe checks: K1 against plain at the recipe's train shape {k1_errs['train']:.3e}, its extraction shape "
+          f"{k1_errs['extraction']:.3e} (tol 1e-3); K1 launches {k1_train} for {steps} steps, {k1_resumed} for "
+          f"{steps3} resumed steps, {k1_extract} for {stats['batches']} extraction batches; host waits per epoch "
+          f"{waits['run_epoch']} (expected 2 + steps // {params['train']['report_interval']}), per validation "
+          f"{waits['validate']}; loader workers' reports {len(reports)} (expected {served}; "
+          f"{len(reports_all)} with the pace epochs'): pids {sorted({r['pid'] for r in reports_all})}, "
+          f"CUDA_VISIBLE_DEVICES {sorted({repr(r['cuda_visible_devices']) for r in reports_all})}, torch imported "
+          f"{sorted({r['torch_imported'] for r in reports_all})}, CUDA initialised "
+          f"{sorted({r['cuda_initialized'] for r in reports_all})}; checkpoint reload bit for bit {same}; resumed at "
+          f"step {resumed.epoch_stats[0]['first_step']} (saved {saved_step})", flush=True)
+    losses = [s["metrics"][k] for s in launcher.epoch_stats + resumed.epoch_stats for k in ("loss", "valid_loss")]
+    check(all(np.isfinite(x) for x in losses) and all(s["metrics"]["skipped"] == 0 for s in launcher.epoch_stats),
+          "a recipe loss was not finite")
+    check(k1_train == steps and k1_resumed == steps3 and k1_extract == stats["batches"],
+          "K1 did not launch once a train step and once an extraction batch")
+    every = launcher.epoch_stats + resumed.epoch_stats
+    expected = [2 + s["steps"] // params["train"]["report_interval"] for s in every]
+    check(waits["run_epoch"] == expected, f"an epoch waited on the card {waits['run_epoch']} times, not {expected}: "
+          f"{waits['run_epoch places']}")
+    check(len(reports) == served and len(reports_all) == served + 2 * 3
+          and all(r["cuda_visible_devices"] == "" and not r["cuda_initialized"] and r["pid"] != os.getpid()
+                  for r in reports_all),
+          "a loader worker saw the card or initialised CUDA, or did not report at the end of an epoch")
+    check(same and resumed.epoch_stats[0]["first_step"] == saved_step and [s["epoch"] for s in every] == [1, 2, 3],
+          "the checkpoint did not reload bit for bit, or the resumed epoch did not start at its step")
+    check(sorted(embs) == sorted(keys) and all(e.shape == (192,) and np.isfinite(e).all() for e in embs.values()),
+          "the ark/scp did not read back")
+    check(min(cos) >= RECIPE_COSINE, f"the recipe's embeddings are {min(cos):.6f} from the plain front end's")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1296,6 +1612,8 @@ def main() -> int:
     paths.append(phase_served_conformer(torch, smi))
     torch.cuda.empty_cache()
     paths.append(phase_train_conformer(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_recipe(torch, smi))
     for kernel_name, k in kernels.items():
         k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

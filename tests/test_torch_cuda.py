@@ -30,6 +30,14 @@ the CPU's, and on each device every leaf to 0.12 and every BN statistic
 to 2e-5 of its norm from the f64 step (an f32 step at B=8 is
 ill-conditioned: over six seeds and three heads a leaf read up to 5.8e-2
 and a statistic 6.6e-6 from it; PERF.md).
+
+The recipe's epoch loop (launcher.py, a narrow ECAPA, bf16, wave mode):
+one epoch on the card, its batches handed over pinned, whose only host
+waits are the Trainer's fetches (the step counter at the start, each
+report point, the epoch's end), counted under
+torch.cuda.set_sync_debug_mode("warn"); and spawn loader workers that
+compute host features (torch imported) while the parent holds the card:
+none sees the card or initialises CUDA, and none shows in nvidia-smi.
 """
 
 import pytest
@@ -599,3 +607,89 @@ def test_served_conformer_bf16_against_f32(card):
     assert emb.shape == (8, 256) and bool(torch.isfinite(emb.float()).all())
     cos = torch.nn.functional.cosine_similarity(emb.float(), ref, dim=-1)
     assert float(cos.min()) >= 0.999, cos
+
+
+def test_launcher_epoch_waits_only_where_it_fetches(card, tmp_path, monkeypatch):
+    import math
+
+    from asv_subtools_tpu_torch.launcher import Launcher
+    from asv_subtools_tpu_torch.recipes.synthetic import write_corpus
+    from asv_subtools_tpu_torch.train import Trainer
+    from asv_subtools_tpu_torch.train.step_check import host_waits
+
+    corpus = write_corpus(str(tmp_path / "corpus"), num_spks=4, train_per_spk=8)
+    # K1's constants for these options reach the card on their first call
+    fused_fbank(torch.randn(2, 16000, device=card), FbankOptions(mel_opts=MelOptions(num_bins=24)),
+                dft_dtype=torch.bfloat16)
+    epochs, pinned = [], []
+    run_epoch, to_device = Trainer.run_epoch, Trainer._to_device
+
+    def counted(self, *args, **kwargs):
+        out, waits = host_waits(lambda: run_epoch(self, *args, **kwargs))
+        epochs.append((waits, self.epoch_stats["steps"], out[1]))
+        return out
+
+    def watched(self, batch):
+        pinned.append(all(v.is_pinned() for k, v in batch.items() if k in ("x", "y", "mask")))
+        return to_device(self, batch)
+
+    monkeypatch.setattr(Trainer, "run_epoch", counted)
+    monkeypatch.setattr(Trainer, "_to_device", watched)
+    params = {
+        "exp_dir": str(tmp_path / "exp"),
+        "data": {"train_wav_scp": f"{corpus}/train/wav.scp", "train_utt2spk": f"{corpus}/train/utt2spk",
+                 "chunk_seconds": 1.0, "batch_size": 8, "shuffle_buffer": 16, "compute_feat": False,
+                 "spec_aug": True, "speed_perturb": True, "num_bins": 24},
+        "model": {"name": "ecapa_tdnn", "params": {"channels": 32, "mfa_conv": 96, "embd_dim": 16}},
+        "loss": {"name": "margin_softmax_v1", "params": {"method": "aam", "m": 0.2, "sub_k": 2,
+                                                         "adapt_method": "topk", "topk": 5}},
+        "train": {"epochs": 1, "optimizer": {"name": "adamW", "learning_rate": 1e-3, "weight_decay": 5e-5},
+                  "lr_schedule": {"name": "cyclic", "base_lr": 1e-8, "max_lr": 1e-3, "step_size_up": 4},
+                  "margin_warm": {"start_epoch": 1, "end_epoch": 2, "offset_margin": -0.2, "init_lambda": 0.0,
+                                  "epoch_iter": 4},
+                  "report_interval": 2},
+    }
+    launcher = Launcher(params)  # the card, asked for by no one
+    assert launcher.device.type == "cuda"
+    egs = launcher.build_egs()
+    launcher.build_model()
+    before = fused_fbank.launches
+    launcher.train(egs)
+    (waits, steps, metrics), = epochs
+    assert steps == 4 and fused_fbank.launches - before == steps
+    assert len(waits) == 2 + steps // 2, f"{len(waits)} host waits in an epoch of {steps} steps: {waits}"
+    assert pinned and all(pinned)
+    assert math.isfinite(metrics["loss"]) and metrics["skipped"] == 0
+    assert len(launcher.epoch_stats[0]["step_ms"]) == steps
+
+
+def test_spawn_workers_never_initialise_cuda(card, tmp_path):
+    import functools
+    import os
+    import subprocess
+    import sys
+
+    from asv_subtools_tpu_torch.data import MultiprocessLoader, build_spk2int
+    from asv_subtools_tpu_torch.features import FbankOptions as Opts
+    from asv_subtools_tpu_torch.recipes.synthetic import write_corpus
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from torch_worker_probe import probe_egs
+
+    corpus = write_corpus(str(tmp_path / "corpus"), num_spks=2, train_per_spk=4)
+    torch.zeros(1, device=card)  # the parent holds a CUDA context
+    u2s = f"{corpus}/train/utt2spk"
+    cfg = dict(train_scp=f"{corpus}/train/wav.scp", train_u2s=u2s, spk2int=build_spk2int(u2s), chunk_seconds=0.5,
+               batch_size=2, compute_feat=True, feat_opts=Opts(), shuffle_buffer=2, seed=0)
+    loader = MultiprocessLoader(functools.partial(probe_egs, cfg), num_workers=2)
+    try:
+        batches = list(loader)
+        smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60).stdout
+        on_card = {int(p) for p in smi.split() if p.strip().isdigit()}
+        workers = set(loader.worker_pids)
+    finally:
+        loader.close()
+    assert len(workers) == 2 and not workers & on_card
+    assert batches and all(b["torch_imported"] and b["cuda_visible_devices"] == "" and not b["cuda_available"]
+                           and not b["cuda_initialized"] for b in batches)

@@ -1,0 +1,295 @@
+"""The port's Launcher (launcher.py) and recipe module on the CPU, on a
+synthetic corpus the test writes (recipes/synthetic.py: sinusoid-mixture
+speakers, as in tests/test_launcher.py).
+
+* A narrow ECAPA (channels 32) trains in f32 in wave mode through the
+  Launcher: the per-step losses fall from the first epoch to the second,
+  a checkpoint is written each epoch, a resume from 1.params starts at the
+  saved step, and extraction in wave mode writes an ark/scp that the JAX
+  package's reader takes, whose cosine EER beats 0.35 (the bound of
+  tests/test_launcher.py).
+* The port's Launcher against the JAX Launcher: both start from the same
+  weights (train.transfer of a checkpoint each, from one JAX init) and run
+  one epoch on the same corpus (speed perturbation on, SpecAugment off, so
+  the steps draw nothing at random), sgd at lr 1e-3, the recipe's
+  sub-centre top-k AAM head and margin warm-up. The data planes give
+  identical batches; the front ends differ (JAX's fused fbank in interpret
+  mode against the port's plain version, both f32), so the four per-step
+  losses are held to a relative LOSS_RTOL of 1e-4; measured: 1.5e-5 at
+  the first step, under 7e-6 after it.
+* Options that are not ported raise NotImplementedError naming their
+  ROADMAP item; without a card and without device="cpu" the Launcher raises.
+"""
+
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from asv_subtools_tpu.io import read_vec_flt_scp as jax_read_vec_flt_scp
+from asv_subtools_tpu.launcher import Launcher as JaxLauncher
+from asv_subtools_tpu.parallel import make_mesh
+from asv_subtools_tpu.train import read_report_csv
+from asv_subtools_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
+from asv_subtools_tpu_torch.backend import compute_eer
+from asv_subtools_tpu_torch.launcher import Launcher
+from asv_subtools_tpu_torch.recipes import voxceleb
+from asv_subtools_tpu_torch.recipes.synthetic import write_corpus
+from asv_subtools_tpu_torch.weights import variables_to_state_dict
+
+torch.set_num_threads(2)
+
+LOSS_RTOL = 1e-4
+NARROW = {"channels": 32, "mfa_conv": 96, "embd_dim": 16}
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    return write_corpus(str(tmp_path_factory.mktemp("torch_launcher_corpus")), num_spks=4, train_per_spk=8)
+
+
+def _params(corpus, exp, **train):
+    return {
+        "exp_dir": exp,
+        "data": {"train_wav_scp": os.path.join(corpus, "train", "wav.scp"),
+                 "train_utt2spk": os.path.join(corpus, "train", "utt2spk"),
+                 "chunk_seconds": 1.0, "batch_size": 8, "shuffle_buffer": 16, "compute_feat": False,
+                 "spec_aug": True, "speed_perturb": True, "num_bins": 24, "workers": 2},
+        "model": {"name": "ecapa_tdnn", "params": dict(NARROW)},
+        "loss": {"name": "margin_softmax", "params": {"method": "aam", "m": 0.2, "s": 30.0}},
+        "train": {"epochs": 2, "optimizer": {"name": "adamW", "learning_rate": 1e-2, "weight_decay": 5e-5},
+                  "lr_schedule": {"name": "constant", "base_lr": 1e-2}, "compute_dtype": "float32",
+                  "report_interval": 1, **train},
+        "extract": {"mode": "wave", "batch": 8, "workers": 2},
+    }
+
+
+def _step_losses(exp):
+    return read_report_csv(os.path.join(exp, "log", "train.csv"))["loss"]
+
+
+@pytest.fixture(scope="module")
+def trained(corpus, tmp_path_factory):
+    exp = str(tmp_path_factory.mktemp("torch_launcher_exp"))
+    launcher = Launcher(_params(corpus, exp), device="cpu")
+    egs = launcher.build_egs()
+    launcher.build_model()
+    launcher.train(egs)
+    return launcher, exp
+
+
+def test_trains_and_checkpoints(trained):
+    launcher, exp = trained
+    assert launcher.num_targets == 12 and launcher.feat_dim == 24  # speed perturbation triples the classes
+    stats = launcher.epoch_stats
+    assert [s["epoch"] for s in stats] == [1, 2] and [s["first_step"] for s in stats] == [0, 4]
+    assert all(np.isfinite(s["metrics"]["loss"]) for s in stats)
+    losses = _step_losses(exp)
+    assert len(losses) == 8 and np.mean(losses[4:]) < np.mean(losses[:4])
+    assert stats[1]["metrics"]["loss"] < stats[0]["metrics"]["loss"]
+    ckpt = os.path.join(exp, "checkpoints")
+    assert sorted(os.listdir(ckpt)) == ["1.params", "2.params", "checkpoint_info", "final.params"]
+    assert int(launcher.state.step) == 8
+
+
+def test_resume_starts_at_the_saved_step(trained, corpus, tmp_path):
+    """Resumed with two spawn loader workers (MultiprocessLoader)."""
+    _, exp = trained
+    params = _params(corpus, str(tmp_path / "resumed"))
+    params["data"]["num_workers"] = 2
+    launcher = Launcher(params, device="cpu")
+    egs = launcher.build_egs()
+    launcher.build_model()
+    launcher.train(egs, resume_from=os.path.join(exp, "checkpoints", "1.params"))
+    assert [(s["epoch"], s["first_step"], s["steps"]) for s in launcher.epoch_stats] == [(2, 4, 4)]
+    assert int(launcher.state.step) == 8
+    assert os.listdir(str(tmp_path / "resumed" / "checkpoints" / "checkpoint_info")) == ["2.yaml"]
+
+
+def test_extracts_to_an_ark_jax_reads(trained, corpus, tmp_path):
+    launcher, _ = trained
+    prefix = str(tmp_path / "xvector_eval")
+    stats = launcher.extract(os.path.join(corpus, "eval", "wav.scp"), prefix)
+    assert stats["utts"] == 8 and stats["batches"] == 2  # 1.2-2.2 s: the 2 s and 4 s buckets
+    embs = dict(jax_read_vec_flt_scp(prefix + ".scp"))
+    keys = sorted(embs)
+    assert len(keys) == 8 and all(embs[k].shape == (16,) and np.isfinite(embs[k]).all() for k in keys)
+    mat = np.stack([embs[k] for k in keys])
+    mat /= np.linalg.norm(mat, axis=1, keepdims=True)
+    scores = mat @ mat.T
+    iu = np.triu_indices(len(keys), 1)
+    spks = [k.split("-")[0] for k in keys]
+    labels = np.asarray([[int(a == b) for b in spks] for a in spks])[iu]
+    eer, _ = compute_eer(scores[iu], labels)
+    assert eer < 0.35, f"end-to-end EER too high: {eer}"
+
+
+def test_feature_mode_extraction(trained, corpus, tmp_path):
+    """extract.mode="feature": host features in buckets of 128 and 256
+    frames. Each embedding equals the trained backbone applied to that
+    utterance's host features alone (zero-padded to its bucket, masked),
+    within 1e-5 of its norm (measured: 1.8e-7)."""
+    from asv_subtools_tpu_torch.data import WavEgsXvector
+
+    launcher, _ = trained
+    launcher.params["extract"] = dict(launcher.params["extract"], mode="feature", buckets=[128, 256])
+    scp, prefix = os.path.join(corpus, "eval", "wav.scp"), str(tmp_path / "f")
+    stats = launcher.extract(scp, prefix)
+    got = dict(jax_read_vec_flt_scp(prefix + ".scp"))
+    assert stats["utts"] == 8 and sorted(got) == sorted(k for k, _ in WavEgsXvector(scp))
+    state, backbone = launcher.state, launcher.net.backbone.eval()
+    tensors = {k[len("backbone."):]: v for k, v in {**state.params, **state.batch_stats}.items()
+               if k.startswith("backbone.")}
+    for key, feats in WavEgsXvector(scp, feat_opts=launcher.feat_opts):
+        bucket = 128 if len(feats) <= 128 else 256
+        x = torch.zeros((1, bucket, feats.shape[1]))
+        x[0, : len(feats)] = torch.from_numpy(feats)
+        mask = torch.arange(bucket)[None, :] < len(feats)
+        with torch.no_grad():
+            want = torch.func.functional_call(backbone, tensors, (x, mask))[0].numpy()
+        assert np.abs(got[key] - want).max() <= 1e-5 * np.linalg.norm(want), key
+
+
+def test_plateau_and_lambda_annealing_through_the_launcher(corpus, tmp_path):
+    """reduceP driven by the held-out utterances' loss after each epoch,
+    and LambdaMAnneal in place of the margin warm-up."""
+    params = _params(corpus, str(tmp_path / "exp"), epochs=3,
+                     lambda_m_anneal={"lambda_b": 10.0, "alpha": 1.0, "gamma": 0.5})
+    params["data"]["valid_utts"] = 6
+    params["train"]["lr_schedule"] = {"name": "reduceP", "base_lr": 1e-2, "factor": 0.5, "patience": 0,
+                                      "threshold": 0.5}
+    launcher = Launcher(params, device="cpu")
+    egs = launcher.build_egs()
+    launcher.build_model()
+    launcher.train(egs)
+    metrics = [s["metrics"] for s in launcher.epoch_stats]
+    assert all(np.isfinite(m["valid_loss"]) and 0.0 <= m["valid_accuracy"] <= 1.0 for m in metrics)
+    # the first validation sets the best loss; a second that does not halve it cuts the scale
+    assert [m["lr"] for m in metrics[:2]] == [1e-2, 1e-2] and metrics[2]["lr"] == pytest.approx(5e-3)
+    assert launcher.trainer.plateau.scale <= 0.5
+    assert [s["first_step"] for s in launcher.epoch_stats] == [0, 3, 6]  # 26 utterances: three batches of 8
+
+
+def _jax_init_variables(params):
+    """Weights of the JAX Launcher's net for ``params``, as numpy trees."""
+    launcher = JaxLauncher(params, mesh=make_mesh(devices=jax.devices()[:1]))
+    launcher.build_egs()
+    net = launcher.build_model()
+    x = jax.numpy.zeros((2, 98, params["data"]["num_bins"]), jax.numpy.float32)
+    variables = net.init({"params": jax.random.PRNGKey(5), "dropout": jax.random.PRNGKey(5)}, x,
+                         jax.numpy.zeros((2,), jax.numpy.int32), train=False)
+    return jax.tree_util.tree_map(np.asarray, jax.device_get(variables))
+
+
+def test_launcher_against_jax_launcher(corpus, tmp_path):
+    base = _params(corpus, "", epochs=1)
+    base["data"]["spec_aug"] = False
+    # sgd at a small rate: an f32 step of a narrow net with train-mode
+    # BatchNorm at B=8 is ill-conditioned (the two sides' rounding grows
+    # about 20-fold a step at lr 0.05); at 1e-3 the weights move little and
+    # the losses compare the batches, margins and schedules step by step
+    base["train"]["optimizer"] = {"name": "sgd", "learning_rate": 1e-3}
+    base["train"]["lr_schedule"] = {"name": "constant", "base_lr": 1e-3}
+    base["loss"] = {"name": "margin_softmax_v1", "params": {"method": "aam", "m": 0.2, "s": 30.0, "sub_k": 2,
+                                                            "adapt_method": "topk", "topk": 5}}
+    base["train"]["margin_warm"] = {"start_epoch": 1, "end_epoch": 2, "offset_margin": -0.2, "init_lambda": 0.0,
+                                    "epoch_iter": 4}
+    variables = _jax_init_variables(dict(base, exp_dir=str(tmp_path / "init")))
+    jax_ckpt = str(tmp_path / "jax_init")
+
+    class _Init:  # the fields save_checkpoint reads
+        params, batch_stats, opt_state = variables["params"], variables.get("batch_stats", {}), {}
+        step = np.zeros((), np.int32)
+
+    jax_save_checkpoint(jax_ckpt, _Init, 0, save_optimizer=False)
+    port_ckpt = str(tmp_path / "port_init.params")
+    state_dict = variables_to_state_dict({"params": variables["params"]})
+    torch.save({"params": {k: v.float() for k, v in state_dict.items()}, "step": 0}, port_ckpt)
+
+    losses = {}
+    for side in ("jax", "port"):
+        exp = str(tmp_path / side)
+        params = dict(base, exp_dir=exp)
+        params["train"] = dict(base["train"], transfer={"from": os.path.join(jax_ckpt, "0.params")
+                                                        if side == "jax" else port_ckpt})
+        if side == "jax":
+            launcher = JaxLauncher(params, mesh=make_mesh(devices=jax.devices()[:1]))
+        else:
+            launcher = Launcher(params, device="cpu")
+        egs = launcher.build_egs()
+        launcher.build_model()
+        launcher.train(egs)
+        losses[side] = np.asarray(_step_losses(exp))
+    assert len(losses["jax"]) == len(losses["port"]) == 4
+    np.testing.assert_allclose(losses["port"], losses["jax"], rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("change,item", [
+    ({"data": {"egs_type": "offline"}}, 4),
+    ({"data": {"feat_type": "mfcc", "compute_feat": True}}, 11),
+    ({"data": {"feat_backend": "native"}}, 10),
+    ({"train": {"fsdp": True}}, 5),
+    ({"train": {"sam": {"rho": 0.05}}}, 4),
+    ({"model": {"name": "fd_xvector", "params": {}}}, 8),
+    ({"model": {"name": "multi_task_xvector", "params": {}}}, 8),
+    ({"model": {"name": "xvector", "params": {}}}, 8),
+])
+def test_unported_options_raise(corpus, tmp_path, change, item):
+    params = _params(corpus, str(tmp_path / "exp"))
+    for section, values in change.items():
+        params[section] = dict(params[section], **values)
+    launcher = Launcher(params, device="cpu")
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        egs = launcher.build_egs()
+        launcher.build_model()
+        launcher.train(egs)
+
+
+@pytest.mark.parametrize("method,item", [("find_lr", 4), ("score", 9), ("gather_results_from_epochs", 9)])
+def test_unported_stages_raise(corpus, tmp_path, method, item):
+    launcher = Launcher(_params(corpus, str(tmp_path / "exp")), device="cpu")
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        getattr(launcher, method)(None)
+
+
+def test_model_sharding_raises(corpus, tmp_path):
+    params = _params(corpus, str(tmp_path / "exp"))
+    params["train"]["num_model"] = 2
+    with pytest.raises(NotImplementedError, match="item 5"):
+        Launcher(params, device="cpu")
+
+
+def test_launcher_needs_a_device_without_a_card(corpus, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Launcher(_params(corpus, str(tmp_path / "exp")))
+
+
+def test_recipe_stages_0_to_2(corpus, tmp_path):
+    """python -m asv_subtools_tpu_torch.recipes.voxceleb at a narrow width on
+    the CPU: one epoch, then the train and eval lists extracted."""
+    exp = str(tmp_path / "recipe")
+    voxceleb.main(["--data", corpus, "--exp", exp, "--channels", "16", "--batch-size", "8", "--epochs", "1",
+                   "--max-lr", "1e-2", "--step-size-up", "4", "--stop-stage", "2", "--device", "cpu"])
+    for subset in ("train", "eval"):
+        embs = dict(jax_read_vec_flt_scp(os.path.join(exp, f"xvector_{subset}.scp")))
+        assert len(embs) == (32 if subset == "train" else 8)
+        assert all(v.shape == (192,) and np.isfinite(v).all() for v in embs.values())
+    assert os.path.islink(os.path.join(exp, "checkpoints", "final.params"))
+
+
+def test_recipe_scoring_stage_raises(corpus, tmp_path):
+    with pytest.raises(NotImplementedError, match="item 9"):
+        voxceleb.main(["--data", corpus, "--exp", str(tmp_path / "r"), "--trials", "trials", "--device", "cpu"])
+
+
+def test_apply_preset_replaces_the_factories():
+    base = {"model": {"name": "ecapa_tdnn", "params": {"channels": 1024}},
+            "train": {"optimizer": {"name": "adamW"}, "lr_schedule": {"name": "cyclic", "max_lr": 1e-3},
+                      "epochs": 6}}
+    out = voxceleb.apply_preset(base, {"model": {"name": "resnet_xvector", "params": {}},
+                                       "train": {"lr_schedule": {"name": "noam"}, "epochs": 3}})
+    assert out["model"] == {"name": "resnet_xvector", "params": {}}
+    assert out["train"]["lr_schedule"] == {"name": "noam"} and out["train"]["epochs"] == 3

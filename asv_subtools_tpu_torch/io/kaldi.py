@@ -8,8 +8,12 @@ pytorch/libs/support/kaldi_io.py). The Kaldi binary table format:
     percentile headers, "CM2" 16-bit, "CM3" one-byte whole-matrix)
   - scp indirection "key path:offset" with optional row-range reads
   - pipes ("cmd |" rspecifiers / "| cmd" wspecifiers)
-Writers: vectors and matrices, and the paired vector ark/scp writer the
-extractor uses.
+  - int32 alignments (``read_ali``, ``write_vec_int``)
+  - standalone Kaldi object files with no utterance key (mean.vec,
+    transform.mat, the PLDA and i-vector models): tokens, vector and
+    matrix bodies, binary or text
+Writers: vectors, int vectors and matrices, and the paired vector ark/scp
+writer the extractor uses.
 """
 
 from __future__ import annotations
@@ -207,6 +211,34 @@ def _read_mat_body(
     raise ValueError(f"unknown matrix header {header!r}")
 
 
+def read_ali(
+    fd_or_path, row_range: Optional[Tuple[int, int]] = None
+) -> np.ndarray:
+    """Per-frame integer labels from EITHER a Kaldi int-vector alignment
+    entry (what ali-to-phones writes; reference read_ali_ark,
+    kaldi_io.py:169-173) or a single-column float matrix — sniffed from
+    the byte after '\\0B'."""
+    fd = open_or_fd(fd_or_path)
+    try:
+        _expect_binary(fd)
+        first = fd.read(1)
+        if first == b"\x04":  # int32 dim marker -> int vector
+            dim = struct.unpack("<i", fd.read(4))[0]
+            pairs = np.frombuffer(fd.read(dim * 5),
+                                  dtype=[("size", "int8"), ("value", "<i4")],
+                                  count=dim)
+            vec = pairs["value"]
+            if row_range is not None:
+                vec = vec[row_range[0]:row_range[1]]
+            return np.ascontiguousarray(vec)
+        mat = _read_mat_body(fd, first + fd.read(2), row_range)
+        return mat[:, 0].astype(np.int32)
+    finally:
+        if fd is not fd_or_path:
+            fd.close()
+
+
+
 def _uint16_to_float(data: np.ndarray, min_value: float, rng: float) -> np.ndarray:
     return min_value + rng * data.astype(np.float32) / 65535.0
 
@@ -311,6 +343,27 @@ def write_vec_flt(fd_or_path, vec: np.ndarray, key: str) -> int:
             fd.close()
 
 
+def write_vec_int(fd_or_path, vec: np.ndarray, key: str) -> int:
+    """Write a Kaldi int32 vector ('\\x04'-prefixed elements, parity:
+    kaldi_io.py:236-267). Returns the value byte offset (for scp)."""
+    fd = open_or_fd(fd_or_path, "ab")
+    try:
+        fd.write((key + " ").encode())
+        offset = fd.tell() if hasattr(fd, "tell") else -1
+        fd.write(b"\x00B")
+        v = np.ascontiguousarray(vec, dtype="<i4")
+        _write_int32(fd, v.shape[0])
+        body = np.empty(v.shape[0], dtype=[("size", "int8"), ("value", "<i4")])
+        body["size"] = 4
+        body["value"] = v
+        fd.write(body.tobytes())
+        return offset
+    finally:
+        if fd is not fd_or_path:
+            fd.close()
+
+
+
 def write_mat(fd_or_path, mat: np.ndarray, key: str) -> int:
     fd = open_or_fd(fd_or_path, "ab")
     try:
@@ -327,6 +380,176 @@ def write_mat(fd_or_path, mat: np.ndarray, key: str) -> int:
         _write_int32(fd, m.shape[1])
         fd.write(m.tobytes())
         return offset
+    finally:
+        if fd is not fd_or_path:
+            fd.close()
+
+
+
+
+# ---------------------------------------------------------------------------
+# Standalone Kaldi OBJECT files (rxfilename style, no utterance key):
+# what `ivector-mean` (mean.vec), `est-lda`/`transform-vec` (transform.mat)
+# and `ivector-compute-plda` (plda) write. Binary layout: "\0B" marker,
+# then tokens as "<Token> " and Vector/Matrix bodies as
+# "FV "/"DV " '\4'int32 dim data  /  "FM "/"DM " '\4'int32 rows '\4'int32
+# cols data. Text files have no \0B and print "[ ... ]" blocks.
+# ---------------------------------------------------------------------------
+
+
+def _read_head(fd: BinaryIO):
+    """(is_binary, head_bytes): peeks WITHOUT seeking (pipes from
+    open_or_fd('cmd |') can't seek) — text callers prepend head_bytes to
+    the rest of the stream."""
+    head = fd.read(2)
+    return head == b"\x00B", head
+
+
+def read_token(fd: BinaryIO) -> str:
+    """Kaldi ReadToken: whitespace-delimited token."""
+    tok = b""
+    while True:
+        c = fd.read(1)
+        if not c or c in b" \t\n\r":
+            if tok:
+                return tok.decode()
+            if not c:
+                raise EOFError("EOF while reading token")
+            continue
+        tok += c
+
+
+def write_token(fd: BinaryIO, tok: str) -> None:
+    fd.write(tok.encode() + b" ")
+
+
+def expect_token(fd: BinaryIO, want: str) -> None:
+    """Read a token and require it (NOT an assert: the read is a format-
+    critical side effect that must survive python -O)."""
+    got = read_token(fd)
+    if got != want:
+        raise ValueError(f"expected Kaldi token {want!r}, got {got!r}")
+
+
+def _read_text_block(text: str):
+    """Parse consecutive '[ ... ]' numeric blocks from Kaldi text.
+
+    Every block yields a LIST OF ROWS (rows = lines inside the block,
+    Kaldi's text Matrix::Write layout); vector callers flatten, matrix
+    callers np.asarray the rows — so a 1xN matrix keeps its 2-D shape."""
+    blocks = []
+    in_block = False
+    rows: list = []
+    row: list = []
+    for line in text.splitlines():
+        for tok in line.replace("[", " [ ").replace("]", " ] ").split():
+            if tok == "[":
+                in_block, rows, row = True, [], []
+            elif tok == "]":
+                if row:
+                    rows.append(row)
+                blocks.append(rows)
+                in_block, rows, row = False, [], []
+            elif in_block:
+                row.append(float(tok))
+        if in_block and row:
+            rows.append(row)
+            row = []
+    return blocks
+
+
+def read_vec(fd_or_path) -> np.ndarray:
+    """Standalone Kaldi vector file (e.g. `ivector-mean spk.ark mean.vec`),
+    binary or text."""
+    fd = open_or_fd(fd_or_path)
+    try:
+        binary, head = _read_head(fd)
+        if binary:
+            header = fd.read(3)
+            if header == b"FV ":
+                dtype, size = np.float32, 4
+            elif header == b"DV ":
+                dtype, size = np.float64, 8
+            else:
+                raise ValueError(f"unknown vector header {header!r}")
+            dim = _read_int32(fd)
+            return np.frombuffer(fd.read(dim * size), dtype=dtype).copy()
+        text = (head + fd.read()).decode()
+        rows = _read_text_block(text)[0]
+        return np.asarray(
+            [v for r in rows for v in r], np.float64
+        )
+    finally:
+        if fd is not fd_or_path:
+            fd.close()
+
+
+def write_vec(fd_or_path, vec: np.ndarray, binary: bool = True) -> None:
+    """Standalone Kaldi vector file (dtype keeps f64 as DV, else FV)."""
+    v = np.ascontiguousarray(vec).ravel()
+    if not binary:
+        with open(fd_or_path, "w") as f:
+            f.write(" [ " + " ".join(repr(float(x)) for x in v) + " ]\n")
+        return
+    fd = open_or_fd(fd_or_path, "wb")
+    try:
+        fd.write(b"\x00B")
+        _write_vec_body(fd, v)
+    finally:
+        if fd is not fd_or_path:
+            fd.close()
+
+
+def _write_vec_body(fd: BinaryIO, v: np.ndarray) -> None:
+    if v.dtype == np.float64:
+        fd.write(b"DV ")
+    else:
+        v = v.astype(np.float32)
+        fd.write(b"FV ")
+    _write_int32(fd, v.shape[0])
+    fd.write(v.tobytes())
+
+
+def _write_mat_body(fd: BinaryIO, m: np.ndarray) -> None:
+    m = np.ascontiguousarray(m)
+    if m.dtype == np.float64:
+        fd.write(b"DM ")
+    else:
+        m = m.astype(np.float32)
+        fd.write(b"FM ")
+    _write_int32(fd, m.shape[0])
+    _write_int32(fd, m.shape[1])
+    fd.write(m.tobytes())
+
+
+def read_mat_file(fd_or_path) -> np.ndarray:
+    """Standalone Kaldi matrix file (e.g. an est-lda / transform.mat
+    artifact), binary or text."""
+    fd = open_or_fd(fd_or_path)
+    try:
+        binary, head = _read_head(fd)
+        if binary:
+            return _read_mat_body(fd, fd.read(3), None)
+        text = (head + fd.read()).decode()
+        rows = _read_text_block(text)[0]
+        return np.asarray(rows, np.float64)
+    finally:
+        if fd is not fd_or_path:
+            fd.close()
+
+
+def write_mat_file(fd_or_path, mat: np.ndarray, binary: bool = True) -> None:
+    if not binary:
+        with open(fd_or_path, "w") as f:
+            f.write(" [")
+            for row in np.asarray(mat):
+                f.write("\n  " + " ".join(repr(float(x)) for x in row))
+            f.write(" ]\n")
+        return
+    fd = open_or_fd(fd_or_path, "wb")
+    try:
+        fd.write(b"\x00B")
+        _write_mat_body(fd, np.asarray(mat))
     finally:
         if fd is not fd_or_path:
             fd.close()

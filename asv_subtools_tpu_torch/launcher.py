@@ -6,6 +6,10 @@ One python entry replaces the reference's launcher + shell pipeline:
   stage 1: train (epochs of train steps on one device, validation,
            a checkpoint each epoch)
   stage 2: extract embeddings (bucketed batch extractor) -> xvector ark/scp
+  stage 3: score a trial list (backend.ScoreSets: transform chain,
+           classifier, S-norm/AS-norm, EER and minDCF); the cosine score
+           matrices run on the launcher's device, the rest in f64 on the
+           host
 
 Driven by a params dict merged over defaults with assign_params_dict -
 the reference launcher idiom (runEcapaXvector_online.py:99-445). The
@@ -15,8 +19,8 @@ raises without a card.
 Not ported yet; each raises NotImplementedError naming its ROADMAP item:
 the offline chunk egs, SAM, ``find_lr`` (Queue 1 item 4), ``fsdp`` and
 ``num_model > 1`` (item 5), the x-vector, multi-task and FD-AL models
-(item 8), ``score`` and ``gather_results_from_epochs`` (item 9), the
-native host front end (item 10) and host mfcc/pitch features (item 11).
+(item 8), the native host front end (item 10) and host mfcc/pitch
+features (item 11).
 
 Two choices differ from the JAX Launcher: the held-out validation egs
 keep their last, partial batch (the JAX egs drop it, so a hold-out
@@ -146,6 +150,7 @@ class Launcher:
         self.valid_egs = None
         self.trainer: Optional[Trainer] = None
         self.epoch_stats: list = []
+        self.score_sets = None
 
     # -- stage 0 ------------------------------------------------------------
     def build_egs(self):
@@ -400,8 +405,71 @@ class Launcher:
         return stats
 
     # -- stage 3 ------------------------------------------------------------
-    def score(self, *args, **kwargs):
-        raise _not_ported("Launcher.score (the scoring back end)", 9)
+    def score(
+        self,
+        train_scp: str,
+        train_utt2spk: str,
+        enroll_scp: str,
+        test_scp: str,
+        trials_path: str,
+        *,
+        process: str = "submean-norm",
+        classifier: str = "cosine",
+        score_norm: Optional[str] = None,
+        top_n: int = 300,
+        cohort_size: int = 3000,
+    ) -> Dict[str, float]:
+        """scoreSets stage: transform chain + classifier + metrics. The
+        train vectors with a speaker in ``train_utt2spk`` fit the chain
+        (speaker ids are the speakers' sorted indices); the cohort is the
+        first ``cohort_size`` of them in sorted key order. The
+        ``ScoreSets`` of the last call stays in ``self.score_sets``."""
+        import numpy as np
 
-    def gather_results_from_epochs(self, *args, **kwargs):
-        raise _not_ported("Launcher.gather_results_from_epochs (the scoring back end)", 9)
+        from .backend import ScoreConfig, ScoreSets, Trials
+        from .io import read_vec_flt_scp
+
+        train = dict(read_vec_flt_scp(train_scp))
+        with open(train_utt2spk) as f:
+            u2s = dict(line.split()[:2] for line in f if line.strip())
+        keys = sorted(k for k in train if k in u2s)
+        spks = sorted(set(u2s[k] for k in keys))
+        s2i = {s: i for i, s in enumerate(spks)}
+        x = np.stack([train[k] for k in keys])
+        ids = np.asarray([s2i[u2s[k]] for k in keys])
+        cfg = ScoreConfig(process=process, classifier=classifier, score_norm=score_norm, top_n=top_n)
+        pipe = ScoreSets(cfg, device=self.device).fit(x, ids)
+        self.score_sets = pipe
+        enroll = dict(read_vec_flt_scp(enroll_scp))
+        test = dict(read_vec_flt_scp(test_scp))
+        cohort = x[:cohort_size] if score_norm else None
+        out = pipe.run(enroll, test, Trials.read(trials_path), cohort=cohort)
+        self.logger.info("scoring: %s", out)
+        return out
+
+    def gather_results_from_epochs(
+        self,
+        epochs,
+        train_scp_fmt: str,
+        train_utt2spk: str,
+        enroll_scp_fmt: str,
+        test_scp_fmt: str,
+        trials_path: str,
+        **score_kwargs,
+    ) -> Dict[Any, Dict[str, float]]:
+        """Score a range of epoch checkpoints and collect metrics per epoch
+        (parity: gather_results_from_epochs.sh, which loops scoreSets.sh
+        over exp/<model>/far_epoch_N vector dirs).
+
+        The *_fmt paths may contain "{epoch}", substituted per epoch; plain
+        paths reuse one extraction for all epochs (when only the back-end
+        config varies). Returns {epoch: metrics dict} and logs a summary.
+        """
+        results = {}
+        for epoch in epochs:
+            train_scp, enroll_scp, test_scp = (p.format(epoch=epoch)
+                                               for p in (train_scp_fmt, enroll_scp_fmt, test_scp_fmt))
+            results[epoch] = self.score(train_scp, train_utt2spk, enroll_scp, test_scp, trials_path, **score_kwargs)
+        for epoch, m in sorted(results.items()):
+            self.logger.info("epoch %s: %s", epoch, m)
+        return results

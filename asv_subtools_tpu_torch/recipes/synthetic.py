@@ -18,7 +18,10 @@ def write_corpus(root: str, num_spks: int = 4, train_per_spk: int = 6, eval_per_
     """Write ``root``/train/{wav.scp,utt2spk} and ``root``/eval/{wav.scp,utt2spk}
     over wavs in ``root``/wav: per speaker ``train_per_spk`` utterances of
     ``dur`` seconds (uniform) and ``eval_per_spk`` of ``eval_dur`` (default
-    ``dur``). Keys are ``s<spk>-u<i>``. Returns ``root``."""
+    ``dur``). Keys are ``s<spk>-u<i>``. ``root``/eval/trials (Kaldi
+    "enroll test target|nontarget" lines) holds every pair of eval
+    utterances of one speaker and as many pairs of two speakers, drawn
+    from ``seed`` without repeats. Returns ``root``."""
     rng = np.random.default_rng(seed)
     lines = {"train": ([], []), "eval": ([], [])}
     os.makedirs(os.path.join(root, "wav"), exist_ok=True)
@@ -41,4 +44,13 @@ def write_corpus(root: str, num_spks: int = 4, train_per_spk: int = 6, eval_per_
             f.write("\n".join(wav_lines) + "\n")
         with open(os.path.join(root, subset, "utt2spk"), "w") as f:
             f.write("\n".join(spk_lines) + "\n")
+    eval_keys = [line.split()[0] for line in lines["eval"][0]]
+    pairs = [(a, b) for i, a in enumerate(eval_keys) for b in eval_keys[i + 1:]]
+    target = [(a, b) for a, b in pairs if a.split("-")[0] == b.split("-")[0]]
+    nontarget = [(a, b) for a, b in pairs if a.split("-")[0] != b.split("-")[0]]
+    # a generator of its own: the list depends on the seed and the keys only
+    pick = np.random.default_rng(seed).choice(len(nontarget), size=min(len(target), len(nontarget)), replace=False)
+    with open(os.path.join(root, "eval", "trials"), "w") as f:
+        f.writelines(f"{a} {b} target\n" for a, b in target)
+        f.writelines(f"{nontarget[i][0]} {nontarget[i][1]} nontarget\n" for i in sorted(pick))
     return root

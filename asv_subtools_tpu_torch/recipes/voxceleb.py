@@ -2,15 +2,17 @@
 recipes/voxceleb/run.py; parity: recipe/voxcelebSRC/runVoxcelebSRC.sh +
 pytorch/launcher/runEcapaXvector_online.py).
 
-    python -m asv_subtools_tpu_torch.recipes.voxceleb --data DATA [--exp EXP]
+    python -m asv_subtools_tpu_torch.recipes.voxceleb --data DATA [--exp EXP] [--trials TRIALS]
 
 Stages (pick with --stage/--stop-stage like the reference):
   0  build egs from wav.scp/utt2spk (online pipeline, aug + chunks)
   1  train (ECAPA-C1024 + AAM sub-center/inter-topK, cyclic adamW, bf16,
      the fused fbank kernel inside the step)
   2  extract embeddings for train(cohort)/eval -> xvector ark/scp
-  3  score: not ported yet (the scoring back end, ROADMAP Queue 1 item 9);
-     asking for it with --trials raises before anything runs
+  3  score --trials (needs stage 2's ark/scp): submean + length-norm
+     cosine with AS-norm (top 300 over the first 3,000 sorted train
+     vectors), enroll = test = the eval set; prints EER and minDCF. The
+     cosine score matrices run on the device, the rest in f64 on the host
 
 Point --data at a Kaldi-style directory tree:
   <data>/train/{wav.scp,utt2spk}
@@ -126,8 +128,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--model-warmup", type=int, default=None)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.stage <= 3 <= args.stop_stage and args.trials:
-        raise NotImplementedError("stage 3 (scoring) is not ported yet (ROADMAP Queue 1 item 9)")
     max_lr = args.max_lr if args.max_lr is not None else 1e-3
     step_size_up = args.step_size_up if args.step_size_up is not None else 15000
     params = recipe_params(args.data, args.exp, epochs=args.epochs if args.epochs is not None else 6,
@@ -173,6 +173,16 @@ def main(argv: Optional[List[str]] = None) -> None:
             scp = os.path.join(args.data, subset, "wav.scp")
             if os.path.exists(scp):
                 launcher.extract(scp, os.path.join(args.exp, f"xvector_{subset}"))
+    if args.stage <= 3 <= args.stop_stage and args.trials:
+        # recipes/voxceleb/run.py:176-190. Its speaker ids are hash(spk) %
+        # 10**9, which Python salts per process; Launcher.score numbers the
+        # speakers by sorted index instead. The cosine configuration never
+        # reads the ids, so the result is the same.
+        eval_scp = os.path.join(args.exp, "xvector_eval.scp")
+        out = launcher.score(os.path.join(args.exp, "xvector_train.scp"), params["data"]["train_utt2spk"],
+                             eval_scp, eval_scp, args.trials, process="submean-norm", classifier="cosine",
+                             score_norm="asnorm", top_n=300, cohort_size=3000)
+        print(out)
 
 
 if __name__ == "__main__":

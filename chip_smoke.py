@@ -47,8 +47,8 @@ Phases (any failure raises and the script exits non-zero):
      statistics pooling on, held against the same model with the flag off
      fed by the plain front end and against an f32 model on the f32 plain
      front end; timed with the flag on and off; one batch profiled; then the Extractor run as in 6.
-     The launch counters are zeroed just before each of the seven main
-     paths (6 to 12) drives the port and read just after; every kernel
+     The launch counters are zeroed just before each of the eight main
+     paths (6 to 13) drives the port and read just after; every kernel
      of a path must have been launched in it.
   8. the train step of ECAPA-TDNN C1024 (SpeakerNet with the sub-centre
      top-k AAM head over 5994 classes, seeded random weights, bf16
@@ -90,7 +90,7 @@ Phases (any failure raises and the script exits non-zero):
      model_warmup_steps 1000, adamW on the noam schedule) on a masked
      batch of 1.0-2.0 s, where warmup < 1 blends every block; then a
      narrow Conformer's card-against-CPU steps as in 9.
- 12. the recipe's stages 0-2 through the port's Launcher
+ 12. the recipe's stages 0-3 through the port's Launcher
      (recipes/voxceleb/run.py:80-130 as asv_subtools_tpu_torch.recipes.voxceleb
      builds them: ECAPA-TDNN C1024, embedding 192, the sub-centre top-k
      AAM head, adamW 1e-3 wd 5e-5 on the cyclic schedule, MarginWarm over
@@ -103,13 +103,19 @@ Phases (any failure raises and the script exits non-zero):
      against its plain version at the recipe's shapes (a train batch of
      128 corpus waves at 32,240 samples, and an extraction batch at its
      bucket), outside the counted window; then two epochs, a resume from
-     checkpoints/2.params for a third, and the evaluation list extracted
-     to ark/scp in wave mode. Per epoch: steps, median ms/step (CUDA
+     checkpoints/2.params for a third, the training and evaluation lists
+     extracted to ark/scp in wave mode, and stage 3: Launcher.score on
+     those ark/scp with the recipe's configuration (submean + length-norm
+     cosine, AS-norm top 300 over the first 3,000 sorted training vectors,
+     enroll = test = the evaluation list) against the corpus's eval/trials
+     (every target pair and as many nontarget pairs), the cosine matrices
+     on the card. Per epoch: steps, median ms/step (CUDA
      events), the host's wait for each batch and its turn per step, loss,
      accuracy, validation loss, and the same from the third step on (the
      steady pace, after the pool's start and the shuffle buffers' fill);
-     then the extraction's stats and the EER of all evaluation pairs (not
-     gated). Checks: every loss finite; K1 launched once a step and once
+     then the extractions' stats, and stage 3's EER and minDCF (not gated),
+     its seconds and its copies of a cosine matrix to the host (three:
+     raw, enroll-cohort, test-cohort). Checks: every loss finite; K1 launched once a step and once
      an extraction batch; the host waits in an epoch (counted under
      set_sync_debug_mode("warn")) are exactly the Trainer's fetches: the
      step counter at the start, each report point and the end; every
@@ -117,12 +123,30 @@ Phases (any failure raises and the script exits non-zero):
      CUDA_VISIBLE_DEVICES and no CUDA initialised; the checkpoint reloads
      bit for bit and the resumed epoch starts at its step; the ark/scp
      reads back; the first 8 evaluation embeddings against the same model
-     through the plain front end at cosine 0.9999. Last, outside the
+     through the plain front end at cosine 0.9999; stage 3 scored every
+     trial on the card with three copies and finite metrics. Last, outside the
      counted window, the resumed Trainer runs four more epochs in turns:
      from batches held in pinned memory (no loader, no Prefetcher thread),
      from the live loader through the Prefetcher, the live loader, memory;
      their steady ms/step and host turn per step are printed side by side.
- 13. a "kernels" JSON line, then the device JSON as the last line.
+ 13. the scoring back end at scale (backend/, TF32 off), on
+     speaker-structured embeddings drawn from the seed: asnorm_device at
+     the shape of tests/test_backend_scale.py (600 x 970 trials, a cohort
+     of 5,994, D=256, top 300; the cosine matrices from
+     cosine_score_matrix on the card) against the f64 host asnorm at rtol
+     2e-3, atol 2e-4; llr_matrix_device at 600 x 970, D=256, from a PLDA
+     fitted on 200 speakers x 8 (5 EM iterations) against the f64
+     Plda.llr_matrix on the whole matrix at rtol 2e-3, atol 2e-3; card
+     times from CUDA events, host times beside them. Then ScoreSets end to
+     end at VoxCeleb1-O scale (4,874 evaluation vectors of D=192, 37,720
+     trials, half target; fit on 5,994 speakers x 8): the recipe's cosine
+     AS-norm configuration (cohort 3,000) and mean-lda-submean-whiten-norm
+     + PLDA (LDA to 128, 10 EM iterations), each with its fit and scoring
+     seconds and its EER and minDCF (not gated), and the card time of the
+     three cosine matrices. Fails on a missed tolerance, a result that is
+     not finite, or a device result off the card. No kernel runs here (the
+     counters are read to show it).
+ 14. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
 line) is device time over many launches back to back: one CUDA event, N
@@ -1426,7 +1450,6 @@ def phase_recipe(torch, device_label):
     """The recipe's stages 0-2 through the port's Launcher (see 12 above)."""
     import os
 
-    from asv_subtools_tpu_torch.backend import compute_eer
     from asv_subtools_tpu_torch.data import Prefetcher
     from asv_subtools_tpu_torch.extract import WAVE_BUCKETS
     from asv_subtools_tpu_torch.features import FbankOptions, MelOptions, fused_fbank
@@ -1484,10 +1507,24 @@ def phase_recipe(torch, device_label):
         steps3 = resumed.epoch_stats[0]["steps"]
         k1_resumed = fused_fbank.launches - k1_train
 
-        # stage 2: the evaluation list to ark/scp in wave mode
+        # stage 2: the training and evaluation lists to ark/scp in wave mode
+        train_stats = resumed.extract(f"{tmp}/train/wav.scp", f"{tmp}/exp/xvector_train")
         stats = resumed.extract(f"{tmp}/eval/wav.scp", f"{tmp}/exp/xvector_eval")
-        counts = read_launches("recipe", ("fused_fbank",))
         k1_extract = fused_fbank.launches - k1_train - k1_resumed
+
+        # stage 3: the recipe's scoring (recipes/voxceleb/run.py:176-190)
+        # through Launcher.score on the card, on stage 2's ark/scp
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scored = resumed.score(f"{tmp}/exp/xvector_train.scp", f"{tmp}/train/utt2spk", f"{tmp}/exp/xvector_eval.scp",
+                               f"{tmp}/exp/xvector_eval.scp", f"{tmp}/eval/trials", process="submean-norm",
+                               classifier="cosine", score_norm="asnorm", top_n=300, cohort_size=3000)
+        score_s = time.perf_counter() - t0
+        fetches = resumed.score_sets.device_fetches
+        score_device = resumed.score_sets.device
+        with open(f"{tmp}/eval/trials") as f:
+            n_trials = sum(1 for line in f if line.strip())
+        counts = read_launches("recipe", ("fused_fbank",))
         reports = egs.worker_reports + egs2.worker_reports
         embs = dict(read_vec_flt_scp(f"{tmp}/exp/xvector_eval.scp"))
         with open(f"{tmp}/eval/wav.scp") as f:
@@ -1538,19 +1575,20 @@ def phase_recipe(torch, device_label):
                           f"data wait {r['share']:.1%} of the host's time" for r in runs)
               + f"; on {device_label}", flush=True)
     keys = [k for k, _ in eval_list]
-    mat = np.stack([embs[k] for k in keys])
-    mat /= np.linalg.norm(mat, axis=1, keepdims=True)
-    iu = np.triu_indices(len(keys), 1)
-    spk = np.asarray([k.split("-")[0] for k in keys])
-    eer, _ = compute_eer((mat @ mat.T)[iu], (spk[:, None] == spk[None, :])[iu].astype(np.int64))
-    print(f"recipe stage 2: {stats['utts']} utterances in {stats['batches']} batches, {stats['wall_s']:.2f} s wall, "
-          f"{stats['device_s']:.2f} s in the embed calls, {stats['frames']} samples; ark/scp keys {len(embs)}; EER of "
-          f"the {len(iu[0])} evaluation pairs {eer:.4f} (not gated); cosine of the first 8 against the plain front "
-          f"end: min {min(cos):.6f} (gate {RECIPE_COSINE})", flush=True)
+    print(f"recipe stage 2: train list {train_stats['utts']} utterances in {train_stats['batches']} batches, "
+          f"{train_stats['wall_s']:.2f} s wall; evaluation list {stats['utts']} utterances in {stats['batches']} "
+          f"batches, {stats['wall_s']:.2f} s wall, {stats['device_s']:.2f} s in the embed calls, {stats['frames']} "
+          f"samples; ark/scp keys {len(embs)}; cosine of the first 8 against the plain front end: min {min(cos):.6f} "
+          f"(gate {RECIPE_COSINE})", flush=True)
+    print(f"recipe stage 3 (Launcher.score: submean-norm, cosine, AS-norm top 300 over the first 3,000 sorted train "
+          f"vectors, enroll = test = the evaluation list, the cosine matrices on {score_device}): {n_trials} trials, "
+          f"EER {scored['eer']:.4f}, minDCF(0.01) {scored['min_dcf']:.4f} (neither gated); {score_s:.2f} s; "
+          f"{fetches} copies of a cosine matrix to the host; on {device_label}", flush=True)
     served = 2 * (len(launcher.epoch_stats) + len(resumed.epoch_stats))
     print(f"recipe checks: K1 against plain at the recipe's train shape {k1_errs['train']:.3e}, its extraction shape "
           f"{k1_errs['extraction']:.3e} (tol 1e-3); K1 launches {k1_train} for {steps} steps, {k1_resumed} for "
-          f"{steps3} resumed steps, {k1_extract} for {stats['batches']} extraction batches; host waits per epoch "
+          f"{steps3} resumed steps, {k1_extract} for {train_stats['batches'] + stats['batches']} extraction batches; "
+          f"host waits per epoch "
           f"{waits['run_epoch']} (expected 2 + steps // {params['train']['report_interval']}), per validation "
           f"{waits['validate']}; loader workers' reports {len(reports)} (expected {served}; "
           f"{len(reports_all)} with the pace epochs'): pids {sorted({r['pid'] for r in reports_all})}, "
@@ -1561,7 +1599,7 @@ def phase_recipe(torch, device_label):
     losses = [s["metrics"][k] for s in launcher.epoch_stats + resumed.epoch_stats for k in ("loss", "valid_loss")]
     check(all(np.isfinite(x) for x in losses) and all(s["metrics"]["skipped"] == 0 for s in launcher.epoch_stats),
           "a recipe loss was not finite")
-    check(k1_train == steps and k1_resumed == steps3 and k1_extract == stats["batches"],
+    check(k1_train == steps and k1_resumed == steps3 and k1_extract == train_stats["batches"] + stats["batches"],
           "K1 did not launch once a train step and once an extraction batch")
     every = launcher.epoch_stats + resumed.epoch_stats
     expected = [2 + s["steps"] // params["train"]["report_interval"] for s in every]
@@ -1576,6 +1614,159 @@ def phase_recipe(torch, device_label):
     check(sorted(embs) == sorted(keys) and all(e.shape == (192,) and np.isfinite(e).all() for e in embs.values()),
           "the ark/scp did not read back")
     check(min(cos) >= RECIPE_COSINE, f"the recipe's embeddings are {min(cos):.6f} from the plain front end's")
+    check(train_stats["utts"] == RECIPE_SPEAKERS * RECIPE_TRAIN_UTTS, "the train list was not extracted whole")
+    check(score_device.type == "cuda" and fetches == 3, f"stage 3 scored on {score_device} with {fetches} copies "
+          "of a cosine matrix, not on the card with 3")
+    check(scored["num_trials"] == n_trials and all(np.isfinite(v) for v in scored.values()),
+          f"stage 3 scored {scored['num_trials']} of {n_trials} trials, or a metric was not finite")
+    return counts
+
+
+# the back end at scale: tests/test_backend_scale.py:24 (VoxCeleb1-E/H:
+# 582,000 trials against a VoxCeleb2-dev cohort of 5,994), and VoxCeleb1-O
+BACKEND_E, BACKEND_T, BACKEND_C, BACKEND_D = 600, 970, 5994, 256
+VOX1O_UTTS, VOX1O_SPEAKERS, VOX1O_TRIALS, VOX1O_D = 4874, 40, 37720, 192
+VOX2_SPEAKERS, VOX2_PER_SPEAKER = 5994, 8
+
+
+def _vox1o_task(seed: int):
+    """Speaker-structured embeddings at VoxCeleb1-O's sizes: 4,874 eval
+    vectors of 40 speakers, 37,720 trials (half target, drawn without
+    repeats), and a training set of 5,994 speakers x 8. Speaker centroids
+    N(0, I), within-speaker noise N(0, diag(s)) with s from 0.5 to 8 over
+    the dimensions (so that the chain's whitening and PLDA have work)."""
+    rng = np.random.default_rng(seed)
+    within = np.sqrt(np.linspace(0.5, 8.0, VOX1O_D))
+
+    def draw(centroids, ids):
+        return (centroids[ids] + within * rng.normal(size=(len(ids), VOX1O_D))).astype(np.float32)
+
+    train_ids = np.repeat(np.arange(VOX2_SPEAKERS), VOX2_PER_SPEAKER)
+    train = draw(rng.normal(size=(VOX2_SPEAKERS, VOX1O_D)), train_ids)
+    eval_spk = np.sort(rng.integers(0, VOX1O_SPEAKERS, VOX1O_UTTS))
+    evals = draw(rng.normal(size=(VOX1O_SPEAKERS, VOX1O_D)), eval_spk)
+    keys = [f"id{s:05d}-{i:05d}" for i, s in enumerate(eval_spk)]
+    half = VOX1O_TRIALS // 2
+    same = np.flatnonzero(eval_spk[:, None] == eval_spk[None, :])
+    diff = np.flatnonzero(eval_spk[:, None] != eval_spk[None, :])
+    n = VOX1O_UTTS
+    tar = rng.choice(same[same // n != same % n], half, replace=False)
+    non = rng.choice(diff, half, replace=False)
+    pairs = np.concatenate([tar, non])
+    labels = np.concatenate([np.ones(half, np.int64), np.zeros(half, np.int64)])
+    return train, train_ids, dict(zip(keys, evals)), [keys[i] for i in pairs // n], [keys[i] for i in pairs % n], \
+        labels
+
+
+def _fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def phase_backend(torch, device_label):
+    """The scoring back end at scale (see 13 above)."""
+    from asv_subtools_tpu_torch.backend import (PldaStats, ScoreConfig, ScoreSets, Trials, asnorm, asnorm_device,
+                                                cosine_score_matrix, estimate_plda)
+    from asv_subtools_tpu_torch.backend.plda import llr_matrix_device
+
+    dev = torch.device("cuda")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    zero_launches()
+
+    # 1. AS-norm at 600 x 970 against a 5,994-vector cohort, D=256
+    rng = np.random.default_rng(SEED + 90)
+    centroids = rng.normal(size=(400, BACKEND_D)).astype(np.float32)
+
+    def draw(n):
+        return (centroids[rng.integers(0, 400, n)] + 0.5 * rng.normal(size=(n, BACKEND_D))).astype(np.float32)
+
+    enroll, test, cohort = (torch.as_tensor(draw(n), device=dev) for n in (BACKEND_E, BACKEND_T, BACKEND_C))
+    raw, ec, tc = (cosine_score_matrix(a, b) for a, b in ((enroll, test), (enroll, cohort), (test, cohort)))
+    got = asnorm_device(raw, ec, tc, top_n=300)
+    torch.cuda.synchronize()
+    on_card = [m.device.type for m in (raw, ec, tc, got)]
+    finite = bool(torch.isfinite(got).all())
+    raw_h, ec_h, tc_h = (m.cpu().numpy() for m in (raw, ec, tc))
+    t0 = time.perf_counter()
+    want = asnorm(raw_h, ec_h, tc_h, top_n=300)
+    host_s = time.perf_counter() - t0
+    as_ok = bool(np.allclose(got.cpu().numpy(), want, rtol=2e-3, atol=2e-4))
+    as_err = float(np.abs(got.cpu().numpy() - want).max())
+    as_ms = device_ms(torch, lambda: asnorm_device(raw, ec, tc, top_n=300), n=10)
+    as_prof, as_seen = profiled_ms(torch, lambda: asnorm_device(raw, ec, tc, top_n=300), n=10)
+    cos_ms = device_ms(torch, lambda: (cosine_score_matrix(enroll, test), cosine_score_matrix(enroll, cohort),
+                                       cosine_score_matrix(test, cohort)), n=10)
+    print(f"backend asnorm_device: {BACKEND_E} x {BACKEND_T} = {BACKEND_E * BACKEND_T} trials, cohort {BACKEND_C}, "
+          f"D={BACKEND_D}, top 300, f32 on {got.device}: max abs err {as_err:.3e} against the f64 host asnorm "
+          f"(rtol 2e-3, atol 2e-4: {as_ok}); {as_ms:.3f} ms a call on the card (CUDA events, 10 back to back), "
+          f"{_fmt_ms(as_prof)} ms of kernels ({as_seen}), the three "
+          f"cosine matrices {cos_ms:.3f} ms; the f64 host asnorm {host_s * 1e3:.1f} ms; on {device_label}", flush=True)
+
+    # 2. the PLDA LLR matrix at 600 x 970, D=256, from a PLDA fitted on
+    # 200 speakers x 8 vectors, 5 EM iterations
+    prng = np.random.default_rng(SEED + 91)
+    pc = prng.normal(size=(200, BACKEND_D))
+    vecs = (pc[:, None, :] + 0.4 * prng.normal(size=(200, 8, BACKEND_D))).reshape(-1, BACKEND_D)
+    t0 = time.perf_counter()
+    plda = estimate_plda(PldaStats.from_vectors(vecs, np.repeat(np.arange(200), 8)), num_em_iters=5)
+    fit_s = time.perf_counter() - t0
+    llr = llr_matrix_device(plda, enroll, test)
+    torch.cuda.synchronize()
+    on_card.append(llr.device.type)
+    finite = finite and bool(torch.isfinite(llr).all())
+    e_h, t_h = enroll.cpu().numpy(), test.cpu().numpy()
+    t0 = time.perf_counter()
+    llr_want = plda.llr_matrix(e_h, t_h)
+    llr_host_s = time.perf_counter() - t0
+    llr_ok = bool(np.allclose(llr.cpu().numpy(), llr_want, rtol=2e-3, atol=2e-3))
+    llr_err = float(np.abs(llr.cpu().numpy() - llr_want).max())
+    llr_ms = device_ms(torch, lambda: llr_matrix_device(plda, enroll, test), n=10)
+    llr_prof, llr_seen = profiled_ms(torch, lambda: llr_matrix_device(plda, enroll, test), n=10)
+    print(f"backend llr_matrix_device: {BACKEND_E} x {BACKEND_T}, D={BACKEND_D}, f32 on {llr.device}: max abs err "
+          f"{llr_err:.3e} against the f64 Plda.llr_matrix on the whole matrix (max |llr| "
+          f"{float(np.abs(llr_want).max()):.1f}; rtol 2e-3, atol 2e-3: {llr_ok}); {llr_ms:.3f} ms a call on the card "
+          f"(CUDA events, 10 back to back), {_fmt_ms(llr_prof)} ms of kernels ({llr_seen}); the f64 host llr_matrix {llr_host_s * 1e3:.1f} ms, the PLDA fit "
+          f"(1,600 x {BACKEND_D}, 5 EM iterations) {fit_s:.2f} s; on {device_label}", flush=True)
+    del raw, ec, tc, got, llr
+
+    # 3. ScoreSets end to end at VoxCeleb1-O scale
+    train, train_ids, evals, e_keys, t_keys, labels = _vox1o_task(SEED + 92)
+    trials = Trials(e_keys, t_keys, labels)
+    rows = {}
+    for what, cfg, cohort_n in (
+            ("recipe", ScoreConfig(process="submean-norm", classifier="cosine", score_norm="asnorm", top_n=300), 3000),
+            ("plda", ScoreConfig(process="mean-lda-submean-whiten-norm", classifier="plda", lda_dim=128,
+                                 plda_iters=10), 0)):
+        t0 = time.perf_counter()
+        pipe = ScoreSets(cfg).fit(train, train_ids)
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = pipe.run(evals, evals, trials, cohort=train[:cohort_n] if cohort_n else None)
+        run_s = time.perf_counter() - t0
+        rows[what] = out
+        extra = ""
+        if cfg.classifier == "cosine":
+            keys = sorted(evals)
+            e, c = (torch.as_tensor(pipe.transform(v), dtype=torch.float32, device=dev)
+                    for v in (np.stack([evals[k] for k in keys]), train[:cohort_n]))
+            mats_ms = device_ms(torch, lambda: (cosine_score_matrix(e, e), cosine_score_matrix(e, c),
+                                                cosine_score_matrix(e, c)), n=10)
+            extra = (f"; the three cosine matrices ([{len(keys)}, {len(keys)}] and twice [{len(keys)}, {cohort_n}]) "
+                     f"{mats_ms:.3f} ms on the card (CUDA events, 10 back to back), {pipe.device_fetches} copies to "
+                     f"the host")
+            check(pipe.device_fetches == 3, f"ScoreSets made {pipe.device_fetches} copies, not 3")
+        print(f"backend ScoreSets {what} ({cfg.process}, {cfg.classifier}, score norm {cfg.score_norm}"
+              f"{', cohort %d' % cohort_n if cohort_n else ''}) at VoxCeleb1-O scale ({VOX1O_UTTS} eval vectors, "
+              f"D={VOX1O_D}, {len(labels)} trials, fit on {len(train)} vectors of {VOX2_SPEAKERS} speakers): fit "
+              f"{fit_s:.2f} s, scoring {run_s:.2f} s (host clock); EER {out['eer']:.4f}, minDCF(0.01) "
+              f"{out['min_dcf']:.4f} (not gated){extra}; on {device_label}", flush=True)
+    counts = read_launches("backend", ())
+    check(on_card == ["cuda"] * 5, f"a device function returned a tensor off the card: {on_card}")
+    check(finite, "a device result was not finite")
+    check(as_ok, f"asnorm_device is {as_err:.3e} from the f64 host asnorm (rtol 2e-3, atol 2e-4)")
+    check(llr_ok, f"llr_matrix_device is {llr_err:.3e} from the f64 Plda.llr_matrix (rtol 2e-3, atol 2e-3)")
+    check(all(np.isfinite(v) for out in rows.values() for v in out.values())
+          and all(out["num_trials"] == VOX1O_TRIALS for out in rows.values()),
+          "a ScoreSets metric was not finite, or not every trial was scored")
     return counts
 
 
@@ -1614,6 +1805,8 @@ def main() -> int:
     paths.append(phase_train_conformer(torch, smi))
     torch.cuda.empty_cache()
     paths.append(phase_recipe(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_backend(torch, smi))
     for kernel_name, k in kernels.items():
         k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

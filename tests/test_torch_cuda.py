@@ -38,6 +38,13 @@ report point, the epoch's end), counted under
 torch.cuda.set_sync_debug_mode("warn"); and spawn loader workers that
 compute host features (torch imported) while the parent holds the card:
 none sees the card or initialises CUDA, and none shows in nvidia-smi.
+
+The scoring back end's device functions (f32, TF32 off): asnorm_device at
+E=100, T=130 against a cohort of 600 (top 64) and at the scale of
+tests/test_backend_scale.py (600 x 970, cohort 5,994, top 300) against
+the f64 host asnorm at rtol 2e-3, atol 2e-4; llr_matrix_device at
+600 x 970, D=256, against the f64 Plda.llr_matrix at 2e-3; each result a
+tensor on the card.
 """
 
 import pytest
@@ -693,3 +700,43 @@ def test_spawn_workers_never_initialise_cuda(card, tmp_path):
     assert len(workers) == 2 and not workers & on_card
     assert batches and all(b["torch_imported"] and b["cuda_visible_devices"] == "" and not b["cuda_available"]
                            and not b["cuda_initialized"] for b in batches)
+
+
+@pytest.mark.parametrize("e,t,c,top_n", [(100, 130, 600, 64), (600, 970, 5994, 300)])
+def test_asnorm_device_on_the_card_matches_f64(card, e, t, c, top_n):
+    import numpy as np
+
+    from asv_subtools_tpu_torch.backend import asnorm, asnorm_device, cosine_score_matrix
+
+    rng = np.random.default_rng(0)
+    centroids = rng.normal(size=(400, 256)).astype(np.float32)
+
+    def draw(n):
+        return torch.as_tensor(centroids[rng.integers(0, 400, n)] + 0.5 * rng.normal(size=(n, 256)),
+                               dtype=torch.float32, device=card)
+
+    enroll, test, cohort = draw(e), draw(t), draw(c)
+    raw, ec, tc = cosine_score_matrix(enroll, test), cosine_score_matrix(enroll, cohort), cosine_score_matrix(test, cohort)
+    got = asnorm_device(raw, ec, tc, top_n=top_n)
+    assert got.device.type == "cuda" and got.dtype == torch.float32 and got.shape == (e, t)
+    want = asnorm(raw.cpu().numpy(), ec.cpu().numpy(), tc.cpu().numpy(), top_n=top_n)
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=2e-3, atol=2e-4)
+
+
+def test_llr_matrix_device_on_the_card_matches_f64(card):
+    import numpy as np
+
+    from asv_subtools_tpu_torch.backend import PldaStats, estimate_plda
+    from asv_subtools_tpu_torch.backend.plda import llr_matrix_device
+
+    rng = np.random.default_rng(1)
+    centroids = rng.normal(size=(200, 256))
+    vecs = (centroids[:, None, :] + 0.4 * rng.normal(size=(200, 8, 256))).reshape(-1, 256)
+    plda = estimate_plda(PldaStats.from_vectors(vecs, np.repeat(np.arange(200), 8)), num_em_iters=5)
+    enroll = (centroids[rng.integers(0, 200, 600)] + 0.5 * rng.normal(size=(600, 256))).astype(np.float32)
+    test = (centroids[rng.integers(0, 200, 970)] + 0.5 * rng.normal(size=(970, 256))).astype(np.float32)
+    counts = rng.integers(1, 4, 600)
+    for c in (None, counts):
+        got = llr_matrix_device(plda, enroll, test, c)
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        np.testing.assert_allclose(got.cpu().numpy(), plda.llr_matrix(enroll, test, c), rtol=2e-3, atol=2e-3)

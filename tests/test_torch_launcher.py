@@ -19,6 +19,7 @@ speakers, as in tests/test_launcher.py).
   the first step, under 7e-6 after it.
 * Options that are not ported raise NotImplementedError naming their
   ROADMAP item; without a card and without device="cpu" the Launcher raises.
+  Stage 3 (scoring) is tested in tests/test_torch_scoring.py.
 """
 
 import os
@@ -247,7 +248,7 @@ def test_unported_options_raise(corpus, tmp_path, change, item):
         launcher.train(egs)
 
 
-@pytest.mark.parametrize("method,item", [("find_lr", 4), ("score", 9), ("gather_results_from_epochs", 9)])
+@pytest.mark.parametrize("method,item", [("find_lr", 4)])
 def test_unported_stages_raise(corpus, tmp_path, method, item):
     launcher = Launcher(_params(corpus, str(tmp_path / "exp")), device="cpu")
     with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -281,8 +282,10 @@ def test_recipe_stages_0_to_2(corpus, tmp_path):
 
 
 def test_recipe_scoring_stage_raises(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        voxceleb.main(["--data", corpus, "--exp", str(tmp_path / "r"), "--trials", "trials", "--device", "cpu"])
+    """Stage 3 alone scores stage 2's ark/scp: without them it raises."""
+    with pytest.raises(FileNotFoundError, match="xvector_train.scp"):
+        voxceleb.main(["--data", corpus, "--exp", str(tmp_path / "r"), "--trials", "trials", "--stage", "3",
+                       "--channels", "16", "--device", "cpu"])
 
 
 def test_apply_preset_replaces_the_factories():

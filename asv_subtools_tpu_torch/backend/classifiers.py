@@ -8,7 +8,8 @@ LID). GMM EM is a vectorized array program (the Kaldi gmm-global-* binaries
 it replaces ran per-utterance loops).
 
 The port's own numpy copy of asv_subtools_tpu/backend/classifiers.py,
-behaviour unchanged.
+behaviour unchanged; ``train_logistic_regression(solver="lbfgs")`` adds a
+scipy solve of sklearn's objective for machines without sklearn.
 """
 
 from __future__ import annotations
@@ -31,14 +32,56 @@ def train_svm(
 
 
 def train_logistic_regression(
-    vectors: np.ndarray, labels: np.ndarray, c: float = 1.0
+    vectors: np.ndarray, labels: np.ndarray, c: float = 1.0, solver: str = "sklearn"
 ) -> "LinearClassifier":
-    """Multi-class logistic regression (the reference's "lr" classifier)."""
+    """Multi-class logistic regression (the reference's "lr" classifier).
+
+    ``solver="sklearn"`` is sklearn's LogisticRegression(C=c). ``"lbfgs"``
+    minimises the same objective with scipy's L-BFGS-B in float64, as
+    sklearn's lbfgs solver does (at most 1,000 iterations, the objective
+    over the sample count) but to a gradient tolerance of 1e-6 against
+    its 1e-4: C times the summed cross-entropy plus half the squared norm
+    of the weights (the intercept unpenalised), softmax over the classes,
+    or one logistic row for two classes.
+    """
+    if solver == "lbfgs":
+        return _lbfgs_logistic_regression(vectors, labels, c)
+    if solver != "sklearn":
+        raise ValueError(f"unknown solver {solver!r}")
     from sklearn.linear_model import LogisticRegression
 
     clf = LogisticRegression(C=c, max_iter=1000)
     clf.fit(vectors, labels)
     return LinearClassifier(clf.coef_, clf.intercept_, clf.classes_)
+
+
+def _lbfgs_logistic_regression(vectors: np.ndarray, labels: np.ndarray, c: float) -> "LinearClassifier":
+    from scipy.optimize import minimize
+    from scipy.special import log_softmax, softmax
+
+    x = np.asarray(vectors, np.float64)
+    classes, y = np.unique(labels, return_inverse=True)
+    n, d = x.shape
+    k = 1 if len(classes) == 2 else len(classes)
+    target = np.eye(len(classes))[y] if k > 1 else y[:, None].astype(np.float64)
+
+    def loss_grad(theta):
+        w, b = theta[:k * d].reshape(k, d), theta[k * d:]
+        z = x @ w.T + b
+        if k > 1:
+            loss = -(target * log_softmax(z, axis=1)).sum()
+            err = softmax(z, axis=1) - target
+        else:  # binary: log(1 + exp(-s z)) with s = +-1
+            sgn = 2.0 * target - 1.0
+            loss = np.logaddexp(0.0, -sgn * z).sum()
+            err = -sgn / (1.0 + np.exp(sgn * z))
+        f = c * loss + 0.5 * (w * w).sum()
+        grad = np.concatenate([(c * err.T @ x + w).ravel(), c * err.sum(0)])
+        return f / n, grad / n
+
+    res = minimize(loss_grad, np.zeros(k * (d + 1)), jac=True, method="L-BFGS-B",
+                   options={"maxiter": 1000, "gtol": 1e-6, "ftol": 64 * np.finfo(float).eps})
+    return LinearClassifier(res.x[:k * d].reshape(k, d), res.x[k * d:], classes)
 
 
 @dataclasses.dataclass

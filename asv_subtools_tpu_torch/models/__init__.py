@@ -2,6 +2,7 @@ from .conformer import ConformerXvector
 from .ecapa import EcapaAttentiveStatsPool, EcapaTdnn, Res2NetBlock, SEConnect, SERes2Block
 from .framework import SpeakerNet, chunk_utterance, l2_norm
 from .resnet_xvector import ResNetXvector
+from .xvector import ExtendedXvector, FactoredXvector, SnowdarXvector, Xvector
 
 
 def _not_ported(name: str):
@@ -16,21 +17,27 @@ MODELS = {
     "ecapa_tdnn": EcapaTdnn,
     "resnet_xvector": ResNetXvector,
     "conformer_xvector": ConformerXvector,
-    **{name: _not_ported(name) for name in (
-        "xvector", "snowdar_xvector", "extended_xvector", "factored_xvector", "ecapa_lawlict", "repvgg_xvector",
-        "multi_task_xvector", "fd_xvector")},
+    "xvector": Xvector,
+    "snowdar_xvector": SnowdarXvector,
+    "extended_xvector": ExtendedXvector,
+    "factored_xvector": FactoredXvector,
+    **{name: _not_ported(name) for name in ("ecapa_lawlict", "repvgg_xvector", "multi_task_xvector", "fd_xvector")},
 }
 
 __all__ = [
     "ConformerXvector",
     "EcapaAttentiveStatsPool",
     "EcapaTdnn",
+    "ExtendedXvector",
+    "FactoredXvector",
     "MODELS",
     "Res2NetBlock",
     "ResNetXvector",
     "SEConnect",
     "SERes2Block",
+    "SnowdarXvector",
     "SpeakerNet",
+    "Xvector",
     "chunk_utterance",
     "l2_norm",
 ]

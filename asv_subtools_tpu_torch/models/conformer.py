@@ -9,7 +9,8 @@ throughout; module and parameter names follow the flax modules, so
 weights.py maps a JAX variable tree onto this state_dict by rule.
 
 ``transformer_type`` "conformer" only: "transformer" and "re_conformer"
-raise ``NotImplementedError``, as do poolings the port lacks.
+raise ``NotImplementedError``. Any pooling of the zoo (nn/pooling.py)
+may stand in for the attentive one.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from torch import nn
 from ..device import resolve_device
 from ..nn.conformer import ConformerEncoder
 from ..nn.norm import LayerNorm
-from ..nn.pooling import POOLINGS
+from ..nn.pooling import build_pooling
 from .ecapa import EcapaAttentiveStatsPool
 
 
@@ -76,7 +77,7 @@ class ConformerXvector(nn.Module):
                                                  norm_type=pp.get("norm_type", "layer_norm"))
             stats_dim = 2 * out_dim
         else:
-            self.stats = POOLINGS[pooling](**pp)
+            self.stats = build_pooling(pooling, out_dim, pp)
             stats_dim = self.stats.output_dim(out_dim)
         self.bn_stats = LayerNorm(stats_dim)
         self.fc2_affine = nn.Linear(stats_dim, embd_dim)

@@ -19,7 +19,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn.norm import BatchNorm
-from ..nn.pooling import POOLINGS
+from ..nn.pooling import build_pooling
 from ..nn.resnet import ResNet
 
 
@@ -34,7 +34,7 @@ class _EmbeddingHead(nn.Module):
     def __init__(self, input_dim: int, embd_dim: int = 512, pooling: str = "statistics",
                  pooling_params: Optional[dict] = None, fc1: bool = False, momentum: float = 0.5):
         super().__init__()
-        self.stats = POOLINGS[pooling](**(pooling_params or {}))
+        self.stats = build_pooling(pooling, input_dim, pooling_params)
         dim = self.stats.output_dim(input_dim)
         self.has_fc1 = fc1
         if fc1:

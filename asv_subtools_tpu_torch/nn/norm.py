@@ -4,7 +4,9 @@ BatchNorm's features sit on dim 1 (``[B, C]`` or ``[B, C, T]``), the
 layout the port's model holds; a ``[B, T]`` mask (True = valid) keeps padded frames
 out of the batch statistics, which is why ``torch.nn.BatchNorm1d`` cannot
 stand in for it. Parameters and buffers keep the flax names (``scale``,
-``bias``, ``mean``, ``var``) so weights map one to one.
+``bias``, ``mean``, ``var``) so weights map one to one. ``use_scale`` and
+``use_bias`` off (the snowdar x-vectors' non-affine BN) leave the module
+without that parameter at all, as flax's does.
 
 Train mode (``module.training``) normalises with the masked batch
 statistics, in at least float32 and in the JAX module's one-pass form
@@ -31,19 +33,26 @@ def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    def __init__(self, features: int, epsilon: float = 1e-5, momentum: float = 0.1):
+    def __init__(self, features: int, epsilon: float = 1e-5, momentum: float = 0.1, use_scale: bool = True,
+                 use_bias: bool = True):
         super().__init__()
         self.epsilon = epsilon
         self.momentum = momentum
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.use_scale, self.use_bias = use_scale, use_bias
+        if use_scale:
+            self.scale = nn.Parameter(torch.ones(features))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
     def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(scale', shift') in f32 with y = x * scale' + shift'."""
-        s = _at_least_f32(self.scale) * torch.rsqrt(_at_least_f32(self.var) + self.epsilon)
-        return s, _at_least_f32(self.bias) - _at_least_f32(self.mean) * s
+        s = torch.rsqrt(_at_least_f32(self.var) + self.epsilon)
+        if self.use_scale:
+            s = _at_least_f32(self.scale) * s
+        shift = -_at_least_f32(self.mean) * s
+        return s, shift + _at_least_f32(self.bias) if self.use_bias else shift
 
     def _batch_stats(self, xf: torch.Tensor, mask: Optional[torch.Tensor]):
         """(mean, biased var, count / max(count - 1, 1)) over every dim but
@@ -81,7 +90,11 @@ class BatchNorm(nn.Module):
             self.mean = ((1 - m) * self.mean + m * mean).to(self.mean.dtype)
             self.var = ((1 - m) * self.var + m * unbiased).to(self.var.dtype)
         y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.epsilon)
-        return (y * self.scale.view(shape) + self.bias.view(shape)).to(x.dtype)
+        if self.use_scale:
+            y = y * self.scale.view(shape)
+        if self.use_bias:
+            y = y + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class LayerNorm(nn.Module):

@@ -4,7 +4,7 @@ harmonics of random phase, plus white noise), as the JAX package's launcher
 test builds them (tests/test_launcher.py). numpy only; seeded."""
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -14,16 +14,21 @@ SR = 16000
 
 
 def write_corpus(root: str, num_spks: int = 4, train_per_spk: int = 6, eval_per_spk: int = 2,
-                 dur: Tuple[float, float] = (1.2, 2.2), eval_dur: Tuple[float, float] = None, seed: int = 7) -> str:
-    """Write ``root``/train/{wav.scp,utt2spk} and ``root``/eval/{wav.scp,utt2spk}
-    over wavs in ``root``/wav: per speaker ``train_per_spk`` utterances of
-    ``dur`` seconds (uniform) and ``eval_per_spk`` of ``eval_dur`` (default
-    ``dur``). Keys are ``s<spk>-u<i>``. ``root``/eval/trials (Kaldi
-    "enroll test target|nontarget" lines) holds every pair of eval
-    utterances of one speaker and as many pairs of two speakers, drawn
-    from ``seed`` without repeats. Returns ``root``."""
+                 dur: Tuple[float, float] = (1.2, 2.2), eval_dur: Tuple[float, float] = None, seed: int = 7,
+                 num_langs: Optional[int] = None) -> str:
+    """Write ``root``/train/{wav.scp,utt2spk,utt2lang} and
+    ``root``/eval/{wav.scp,utt2spk,utt2lang} over wavs in ``root``/wav: per
+    speaker ``train_per_spk`` utterances of ``dur`` seconds (uniform) and
+    ``eval_per_spk`` of ``eval_dur`` (default ``dur``). Keys are
+    ``s<spk>-u<i>``. utt2lang serves the corpus as a language set: speaker
+    s speaks language ``lang<s % num_langs>`` (by default one language a
+    speaker). ``root``/eval/trials (Kaldi "enroll test target|nontarget"
+    lines) holds every pair of eval utterances of one speaker and as many
+    pairs of two speakers, drawn from ``seed`` without repeats. Returns
+    ``root``."""
+    num_langs = num_langs or num_spks
     rng = np.random.default_rng(seed)
-    lines = {"train": ([], []), "eval": ([], [])}
+    lines = {"train": ([], [], []), "eval": ([], [], [])}
     os.makedirs(os.path.join(root, "wav"), exist_ok=True)
     for spk in range(num_spks):
         f0 = 80.0 + 60.0 * spk
@@ -38,12 +43,12 @@ def write_corpus(root: str, num_spks: int = 4, train_per_spk: int = 6, eval_per_
             write_wav(path, wav, SR)
             lines[subset][0].append(f"{key} {path}")
             lines[subset][1].append(f"{key} spk{spk:02d}")
-    for subset, (wav_lines, spk_lines) in lines.items():
+            lines[subset][2].append(f"{key} lang{spk % num_langs:02d}")
+    for subset, (wav_lines, spk_lines, lang_lines) in lines.items():
         os.makedirs(os.path.join(root, subset), exist_ok=True)
-        with open(os.path.join(root, subset, "wav.scp"), "w") as f:
-            f.write("\n".join(wav_lines) + "\n")
-        with open(os.path.join(root, subset, "utt2spk"), "w") as f:
-            f.write("\n".join(spk_lines) + "\n")
+        for name, rows in (("wav.scp", wav_lines), ("utt2spk", spk_lines), ("utt2lang", lang_lines)):
+            with open(os.path.join(root, subset, name), "w") as f:
+                f.write("\n".join(rows) + "\n")
     eval_keys = [line.split()[0] for line in lines["eval"][0]]
     pairs = [(a, b) for i, a in enumerate(eval_keys) for b in eval_keys[i + 1:]]
     target = [(a, b) for a, b in pairs if a.split("-")[0] == b.split("-")[0]]

@@ -2,10 +2,12 @@
 and type, and the distance between two such steps leaf by leaf.
 
 The nets (shared by chip_smoke.py and tests/test_torch_cuda.py): ECAPA-TDNN
-(:func:`ecapa_net`), the ResNet x-vector (:func:`resnet_net`) and the
-Conformer x-vector (:func:`conformer_net`), each in a SpeakerNet with a
-margin head over 5994 classes and seeded random weights; full width by
-default, as ``bench.py:58-90`` trains them.
+(:func:`ecapa_net`), the ResNet x-vector (:func:`resnet_net`), the
+Conformer x-vector (:func:`conformer_net`) and the TDNN x-vectors
+(:func:`xvector_net`: SnowdarXvector 512/512 or FactoredXvector width 1.0,
+recipes/configs/{snowdar,factored}_xvector.yaml), each in a SpeakerNet
+with a margin head over 5994 classes and seeded random weights; full
+width by default, as ``bench.py:58-90`` trains them.
 
 The case of the train step's card-against-CPU checks (chip_smoke.py, the
 card tests and tools/train_step_conditioning.py): a narrow net of one
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from ..features import FbankOptions, MelOptions, wave_features
-from ..models import ConformerXvector, EcapaTdnn, ResNetXvector, SpeakerNet
+from ..models import ConformerXvector, EcapaTdnn, FactoredXvector, ResNetXvector, SnowdarXvector, SpeakerNet
 from ..weights import init_weights_
 from .trainer import TrainStepConfig, init_train_state, make_train_step
 from .optim import sgd
@@ -55,6 +57,9 @@ ZERO_GRAD = "backbone.stats.att2.bias"
 # card's generator draws other masks than the CPU's
 NARROW_CONFORMER = dict(num_blocks=2, attention_dim=64, attention_heads=2, linear_units=128, dropout_rate=0.0)
 NARROW_RESNET = dict(layers=(1, 1, 1, 1), base_planes=8)
+# recipes/configs/{snowdar,factored}_xvector.yaml: AM m=0.2
+AM = ("margin_softmax", {"method": "am", "m": 0.2})
+NARROW_FTDNN = dict(width=0.125, embd_dim=128)
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -98,11 +103,25 @@ def conformer_net(head=AAM, seed: int = 0, **backbone: Any) -> SpeakerNet:
     return init_weights_(net, seed)
 
 
+def xvector_net(family: str = "snowdar", head=AM, seed: int = 0, **backbone: Any) -> SpeakerNet:
+    """SpeakerNet(SnowdarXvector(80 bins, 512 channels, embedding 512)) or,
+    for ``family="ftdnn"``, SpeakerNet(FactoredXvector(80 bins, width 1.0,
+    embedding 512)), with ``backbone`` over those, ``head`` over 5994
+    classes and seeded random weights, in f32 on the CPU."""
+    if family == "ftdnn":
+        model = FactoredXvector(80, device="cpu", **{"width": 1.0, "embd_dim": 512, **backbone})
+    else:
+        model = SnowdarXvector(80, device="cpu", **{"num_frame_channels": 512, "embd_dim": 512, **backbone})
+    return init_weights_(SpeakerNet(model, *head, num_targets=NUM_TARGETS), seed)
+
+
 def narrow_net(family: str) -> Callable[..., SpeakerNet]:
     """``make_net`` of the card-against-CPU step for ``family`` ("ecapa",
-    "resnet" or "conformer"): the narrow net of that family."""
+    "resnet", "conformer" or "ftdnn"): the narrow net of that family."""
     if family == "ecapa":
         return ecapa_net
+    if family == "ftdnn":
+        return lambda head=AAM, seed=0: xvector_net("ftdnn", head, seed, **NARROW_FTDNN)
     make, kw = {"resnet": (resnet_net, NARROW_RESNET), "conformer": (conformer_net, NARROW_CONFORMER)}[family]
     return lambda head=AAM, seed=0: make(head, seed, **kw)
 
@@ -115,15 +134,17 @@ class StepResult:
 
 
 def sgd_step(device: Any, dtype: torch.dtype, x: torch.Tensor, y: torch.Tensor, head=SUBCENTER_TOPK,
-             seed: int = 0, wave_input: bool = False, make_net: Callable[..., Any] = ecapa_net) -> StepResult:
+             seed: int = 0, wave_input: bool = False, make_net: Callable[..., Any] = ecapa_net,
+             use_semi_orth: bool = False) -> StepResult:
     """One SGD step (lr 0.1) of ``make_net(head, seed)`` (the narrow ECAPA
     by default) on ``device`` in ``dtype``, on waves (``wave_input``: the
     front end runs in the step, the fbank kernel on a card) or on
-    features."""
+    features. The step is step 0: with ``use_semi_orth`` it applies the
+    semi-orthogonal update (0 % 4 == 0)."""
     net = make_net(head, seed).to(torch.float64 if dtype == torch.float64 else torch.float32)
     tx = sgd(0.1)
     state = init_train_state(net, tx, device)
-    config = TrainStepConfig(compute_dtype=dtype, wave_input=wave_input, fbank_opts=OPTS)
+    config = TrainStepConfig(compute_dtype=dtype, wave_input=wave_input, fbank_opts=OPTS, use_semi_orth=use_semi_orth)
     step = make_train_step(net, tx, config=config)
     x = x.to(device) if wave_input else x.to(device, dtype)
     new, m = step(state, {"x": x, "y": y.to(device)}, torch.Generator(device=device).manual_seed(0))

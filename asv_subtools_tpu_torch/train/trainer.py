@@ -15,6 +15,9 @@ forward in the compute type, the loss, the backward, the global-norm clip
 * ``accum_grad`` microbatches run one after another; the BN running
   statistics chain from one to the next, gradients, loss and accuracy
   are averaged.
+* ``use_semi_orth`` keeps the F-TDNN's ``factor1`` weights
+  semi-orthogonal: the update of nn/tdnn.py on every fourth step (the
+  step counter on the device picks it).
 * A non-finite loss or gradient norm keeps the old weights, optimizer
   state and BN statistics through ``torch.where`` on the device; the step
   counter advances all the same. No metric leaves the device: the step
@@ -41,6 +44,7 @@ from ..features.config import FbankOptions
 from ..features.fused_fbank import wave_features
 from ..nn.loss import MarginWarm, cross_entropy
 from ..nn.loss import accuracy as compute_accuracy
+from ..nn.tdnn import is_semi_orth_weight, semi_orth_update
 from .optim import GradientTransformation
 
 Tensors = Dict[str, torch.Tensor]
@@ -72,8 +76,11 @@ class TrainStepConfig:
     # > 0: the net gets warmup = step / model_warmup_steps (a device
     # tensor), which the Conformer's blocks blend by (JAX trainer.py:87-90)
     model_warmup_steps: int = 0
-    # the JAX step's options the port does not carry yet: setting one raises
+    # the F-TDNN's semi-orthogonal step on every factor1 weight of the
+    # masters, after the update, on the steps where step % 4 == 0 (JAX
+    # trainer.py:340-347); chosen on the device, the step never waits
     use_semi_orth: bool = False
+    # the JAX step's options the port does not carry yet: setting one raises
     mixup_alpha: float = 0.0
     remat: Optional[str] = None
 
@@ -135,7 +142,7 @@ def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Opt
     skipped (1.0 on a kept state) and, given ``lr_schedule``, lr at the
     state's step times lr_scale; all 0-dim tensors on the device.
     """
-    for name, off in (("use_semi_orth", False), ("mixup_alpha", 0.0), ("remat", None)):
+    for name, off in (("mixup_alpha", 0.0), ("remat", None)):
         if getattr(config, name) != off:
             raise NotImplementedError(f"TrainStepConfig.{name} is not ported yet")
     opts = config.fbank_opts or FbankOptions()
@@ -195,6 +202,10 @@ def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Opt
         new_params = dict(zip(names, torch._foreach_add([state.params[k] for k in names],
                                                          torch._foreach_mul([updates[k] for k in names],
                                                                             lr_scale))))
+        if config.use_semi_orth:
+            on = state.step % 4 == 0
+            new_params = {k: torch.where(on, semi_orth_update(v), v) if is_semi_orth_weight(k, v) else v
+                          for k, v in new_params.items()}
         if config.skip_nonfinite:
             new_params = _keep(finite, new_params, state.params)
             opt_state = _keep(finite, opt_state, state.opt_state)

@@ -13,13 +13,18 @@ port's modules carry the flax module names, so each leaf maps by rule:
   (``[1, C, K]``, the attentive pooling without time attention) takes the
   1-D conv rule; the two are told apart by the width of the pooling's
   ``att2`` kernel ``[1, K, C]`` beside it;
-* ``bias``, BN and LayerNorm ``scale`` (params) and ``mean``, ``var``
-  (batch_stats) map one to one; so do the margin losses' classifier
+* ``bias``, BN, LayerNorm and GroupNorm ``scale`` (params) and ``mean``,
+  ``var`` (batch_stats) map one to one; so do the margin losses' classifier
   ``loss/weight`` (``[C * sub_k, D]``), their ring radius ``ring_r``, the
-  curricular statistic ``curricular_t`` (batch_stats) and the relative
-  attention's ``pos_bias_u`` and ``pos_bias_v`` (``[H, Dh]``). The
-  Conformer's depthwise conv kernel ``[k, 1, D]`` takes the 1-D conv rule
-  (``[D, 1, k]``, one group per channel).
+  curricular statistic ``curricular_t`` (batch_stats), the relative
+  attention's ``pos_bias_u`` and ``pos_bias_v`` (``[H, Dh]``), the LDE
+  pooling's ``mu`` (``[D, C]``) and ``s``, the xi-vector pooling's
+  ``prior_mean`` and ``prior_logprec`` and the attention's learnable
+  temperatures ``t``. A grouped 1-D conv kernel ``[k, in/groups, out]``
+  and the Conformer's depthwise kernel ``[k, 1, D]`` take the 1-D conv
+  rule (``[out, in/groups, k]``); the Dense of a TDNN layer with an
+  irregular context (``affine/affine/kernel``, ``[len(ctx) * in, out]``)
+  takes the Dense rule. A non-affine BatchNorm has no params to map.
 
 A whole train state crosses too (:func:`train_state_from_variables` and
 :func:`train_state_to_variables`): the step, the ``SpeakerNet`` params,
@@ -29,7 +34,7 @@ the batch_stats and the optimizer state, whose moment trees (optax's
 Every leaf is consumed exactly once; a leaf no rule takes raises, and
 :func:`load_variables` raises on any port parameter left unset. The rules
 hold for every ported family (ECAPA-TDNN, ResNet x-vector, Conformer
-x-vector); the ``*ecapa*`` names are the original ones and stay as
+x-vector, the TDNN x-vectors); the ``*ecapa*`` names are the original ones and stay as
 aliases.
 """
 
@@ -47,7 +52,8 @@ from .device import resolve_device
 from .train.trainer import TrainState
 
 _SPLIT_CONV = "att1"
-_ONE_TO_ONE_PARAMS = ("bias", "scale", "ring_r", "pos_bias_u", "pos_bias_v")
+_ONE_TO_ONE_PARAMS = ("bias", "scale", "ring_r", "pos_bias_u", "pos_bias_v", "mu", "s", "prior_mean",
+                      "prior_logprec", "t")
 _STATS = ("mean", "var", "curricular_t")
 _MARGIN_LOSS = "loss"  # SpeakerNet's head: its "weight" is no Dense kernel
 
@@ -156,7 +162,8 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights in the flax initialisers' scale: kernels
     normal with std 1/sqrt(fan_in) (lecun), biases 0, norm scales 1, the
     relative attention's ``pos_bias_*`` uniform in +-sqrt(6 / (H + Dh))
-    (xavier)."""
+    (xavier), the LDE centres ``mu`` standard normal and its ``s`` 1, the
+    xi-vector prior and the learnable temperatures 0."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -167,8 +174,12 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
                 p.copy_(w.to(device=p.device, dtype=p.dtype))
             elif leaf == "bias":
                 p.zero_()
-            elif leaf == "scale":
+            elif leaf in ("scale", "s"):
                 p.fill_(1.0)
+            elif leaf == "mu":
+                p.copy_(torch.randn(p.shape, generator=gen).to(device=p.device, dtype=p.dtype))
+            elif leaf in ("prior_mean", "prior_logprec", "t"):
+                p.zero_()
             elif leaf in ("pos_bias_u", "pos_bias_v"):
                 limit = math.sqrt(6.0 / sum(p.shape))
                 p.copy_(((torch.rand(p.shape, generator=gen) * 2 - 1) * limit).to(device=p.device, dtype=p.dtype))

@@ -47,8 +47,8 @@ Phases (any failure raises and the script exits non-zero):
      statistics pooling on, held against the same model with the flag off
      fed by the plain front end and against an f32 model on the f32 plain
      front end; timed with the flag on and off; one batch profiled; then the Extractor run as in 6.
-     The launch counters are zeroed just before each of the eight main
-     paths (6 to 13) drives the port and read just after; every kernel
+     The launch counters are zeroed just before each of the eleven main
+     paths (6 to 16) drives the port and read just after; every kernel
      of a path must have been launched in it.
   8. the train step of ECAPA-TDNN C1024 (SpeakerNet with the sub-centre
      top-k AAM head over 5994 classes, seeded random weights, bf16
@@ -146,7 +146,38 @@ Phases (any failure raises and the script exits non-zero):
      three cosine matrices. Fails on a missed tolerance, a result that is
      not finite, or a device result off the card. No kernel runs here (the
      counters are read to show it).
- 14. a "kernels" JSON line, then the device JSON as the last line.
+ 14. the TDNN x-vectors served at full width (recipes/configs/
+     snowdar_xvector.yaml: SnowdarXvector 512/512, 1500-channel pooling;
+     factored_xvector.yaml: FactoredXvector width 1.0, 2048 channels;
+     seeded random weights, bf16) behind make_wave_embed_fn on one
+     [128, 160000] batch, the statistics pooling fused (K4) and unfused,
+     each held against the unfused bf16 model on the plain front end
+     (0.9999) and an f32 model on the f32 plain front end (0.999), and
+     each fused model through the Extractor as in 6; after the counted
+     window, ms/batch fused and unfused in turns, one batch profiled, and
+     K4 on each model's own pooling input (a [B, T, D] view of [B, D, T]
+     memory): its route, against its plain version (phase 5's tolerance),
+     its time beside its bound, the wrapper's copy of x alone, the kernel
+     on a packed copy, torch.std_mean and the plain version.
+ 15. the train steps of the same two models on their configurations (AM
+     m=0.2 over 5994 classes, SGD 1e-2 on warmR, momentum 0.9 for the
+     snowdar one, use_semi_orth for the F-TDNN), as in 9 (B=128 x 2 s,
+     bf16 on f32 masters, K1 in the step, 30 steps under the sync check,
+     the last loss below the first), the F-TDNN's semi-orthogonal
+     objective of layer02's factor1 after steps 0, 4, 8, ... (it must
+     fall at step 0); then a narrow F-TDNN's (width 0.125) f32 and f64
+     steps with use_semi_orth over step 0, card against CPU, with 8's
+     bounds.
+ 16. the OLR language-identification recipe's stages 0-3 through
+     asv_subtools_tpu_torch.recipes.olr (extended_xvector width 512, AM
+     m=0.2, SGD 1e-2 on warmR, 3.0 s chunks, B=256, host fbank) on a
+     synthetic corpus of 10 languages (128 training utterances of
+     2.5-4.0 s each, 8 evaluation ones), two epochs; stage 3's logistic
+     regression by the lbfgs solver (scipy: the script needs no sklearn). Per
+     epoch ms/step, the host's wait, loss and accuracy; the extraction;
+     Cavg and EER% (not gated). Checks: finite losses, the ark/scp read
+     back, a finite Cavg, and no kernel launched (the counters read).
+ 17. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
 line) is device time over many launches back to back: one CUDA event, N
@@ -1011,15 +1042,17 @@ def _card_against_cpu(torch, family: str = "ecapa"):
     make = narrow_net(family)
     head = SUBCENTER_TOPK if family == "ecapa" else AAM
     what = {"ecapa": "SpeakerNet ECAPA C256", "resnet": "SpeakerNet ResNet base8 1-1-1-1",
-            "conformer": "SpeakerNet Conformer 2L-64D-2H, dropout 0"}[family]
+            "conformer": "SpeakerNet Conformer 2L-64D-2H, dropout 0",
+            "ftdnn": "SpeakerNet F-TDNN width 0.125, use_semi_orth over step 0 (0 % 4 == 0)"}[family]
+    semi = family == "ftdnn"
     wave, y = modulated_waves(8, SEED + 30)
     feats, seed = plain_features(wave), SEED + 32
-    ref = sgd_step("cpu", torch.float64, feats, y, head, seed, make_net=make)
+    ref = sgd_step("cpu", torch.float64, feats, y, head, seed, make_net=make, use_semi_orth=semi)
     before = fused_fbank.launches
-    card = sgd_step("cuda", torch.float32, wave, y, head, seed, wave_input=True, make_net=make)
+    card = sgd_step("cuda", torch.float32, wave, y, head, seed, wave_input=True, make_net=make, use_semi_orth=semi)
     check(fused_fbank.launches == before + 1 and fused_fbank.last_route == "cuda_core",
           "the f32 step on the card did not run K1's f32 kernel once")
-    cpu = sgd_step("cpu", torch.float32, wave, y, head, seed, wave_input=True, make_net=make)
+    cpu = sgd_step("cpu", torch.float32, wave, y, head, seed, wave_input=True, make_net=make, use_semi_orth=semi)
     e_loss = rel(card.metrics["loss"], cpu.metrics["loss"])
     e_grad = rel(card.metrics["grad_norm"], cpu.metrics["grad_norm"])
     leaf = {d: worst_leaf(r.updates, ref.updates) for d, r in (("card", card), ("CPU", cpu))}
@@ -1047,7 +1080,8 @@ def _card_against_cpu(torch, family: str = "ecapa"):
     # the card computes what it computes on the CPU, leaf by leaf. The head
     # is the AAM margin softmax, float64 throughout: the sub-centre head
     # computes in float32 whatever its input (as the JAX one does)
-    card, cpu = (sgd_step(d, torch.float64, feats, y, AAM, seed, make_net=make) for d in ("cuda", "cpu"))
+    card, cpu = (sgd_step(d, torch.float64, feats, y, AAM, seed, make_net=make, use_semi_orth=semi)
+                 for d in ("cuda", "cpu"))
     e, k, _ = worst_leaf(card.updates, cpu.updates)
     e_stats = worst_stat(card.batch_stats, cpu.batch_stats)[0] if cpu.batch_stats else 0.0
     e_grad = rel(card.metrics["grad_norm"], cpu.metrics["grad_norm"])
@@ -1061,7 +1095,7 @@ def _card_against_cpu(torch, family: str = "ecapa"):
 
 
 def run_fixed_batch(torch, step, state, batch, gen, what: str, path: str, device_label: str,
-                    falls_to: float) -> dict:
+                    falls_to: float, opt: str = "adamW", watch=None) -> dict:
     """30 steps of ``step`` on one fixed batch from ``state``, queued back to
     back, none of them allowed to wait on the card (no_host_sync: the host
     queues steps ahead of the card, as a training loop does). The first step
@@ -1069,18 +1103,22 @@ def run_fixed_batch(torch, step, state, batch, gen, what: str, path: str, device
     and read just after. Prints the median ms/step of 20 steps between CUDA
     events after 3 warm-up steps, audio-s/s, the host's time to queue a step
     and the peak memory; profiles one step; requires every loss finite,
-    none skipped and the last loss under ``falls_to`` times the first."""
+    none skipped and the last loss under ``falls_to`` times the first.
+    ``watch(i, state)``, if given, runs after step i (0-based) outside the
+    timed events and must not wait on the card either."""
     b, samples = batch["x"].shape
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     with no_host_sync(torch):
         state, m = step(state, batch, gen)
+        if watch is not None:
+            watch(0, state)
     torch.cuda.synchronize()
     counts = read_launches(path, ("fused_fbank",))
     check(counts["fused_fbank"] == 1, f"K1 launched {counts['fused_fbank']} times in one step")
     metrics, events, host_ms = [m], [], []
-    for _ in range(29):
+    for i in range(1, 30):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         with no_host_sync(torch):
@@ -1088,6 +1126,9 @@ def run_fixed_batch(torch, step, state, batch, gen, what: str, path: str, device
             state, m = step(state, batch, gen)
             end.record()
         host_ms.append((time.perf_counter() - t0) * 1e3)
+        if watch is not None:
+            with no_host_sync(torch):
+                watch(i, state)
         metrics.append(m)
         events.append((start, end))
     torch.cuda.synchronize()
@@ -1095,7 +1136,7 @@ def run_fixed_batch(torch, step, state, batch, gen, what: str, path: str, device
     ms = float(np.median([s.elapsed_time(e) for s, e in events[2:22]]))
     host = float(np.median(host_ms[2:22]))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"{what} [{b},{samples}] adamW: {ms:.2f} ms/step (median of 20 between CUDA events, steps queued back to "
+    print(f"{what} [{b},{samples}] {opt}: {ms:.2f} ms/step (median of 20 between CUDA events, steps queued back to "
           f"back after 3 warm-up steps), {b * samples / 16000.0 / (ms / 1e3):.0f} audio-s/s; the host {host:.2f} ms "
           f"to queue a step (median); no step waited on the card; K1 launches per step {counts['fused_fbank']}; "
           f"peak memory {peak:.2f} GiB on {device_label}", flush=True)
@@ -1770,6 +1811,241 @@ def phase_backend(torch, device_label):
     return counts
 
 
+# The TDNN x-vectors (recipes/configs/{snowdar,factored}_xvector.yaml):
+# SnowdarXvector 512/512 pools 1500 channels, the F-TDNN at width 1.0 2048
+XVECTORS = (("SnowdarXvector 512/512", "snowdar", 1500), ("FactoredXvector width 1.0", "ftdnn", 2048))
+
+
+def _k4_on_the_model(torch, x, m, label: str) -> None:
+    """K4 on the pooling input the served model hands over (a [B, T, D]
+    view of [B, D, T] bf16 memory): its route, against its plain version,
+    and its time beside its bound, the wrapper's copy of x alone, the kernel
+    on a packed copy, torch.std_mean on the view and the plain version."""
+    from asv_subtools_tpu_torch.nn import fused_stats_pooling, fused_stats_pooling_plain
+
+    b, t, d = x.shape
+    k = fused_stats_pooling(x, m)
+    route = fused_stats_pooling.last_route
+    xc = x.contiguous()
+    p = fused_stats_pooling_plain(xc, m)
+    torch.cuda.synchronize()
+    err = max_abs(k, p)
+    rtol, atol = 1e-4, 1e-5  # phase 5's: both sides sum the same values in f32
+    print(f"x-vector K4 bf16 [{b},{t},{d}] ({label}'s pooling input, a [B, T, D] view with strides "
+          f"{tuple(x.stride())}): route {route}, max abs err vs plain {err:.3e} (rtol {rtol}, atol {atol})", flush=True)
+    check(close(torch, k, p, atol, rtol) and tuple(k.shape) == (b, 2 * d),
+          f"K4 disagrees with its plain version on the {label} pooling input")
+
+    def run_lib():
+        std, mean = torch.std_mean(x, dim=1, correction=0)
+        return mean, std
+
+    runs = {"wrapper on the view (copy + kernel)": lambda: fused_stats_pooling(x, m),
+            "copy of x alone (.contiguous())": lambda: x.contiguous(),
+            "kernel on a packed copy": lambda: fused_stats_pooling(xc, m),
+            "torch.std_mean on the view": run_lib,
+            "plain version": lambda: fused_stats_pooling_plain(x, m)}
+    nbytes = x.element_size() * x.numel() + b * t + 4 * 2 * b * d
+    bound, by = bound_ms(nbytes, 4.0 * b * t * d, peak="f32")
+    copy_bound, _ = bound_ms(2 * x.element_size() * x.numel(), 0.0)
+    for name, fn in runs.items():
+        prof, seen = profiled_ms(torch, fn)
+        back = device_ms(torch, fn, n=20)
+        prof_s = "not measured" if prof is None else f"{prof:.4f}"
+        print(f"x-vector K4 bf16 [{b},{t},{d}] {name} (ms): kernels' device durations {prof_s} ({seen}), "
+              f"20 launches back to back {back:.4f}", flush=True)
+    print(f"x-vector K4 bf16 [{b},{t},{d}] bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB); the copy's bound "
+          f"{copy_bound:.4f} ms ({2 * x.element_size() * x.numel() / 1e6:.1f} MB read and written)", flush=True)
+
+
+def phase_served_xvector(torch, device_label):
+    """SnowdarXvector 512/512 and FactoredXvector width 1.0 served at full
+    width (seeded random weights, bf16) behind make_wave_embed_fn on one
+    [128, 160000] batch with 80 bins, the statistics pooling fused and
+    unfused; each held against the same bf16 model fed by the plain front
+    end and against an f32 model on the f32 plain front end; then the
+    Extractor run as in 6. After the counted window: ms/batch in turns, one
+    batch profiled, and K4 on each model's own pooling input."""
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.train.step_check import OPTS, xvector_net
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    wave = torch.randn((BATCH, SAMPLES), generator=gen, device=dev) * 1000.0
+    mask = torch.ones((BATCH, SAMPLES), dtype=torch.bool, device=dev)
+    waves = [wave * (1.0 + 1e-4 * i) for i in range(4)]
+    audio_s = BATCH * SAMPLES / 16.0  # audio-milliseconds per batch over ms = audio-s/s
+    wrap = lambda model: make_wave_embed_fn(lambda x, m: model(x, m), OPTS, dtype=torch.bfloat16)
+    models = {}
+    with torch.inference_mode():
+        for i, (label, family, _) in enumerate(XVECTORS):
+            model32 = xvector_net(family, seed=SEED + 81 + i).backbone.to(dev).eval()
+            off16 = copy.deepcopy(model32).to(torch.bfloat16)
+            on16 = copy.deepcopy(off16)
+            on16.stats.fused_inference = True
+            refs = (_plain_embed(torch, off16, OPTS, torch.bfloat16, torch.bfloat16)(wave, mask),
+                    _plain_embed(torch, model32, OPTS, torch.float32, torch.float32)(wave, mask))
+            models[label] = (on16, off16, refs)
+            del model32
+        torch.cuda.synchronize()
+
+        # the main path: counters from zero
+        zero_launches()
+        for label, (on16, off16, (ref16, ref32)) in models.items():
+            for flag, model in (("fused pooling", on16), ("unfused pooling", off16)):
+                emb = wrap(model)(waves[0], mask)
+                torch.cuda.synchronize()
+                check(tuple(emb.shape) == (BATCH, 512) and bool(torch.isfinite(emb.float()).all()),
+                      f"served {label} embeddings ({flag}) not finite or of the wrong shape")
+                c16, c32 = float(cosine(emb, ref16).min()), float(cosine(emb, ref32).min())
+                print(f"served {label} bf16, {flag}: min per-utterance cosine vs unfused + plain front end (bf16) "
+                      f"{c16:.6f} (>= 0.9999), vs f32 model + f32 plain front end {c32:.6f} (>= 0.999)", flush=True)
+                check(c16 >= 0.9999 and c32 >= 0.999, f"served {label} embeddings ({flag}) disagree")
+    for label, (on16, _, _) in models.items():
+        server_run(torch, wrap(on16), label)
+    counts = read_launches("x-vector served", ("fused_fbank", "fused_stats_pooling"))
+
+    with torch.inference_mode():
+        for label, (on16, off16, _) in models.items():
+            embed_on, embed_off = wrap(on16), wrap(off16)
+            turns = [timed_batches(torch, fn, waves, mask, iters=3)
+                     for fn in (embed_off, embed_on, embed_on, embed_off)]
+            ms_on, ms_off = min(turns[1:3]), min(turns[0], turns[3])
+            print(f"served {label} bf16 [{BATCH},{SAMPLES}] ms/batch: fused pooling {ms_on:.2f} "
+                  f"({audio_s / ms_on:.0f} audio-s/s), unfused {ms_off:.2f} ({audio_s / ms_off:.0f} audio-s/s) on "
+                  f"{device_label} (turns off {turns[0]:.2f} on {turns[1]:.2f} on {turns[2]:.2f} off {turns[3]:.2f})",
+                  flush=True)
+            profile_served_batch(torch, lambda: embed_on(waves[0], mask), what=f"one served {label} batch")
+            seen = {}
+            hook = on16.stats.register_forward_hook(lambda mod, args, out: seen.update(x=args[0], mask=args[1]))
+            embed_on(waves[0], mask)
+            hook.remove()
+            _k4_on_the_model(torch, seen["x"], seen["mask"], label)
+            del seen
+    del models
+    return counts
+
+
+def phase_train_xvector(torch, device_label):
+    """The train steps of SnowdarXvector 512/512 and FactoredXvector width
+    1.0 on their recipe configurations (recipes/configs/{snowdar,
+    factored}_xvector.yaml: AM m=0.2 over 5994 classes, SGD 1e-2 on warmR
+    t_0 20000, momentum 0.9 for the snowdar one, use_semi_orth for the
+    F-TDNN) on raw waves at B=128 x 2 s, bf16 on f32 masters, K1 in the
+    step: 30 steps on one fixed batch under the sync check, 20 timed, one
+    profiled, the last loss below the first; the F-TDNN's semi-orthogonal
+    objective of layer02's factor1 at steps 0, 4, 8, ...; then the narrow
+    F-TDNN's steps, card against CPU, over step 0 (0 % 4 == 0)."""
+    from asv_subtools_tpu_torch.nn import semi_orth_objective
+    from asv_subtools_tpu_torch.train import (TrainStepConfig, get_lr_schedule, get_optimizer, init_train_state,
+                                              make_train_step)
+    from asv_subtools_tpu_torch.train.step_check import xvector_net
+
+    counts = {}
+    key = "backbone.layer02.factor1.conv.weight"
+    for i, (label, family, _) in enumerate(XVECTORS):
+        opts, gen, wave, labels = _train_batch(torch, SEED + 85 + i)
+        net = xvector_net(family, seed=SEED + 87 + i)
+        schedule = get_lr_schedule("warmR", base_lr=1e-2, t_0=20000)
+        momentum = 0.9 if family == "snowdar" else None
+        tx = get_optimizer("sgd", schedule, momentum=momentum)
+        state = init_train_state(net, tx, "cuda")
+        semi = family == "ftdnn"
+        step = make_train_step(net, tx, schedule, TrainStepConfig(compute_dtype=torch.bfloat16, wave_input=True,
+                                                                 fbank_opts=opts, use_semi_orth=semi))
+        objective = {}
+        if semi:
+            objective["before step 0"] = semi_orth_objective(state.params[key])
+
+            def watch(n, st):
+                if n % 4 == 0:  # the state after step n, which applied the update
+                    objective[f"after step {n}"] = semi_orth_objective(st.params[key])
+        opt = f"sgd{' momentum 0.9' if momentum else ''} warmR 1e-2{', use_semi_orth' if semi else ''}"
+        c = run_fixed_batch(torch, step, state, {"x": wave, "y": labels}, gen, f"train {label} bf16",
+                            f"{label} train step", device_label, falls_to=1.0, opt=opt,
+                            watch=watch if semi else None)
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        if semi:
+            values = {k: float(v) for k, v in objective.items()}
+            print(f"train {label}: semi-orthogonal objective ||P - scale I||^2 of {key} (P = M M^T, "
+                  f"M [{state.params[key].shape[0]}, {state.params[key].shape[1] * state.params[key].shape[2]}]): "
+                  + ", ".join(f"{k} {v:.4e}" for k, v in values.items()), flush=True)
+            check(all(np.isfinite(v) for v in values.values()) and values["after step 0"] < values["before step 0"],
+                  "the semi-orthogonal update did not lower the objective of a factor1 weight")
+        del state, step, net
+        torch.cuda.empty_cache()
+    _card_against_cpu(torch, "ftdnn")
+    return counts
+
+
+# 10 languages of one speaker each, 128 training utterances of 2.5-4.0 s
+# and 8 evaluation ones: 5 steps an epoch at the recipe's B = 256
+OLR_LANGS, OLR_TRAIN_UTTS, OLR_EVAL_UTTS = 10, 128, 8
+
+
+def phase_olr(torch, device_label):
+    """The OLR language-identification recipe's stages 0-3 through
+    asv_subtools_tpu_torch.recipes.olr (recipes/olr/run.py: extended_xvector
+    width 512, AM m=0.2, SGD 1e-2 on warmR t_0 20000, 3.0 s chunks,
+    B=256, host fbank) on a synthetic language corpus (10 languages, 128
+    training utterances of 2.5-4.0 s each and 8 evaluation ones), two
+    epochs. Stage 3 fits the logistic regression with the lbfgs solver
+    (scipy; the script needs no sklearn). Per epoch: ms/step, the host's wait,
+    loss, accuracy; then the extraction stats, Cavg and EER% (not gated).
+    Checks: every loss finite, the ark/scp read back, Cavg finite. No
+    kernel runs here (host fbank, unfused pooling): the counters show it."""
+    import os
+
+    from asv_subtools_tpu_torch.io import read_vec_flt_scp
+    from asv_subtools_tpu_torch.recipes import olr
+    from asv_subtools_tpu_torch.recipes.synthetic import write_corpus
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = write_corpus(f"{tmp}/data", num_spks=OLR_LANGS, train_per_spk=OLR_TRAIN_UTTS,
+                            eval_per_spk=OLR_EVAL_UTTS, dur=(2.5, 4.0), seed=SEED + 95, num_langs=OLR_LANGS)
+        corpus_s = time.perf_counter() - t0
+        exp = f"{tmp}/exp"
+        zero_launches()
+        t0 = time.perf_counter()
+        launcher, extracted, _ = olr.run(data, exp, stop_stage=2, epochs=2)
+        t_score = time.perf_counter()
+        out = olr.score_languages(data, exp, "lbfgs")
+        score_s = time.perf_counter() - t_score
+        run_s = time.perf_counter() - t0
+        counts = read_launches("OLR recipe", ())
+        p = launcher.params
+        print(f"OLR recipe ({p['model']['name']} width {p['model']['params']['num_frame_channels']}, B "
+              f"{p['data']['batch_size']}, {p['data']['chunk_seconds']} s chunks, {OLR_LANGS} languages x "
+              f"{OLR_TRAIN_UTTS} training utterances; corpus written in {corpus_s:.1f} s): stages 0-3 in "
+              f"{run_s:.1f} s on {device_label}", flush=True)
+        losses = []
+        for stats in launcher.epoch_stats:
+            m, wait = stats["metrics"], stats["data_wait_s"]
+            losses.append(m["loss"])
+            print(f"OLR epoch {stats['epoch']}: {stats['steps']} steps, "
+                  f"{float(np.median(stats['step_ms'])):.2f} ms/step (median, CUDA events; "
+                  + ", ".join(f"{x:.1f}" for x in stats["step_ms"]) + f"), the host's wait for the next batch "
+                  f"{float(np.median(wait)) * 1e3:.1f} ms median, {sum(wait):.2f} s in all of the epoch's "
+                  f"{stats['wall_s']:.2f} s; loss {m['loss']:.4f}, accuracy {m['accuracy']:.4f}", flush=True)
+        read = {}
+        for subset, n in (("train", OLR_LANGS * OLR_TRAIN_UTTS), ("eval", OLR_LANGS * OLR_EVAL_UTTS)):
+            embs = dict(read_vec_flt_scp(os.path.join(exp, f"xvector_{subset}.scp")))
+            read[subset] = len(embs) == n and all(v.shape == (p["model"]["params"]["embd_dim"],)
+                                                  and np.isfinite(v).all() for v in embs.values())
+        for subset, st in extracted.items():
+            print(f"OLR extraction of the {subset} list (feature mode, host fbank): {st['utts']} utterances, "
+                  f"{st['frames']} frames in {st['batches']} batches, {st['wall_s']:.2f} s wall, {st['device_s']:.2f} s "
+                  f"device", flush=True)
+        print(f"OLR ark/scp read back {read}; stage 3 (lbfgs logistic regression, {score_s:.1f} s on the host): "
+              f"Cavg {out['Cavg']:.4f}, EER {out['EER%']:.2f}% (not gated)", flush=True)
+    check(len(losses) == 2 and all(np.isfinite(x) for x in losses), f"an OLR epoch loss was not finite: {losses}")
+    check(all(read.values()), f"the OLR ark/scp did not read back: {read}")
+    check(np.isfinite(out["Cavg"]), "the OLR Cavg is not finite")
+    check(not any(counts.values()), f"a kernel ran on the OLR path, which uses host features: {counts}")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1807,6 +2083,12 @@ def main() -> int:
     paths.append(phase_recipe(torch, smi))
     torch.cuda.empty_cache()
     paths.append(phase_backend(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_served_xvector(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_train_xvector(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_olr(torch, smi))
     for kernel_name, k in kernels.items():
         k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -417,7 +417,6 @@ UNPORTED = {
     "gau": dict(att_type="gau"),
     "mfa": dict(combiner_type="mfa"),
     "random_layer": dict(combiner_type="random_layer"),
-    "pooling": dict(pooling="lde"),
     "t5": dict(encoder_params={"add_t5rel_bias": True}),
     "softmax_plus": dict(encoder_params={"attention_norm_args": {"norm_method": "softmax_plus"}}),
     "relu_plus": dict(encoder_params={"attention_norm_args": {"norm_method": "relu_plus"}}),

@@ -39,6 +39,16 @@ torch.cuda.set_sync_debug_mode("warn"); and spawn loader workers that
 compute host features (torch imported) while the parent holds the card:
 none sees the card or initialises CUDA, and none shows in nvidia-smi.
 
+The TDNN x-vectors: K4 on the x-vector's layout (a [B, T, D] view of
+[B, D, T] memory) at D = 1500 (bf16: 3,000-byte rows, the direct kernel)
+and D = 2048 (the ring kernel after the wrapper's copy), rtol 1e-4 /
+atol 1e-5 against the plain version; the narrow F-TDNN's step (width
+0.125, use_semi_orth, step 0, where step % 4 == 0 applies the update)
+on the card against the CPU with the bounds of the ECAPA step; and one
+served SnowdarXvector batch (512 channels, bf16, the fused pooling)
+against the f32 model on the f32 plain front end at cosine 0.999, K4
+launched once.
+
 The scoring back end's device functions (f32, TF32 off): asnorm_device at
 E=100, T=130 against a cohort of 600 (top 64) and at the scale of
 tests/test_backend_scale.py (600 x 970, cohort 5,994, top 300) against
@@ -740,3 +750,79 @@ def test_llr_matrix_device_on_the_card_matches_f64(card):
         got = llr_matrix_device(plda, enroll, test, c)
         assert got.device.type == "cuda" and got.dtype == torch.float32
         np.testing.assert_allclose(got.cpu().numpy(), plda.llr_matrix(enroll, test, c), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1500, 2048])
+def test_stats_pooling_kernel_on_the_xvector_layout(card, d, dtype):
+    """The x-vector's pooling input: a [B, T, D] view of the TDNN's
+    [B, D, T] activations, masked; 1500 bf16 channels are 3,000-byte rows,
+    off the ring kernel's 16-byte grain."""
+    g = torch.Generator(device=card).manual_seed(7)
+    h = (torch.randn((6, d, 998), generator=g, device=card) + 0.5).to(dtype)
+    x = h.transpose(1, 2)
+    mask = _lengths_mask(card, 6, 998, (998, 900, 500, 333, 120, 40))
+    got = fused_stats_pooling(x, mask)
+    route = fused_stats_pooling.last_route
+    assert route == ("direct" if (d, dtype) == (1500, torch.bfloat16) else "ring")
+    torch.testing.assert_close(got, fused_stats_pooling_plain(x.contiguous(), mask), atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got, fused_stats_pooling(x.contiguous(), mask), atol=1e-5, rtol=1e-4)
+
+
+def test_ftdnn_train_step_on_the_card_matches_the_cpu(card):
+    """The narrow F-TDNN with use_semi_orth over step 0 (0 % 4 == 0: the
+    factor1 weights take the semi-orthogonal update): the float64 step on
+    the same features, card against CPU, each leaf to F64_LEAF_TOL; the
+    float32 wave step (K1's f32 mode, TF32 off) against the CPU's and the
+    f64 step, with the ECAPA step's bounds."""
+    from asv_subtools_tpu_torch.train.step_check import (AAM, modulated_waves, narrow_net, plain_features, rel,
+                                                         sgd_step, worst_leaf, worst_stat)
+
+    torch.backends.cudnn.allow_tf32 = False
+    make = narrow_net("ftdnn")
+    wave, y = modulated_waves(8, 4)
+    feats = plain_features(wave)
+    cd, cpu = (sgd_step(d, torch.float64, feats, y, AAM, make_net=make, use_semi_orth=True)
+               for d in (card, torch.device("cpu")))
+    assert worst_leaf(cd.updates, cpu.updates)[0] <= F64_LEAF_TOL
+    plain = sgd_step("cpu", torch.float64, feats, y, AAM, make_net=make)
+    key = "backbone.layer02.factor1.conv.weight"
+    assert not torch.allclose(plain.updates[key], cpu.updates[key])  # the update acted
+    ref = cpu
+    cd = sgd_step(card, torch.float32, wave, y, AAM, wave_input=True, make_net=make, use_semi_orth=True)
+    cpu = sgd_step("cpu", torch.float32, wave, y, AAM, wave_input=True, make_net=make, use_semi_orth=True)
+    for k in ("loss", "grad_norm"):
+        assert rel(cd.metrics[k], cpu.metrics[k]) <= 1e-4, k
+    for r in (cd, cpu):
+        assert worst_leaf(r.updates, ref.updates)[0] <= F32_LEAF_TOL
+        assert worst_stat(r.batch_stats, ref.batch_stats)[0] <= F32_STATS_TOL
+
+
+def test_served_xvector_with_the_fused_pooling(card):
+    """SnowdarXvector 512/512 (seeded random weights) behind
+    make_wave_embed_fn in bf16 with the fused statistics pooling: one K4
+    launch (the direct kernel at 1500 bf16 channels), cosine >= 0.999
+    against the f32 model on the f32 plain front end, on ragged 1-4 s waves."""
+    import copy
+
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.features import cmvn_utterance
+    from asv_subtools_tpu_torch.train.step_check import OPTS, xvector_net
+
+    model32 = xvector_net(seed=8).backbone.to(card).eval()
+    model16 = copy.deepcopy(model32).to(torch.bfloat16)
+    model16.stats.fused_inference = True
+    gen = torch.Generator(device=card).manual_seed(9)
+    wave = torch.randn((8, 64000), generator=gen, device=card) * 1000.0
+    mask = torch.arange(64000, device=card)[None, :] < torch.linspace(16000, 64000, 8, device=card).long()[:, None]
+    with torch.inference_mode():
+        before = fused_stats_pooling.launches
+        emb = make_wave_embed_fn(lambda x, m: model16(x, m), OPTS, dtype=torch.bfloat16)(wave * mask, mask)
+        assert fused_stats_pooling.launches == before + 1 and fused_stats_pooling.last_route == "direct"
+        feats, _ = fused_fbank_plain(wave * mask, OPTS, dft_dtype=torch.float32, with_energy=False)
+        n = torch.clamp_min((mask.sum(1) - 400) // 160 + 1, 1)
+        fmask = torch.arange(feats.shape[1], device=card)[None, :] < n[:, None]
+        ref = model32(cmvn_utterance(feats, mask=fmask) * fmask[..., None], fmask)
+    assert emb.shape == (8, 512) and bool(torch.isfinite(emb.float()).all())
+    cos = torch.nn.functional.cosine_similarity(emb.float(), ref, dim=-1)
+    assert float(cos.min()) >= 0.999, cos

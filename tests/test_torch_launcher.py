@@ -235,7 +235,7 @@ def test_launcher_against_jax_launcher(corpus, tmp_path):
     ({"train": {"sam": {"rho": 0.05}}}, 4),
     ({"model": {"name": "fd_xvector", "params": {}}}, 8),
     ({"model": {"name": "multi_task_xvector", "params": {}}}, 8),
-    ({"model": {"name": "xvector", "params": {}}}, 8),
+    ({"model": {"name": "repvgg_xvector", "params": {}}}, 8),
 ])
 def test_unported_options_raise(corpus, tmp_path, change, item):
     params = _params(corpus, str(tmp_path / "exp"))

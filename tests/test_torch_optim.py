@@ -126,12 +126,14 @@ def test_optimizers_not_ported_raise(kw):
 @pytest.mark.parametrize("kw", [dict(mixup_alpha=0.2), dict(use_semi_orth=True), dict(remat="full"),
                                 dict(model_warmup_steps=10)], ids=str)
 def test_step_options_not_ported_raise(kw):
-    """Each option raises, but model_warmup_steps, which is ported now (the
-    Conformer's warm-up; tests/test_torch_train_conformer.py): its step
-    builds and runs on a backbone that takes no warmup."""
+    """Each option raises, but model_warmup_steps and use_semi_orth, which
+    are ported now (the Conformer's warm-up, tests/test_torch_train_conformer.py;
+    the F-TDNN's semi-orthogonal step, tests/test_torch_xvector.py): their
+    steps build and run on a backbone that takes no warmup and holds no
+    factor1 weight."""
     net = SpeakerNet(EcapaTdnn(input_dim=8, channels=16, mfa_conv=32, embd_dim=8, device="cpu"),
                      "margin_softmax_v1", {"sub_k": 2}, num_targets=5)
-    if "model_warmup_steps" in kw:
+    if "model_warmup_steps" in kw or "use_semi_orth" in kw:
         step = make_train_step(net, get_optimizer("sgd", 0.1), config=TrainStepConfig(**kw))
         state = init_train_state(net, get_optimizer("sgd", 0.1), "cpu")
         batch = {"x": torch.randn(2, 30, 8, generator=torch.Generator().manual_seed(1)), "y": torch.tensor([0, 3])}

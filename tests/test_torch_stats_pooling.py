@@ -25,6 +25,7 @@ from asv_subtools_tpu_torch.nn import (
     POOLINGS,
     FreeStatisticsPooling,
     StatisticsPooling,
+    build_pooling,
     fused_stats_pooling,
     fused_stats_pooling_plain,
 )
@@ -168,9 +169,16 @@ def test_takes_a_strided_view():
 
 @pytest.mark.parametrize("name", sorted(set(JAX_POOLINGS) - {"statistics", "free-statistics"}))
 def test_queued_poolings_raise_by_name(name):
+    """The eight poolings that were queued are ported now (each held
+    against JAX in tests/test_torch_pooling_zoo.py): none raises; each
+    builds by name for a width and pools a masked batch to that width."""
     assert name in POOLINGS
-    with pytest.raises(NotImplementedError, match=name):
-        POOLINGS[name]()
+    pool = build_pooling(name, 24).eval()
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=(3, 37, 24)).astype(np.float32))
+    mask = torch.arange(37)[None, :] < torch.tensor([37, 20, 9])[:, None]
+    with torch.no_grad():
+        out = pool(x, mask)
+    assert out.shape == (3, pool.output_dim(24)) and bool(torch.isfinite(out).all())
 
 
 def test_pooling_table_has_the_jax_names():

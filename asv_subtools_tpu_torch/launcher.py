@@ -17,9 +17,9 @@ Launcher runs on ``device``: the CUDA card unless ``device="cpu"``; it
 raises without a card.
 
 Not ported yet; each raises NotImplementedError naming its ROADMAP item:
-the offline chunk egs, SAM, ``find_lr`` (Queue 1 item 4), ``fsdp`` and
-``num_model > 1`` (item 5), the multi-task, FD-AL, RepVGG and lawlict
-ECAPA models (item 8), the native host front end (item 10) and host
+the offline chunk egs, SAM, ``find_lr`` and the multi-task and FD-AL
+models, which train on those egs (Queue 1 item 4), ``fsdp`` and
+``num_model > 1`` (item 5), the native host front end (item 10) and host
 mfcc/pitch features (item 11).
 
 Two choices differ from the JAX Launcher: the held-out validation egs

@@ -1,13 +1,16 @@
 from .conformer import ConformerXvector
 from .ecapa import EcapaAttentiveStatsPool, EcapaTdnn, Res2NetBlock, SEConnect, SERes2Block
+from .ecapa_lawlict import (EcapaLawlict, LawlictAttentiveStatsPool, LawlictRes2Block, LawlictSERes2Block,
+                            SEConnectLinear)
 from .framework import SpeakerNet, chunk_utterance, l2_norm
-from .resnet_xvector import ResNetXvector
+from .resnet_xvector import RepVggXvector, ResNetXvector, deploy_repvgg_xvector
 from .xvector import ExtendedXvector, FactoredXvector, SnowdarXvector, Xvector
 
 
 def _not_ported(name: str):
     def build(*args, **kwargs):
-        raise NotImplementedError(f"model {name!r} is not ported yet (ROADMAP Queue 1 item 8)")
+        raise NotImplementedError(f"model {name!r} is not ported yet: it trains on the offline chunk egs "
+                                  "(ROADMAP Queue 1 item 4)")
 
     return build
 
@@ -21,23 +24,32 @@ MODELS = {
     "snowdar_xvector": SnowdarXvector,
     "extended_xvector": ExtendedXvector,
     "factored_xvector": FactoredXvector,
-    **{name: _not_ported(name) for name in ("ecapa_lawlict", "repvgg_xvector", "multi_task_xvector", "fd_xvector")},
+    "ecapa_lawlict": EcapaLawlict,
+    "repvgg_xvector": RepVggXvector,
+    **{name: _not_ported(name) for name in ("multi_task_xvector", "fd_xvector")},
 }
 
 __all__ = [
     "ConformerXvector",
     "EcapaAttentiveStatsPool",
+    "EcapaLawlict",
     "EcapaTdnn",
     "ExtendedXvector",
     "FactoredXvector",
+    "LawlictAttentiveStatsPool",
+    "LawlictRes2Block",
+    "LawlictSERes2Block",
     "MODELS",
+    "RepVggXvector",
     "Res2NetBlock",
     "ResNetXvector",
     "SEConnect",
+    "SEConnectLinear",
     "SERes2Block",
     "SnowdarXvector",
     "SpeakerNet",
     "Xvector",
     "chunk_utterance",
+    "deploy_repvgg_xvector",
     "l2_norm",
 ]

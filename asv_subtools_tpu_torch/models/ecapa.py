@@ -18,7 +18,15 @@ frame-level layers in train mode (and, before the model, CMVN) see the
 mask. The pooled-level BatchNorms (``bn_stats``, ``fc1_bn``, ``fc2_bn``)
 take no mask. The fused kernels serve inference only: with their flags
 set, train mode still takes the unfused path, whose batch statistics
-and gradients they do not compute. The other poolings come later.
+and gradients they do not compute.
+
+``pooling`` picks the pooling: "ecpa-attentive" (the default, ECAPA's
+attentive pooling) or any name of nn/pooling.py's zoo, built over the
+MFA's width with ``pooling_params``; the zoo's ``mqmha`` with 2 queries
+(ecapa_roadmap.yaml) pools to 6144 values at MFA 1536. As in both JAX
+ECAPAs, only ``mqmha`` and ``mqmha-linear`` get the train flag: the
+``xi`` pooling's BatchNorm (``lin1_relu_bn``) normalises with its
+running statistics in train mode too and never updates them.
 
 Convolutions, 1x1 products and the SE/BN/fc tail are plain PyTorch
 (``F.conv1d``, ``torch.matmul``), as the JAX package leaves them to XLA.
@@ -41,6 +49,7 @@ from ..nn.dropout import dropout
 from ..nn.fused_att_pooling import fused_attentive_stats_pool
 from ..nn.fused_res2 import fused_res2_chain
 from ..nn.norm import BatchNorm, LayerNorm
+from ..nn.pooling import XiVectorPooling, build_pooling
 from ..nn.tdnn import ReluBatchNormTdnnLayer
 
 
@@ -237,6 +246,11 @@ class EcapaTdnn(nn.Module):
     affine, relu, BN; the default), "near_affine" (fc2 affine) or "far"
     (fc1 affine, with ``fc1=True``).
 
+    ``pooling`` and ``pooling_params``: "ecpa-attentive" reads
+    ``hidden_size`` (128) and ``time_attention`` (True) from the params,
+    and its BatchNorm keeps momentum 0.1 whatever the model's; another
+    name builds that pooling of the zoo (nn/pooling.py) with the params.
+
     Built on ``device`` (the CUDA card unless ``device="cpu"``; raises
     without a card), in eval mode. Cast with ``.to(torch.bfloat16)`` for
     serving; training runs it in train mode with a cast copy of f32 master
@@ -249,6 +263,8 @@ class EcapaTdnn(nn.Module):
         channels: int = 1024,
         embd_dim: int = 192,
         mfa_conv: int = 1536,
+        pooling: str = "ecpa-attentive",
+        pooling_params: Optional[dict] = None,
         fc1: bool = False,
         momentum: float = 0.5,
         aug_dropout: float = 0.0,
@@ -263,11 +279,18 @@ class EcapaTdnn(nn.Module):
         self.layer3 = SERes2Block(c, dilation=3, momentum=momentum)
         self.layer4 = SERes2Block(c, dilation=4, momentum=momentum)
         self.mfa = ReluBatchNormTdnnLayer(3 * c, mfa_conv, momentum=momentum)
-        self.stats = EcapaAttentiveStatsPool(mfa_conv)
-        self.bn_stats = BatchNorm(2 * mfa_conv, momentum=momentum)
-        fc2_in = 2 * mfa_conv
+        pp = dict(pooling_params or {})
+        if pooling == "ecpa-attentive":
+            self.stats = EcapaAttentiveStatsPool(mfa_conv, bottleneck=pp.get("hidden_size", 128),
+                                                 time_attention=pp.get("time_attention", True))
+            stats_dim = 2 * mfa_conv
+        else:
+            self.stats = build_pooling(pooling, mfa_conv, pp)
+            stats_dim = self.stats.output_dim(mfa_conv)
+        self.bn_stats = BatchNorm(stats_dim, momentum=momentum)
+        fc2_in = stats_dim
         if fc1:
-            self.fc1_affine = nn.Linear(2 * mfa_conv, embd_dim)
+            self.fc1_affine = nn.Linear(stats_dim, embd_dim)
             self.fc1_bn = BatchNorm(embd_dim, momentum=momentum)
             fc2_in = embd_dim
         self.fc1 = fc1
@@ -275,6 +298,9 @@ class EcapaTdnn(nn.Module):
         self.fc2_bn = BatchNorm(embd_dim, momentum=momentum)
         self.eval()
         self.to(resolve_device(device))
+
+    def train(self, mode: bool = True) -> "EcapaTdnn":
+        return keep_xi_bn_in_eval(super().train(mode))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, position: str = "near",
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -302,3 +328,12 @@ class EcapaTdnn(nn.Module):
         if self.tail_dropout > 0 and self.training:
             z = dropout(z, self.tail_dropout, generator)
         return z
+
+
+def keep_xi_bn_in_eval(model: nn.Module) -> nn.Module:
+    """An ECAPA's ``xi`` pooling keeps its BatchNorm in eval mode: the JAX
+    ECAPAs hand the train flag to no pooling but mqmha and mqmha-linear,
+    and the xi pooling's flag defaults to False."""
+    if isinstance(model.stats, XiVectorPooling):
+        model.stats.lin1_relu_bn.train(False)
+    return model

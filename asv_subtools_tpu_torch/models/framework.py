@@ -9,10 +9,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn.loss import LOSSES, Scalar
-
-# losses of the JAX zoo the port does not carry yet
-_NOT_PORTED = ("softmax", "focal", "logistic_affinity", "ocsoftmax")
+from ..nn.loss import LOSSES, MARGIN_LOSSES, Scalar
 
 
 class SpeakerNet(nn.Module):
@@ -22,7 +19,9 @@ class SpeakerNet(nn.Module):
     and names its embedding width ``embd_dim``; ``loss_name`` and
     ``loss_params`` pick the head from :data:`~asv_subtools_tpu_torch.nn.loss.LOSSES`,
     which owns the classifier weight (``loss.weight``, ``[C * sub_k, E]``
-    for the margin losses). The head is built on the backbone's device.
+    for the margin losses; ``loss.affine`` for softmax and focal). The
+    head is built on the backbone's device; only the margin heads get
+    ``lambda_m`` and ``margin_offset``.
     The backbone gets ``generator`` (dropout draws) and ``warmup`` (the
     Conformer's layer blend) only where its ``forward`` declares them, as
     the JAX SpeakerNet hands a backbone only what its signature takes.
@@ -31,9 +30,8 @@ class SpeakerNet(nn.Module):
     def __init__(self, backbone: nn.Module, loss_name: str = "margin_softmax",
                  loss_params: Optional[dict] = None, num_targets: int = 0):
         super().__init__()
-        if loss_name in _NOT_PORTED:
-            raise NotImplementedError(f"loss {loss_name!r} is not ported yet")
         self.backbone = backbone
+        self._margin = loss_name in MARGIN_LOSSES
         self.loss = LOSSES[loss_name](backbone.embd_dim, num_targets, **(loss_params or {}))
         self.loss.to(next(backbone.parameters()).device)
         self._backbone_takes = set(inspect.signature(type(backbone).forward).parameters) & {"generator", "warmup"}
@@ -46,7 +44,8 @@ class SpeakerNet(nn.Module):
         """-> (loss, logits, embeddings); the margin applies in train mode."""
         given = {"generator": generator, "warmup": warmup}
         emb = self.backbone(x, mask, **{k: given[k] for k in self._backbone_takes})
-        loss, logits = self.loss(emb, targets, lambda_m=lambda_m, margin_offset=margin_offset)
+        margin = {"lambda_m": lambda_m, "margin_offset": margin_offset} if self._margin else {}
+        loss, logits = self.loss(emb, targets, **margin)
         return loss, logits, emb
 
     def embed(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, position: str = "near") -> torch.Tensor:

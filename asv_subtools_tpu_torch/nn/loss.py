@@ -1,10 +1,18 @@
 """Classification losses for speaker recognition (counterpart: asv_subtools_tpu/nn/loss.py).
 
-Each loss is a module that owns its classifier weight;
-``forward(embeddings, targets, lambda_m, margin_offset)`` returns
-``(loss, logits)``, where logits are the scaled cosines before the margin
-(what accuracy is read from). Train mode (``module.training``) applies the
-margin; eval mode returns the cross entropy of the plain logits.
+Each loss is a module built as ``cls(input_dim, num_targets, **params)``
+that owns its classifier weight; ``forward(embeddings, targets)`` returns
+``(loss, logits)``. The margin heads (:class:`MarginSoftmaxLoss`,
+:class:`MarginSoftmaxLossV1`) also take ``lambda_m`` and
+``margin_offset``; their logits are the scaled cosines before the margin
+(what accuracy is read from), and train mode (``module.training``)
+applies the margin while eval mode returns the cross entropy of the plain
+logits. :class:`SoftmaxLoss` and :class:`FocalLoss` are an affine layer
+and a cross entropy (the same in both modes);
+:class:`LogisticAffinityLoss` scores every pair of the batch
+(logits ``[B, B]``) and :class:`OCSoftmax` every row against one centre
+(logits ``[B, 1]``): neither has classes, and accuracy over their logits
+is what the JAX step reports for them.
 
 The cosine product and all margin trigonometry run in float32 whatever
 the compute type (the reference forces f32 under AMP there); as in the JAX
@@ -61,6 +69,86 @@ def _margin(m: float, offset: Scalar) -> Scalar:
     if isinstance(offset, torch.Tensor):
         return torch.clamp_min(offset + m, 0.0)
     return max(m + offset, 0.0)
+
+
+class SoftmaxLoss(nn.Module):
+    """``affine`` (a Linear with bias) and the cross entropy of its logits
+    over the temperature ``t``, with label smoothing."""
+
+    def __init__(self, input_dim: int, num_targets: int, t: float = 1.0, label_smoothing: float = 0.0):
+        super().__init__()
+        self.t, self.label_smoothing = t, label_smoothing
+        self.affine = nn.Linear(input_dim, num_targets)
+
+    def forward(self, embeddings: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        logits = self.affine(embeddings)
+        return cross_entropy(logits / self.t, targets, self.label_smoothing), logits
+
+
+class FocalLoss(nn.Module):
+    """Focal loss over ``affine``'s logits: -(1 - p_y)^gamma log p_y, with
+    p clamped at 1e-10 before the log. The reduction defaults to the sum,
+    as the reference's NLLLoss there."""
+
+    def __init__(self, input_dim: int, num_targets: int, gamma: float = 2.0, reduction: str = "sum"):
+        super().__init__()
+        self.gamma, self.reduction = gamma, reduction
+        self.affine = nn.Linear(input_dim, num_targets)
+
+    def forward(self, embeddings: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        logits = self.affine(embeddings)
+        p = torch.softmax(logits, dim=-1)
+        focal = (1.0 - p) ** self.gamma * torch.log(torch.clamp_min(p, _EPS))
+        nll = -focal.gather(-1, targets[..., None].long())[..., 0]
+        return (nll.sum() if self.reduction == "sum" else nll.mean()), logits
+
+
+class LogisticAffinityLoss(nn.Module):
+    """Pairwise logistic loss: scores = w * cos(e_i, e_j) + b over every
+    pair of the batch (the cosines in float32, the scores in the wider of
+    that and w's type), -mean(log sigmoid(+-scores)) with + for pairs of
+    one class. Scalars ``w`` and ``b``; no classifier, so ``input_dim``
+    and ``num_targets`` are unused."""
+
+    def __init__(self, input_dim: int = 0, num_targets: int = 0, init_w: float = 5.0, init_b: float = -1.0):
+        super().__init__()
+        self.w = nn.Parameter(torch.tensor(float(init_w)))
+        self.b = nn.Parameter(torch.tensor(float(init_b)))
+
+    def forward(self, embeddings: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        e = _normalize(embeddings.float())
+        cos = e @ e.t()
+        scores = self.w * cos.to(torch.promote_types(self.w.dtype, cos.dtype)) + self.b
+        sign = 2.0 * (targets[:, None] == targets[None, :]).to(scores.dtype) - 1.0
+        return -F.logsigmoid(sign * scores).mean(), scores
+
+
+class OCSoftmax(nn.Module):
+    """One-class softmax for anti-spoofing: the cosine of each embedding to
+    ``center`` ``[1, D]`` in float32; bona fide has label 1, spoof 0.
+    ``convention="reference"`` is the reference's code (bona fide pushed
+    below ``r_real``, spoof above ``r_fake``), ``"paper"`` the published
+    eq. 8 (bona fide above ``r_real``, spoof below ``r_fake``); the loss is
+    mean(softplus(alpha * margin)). Logits: the cosines ``[B, 1]``."""
+
+    def __init__(self, input_dim: int, num_targets: int = 0, r_real: float = 0.9, r_fake: float = 0.2,
+                 alpha: float = 20.0, convention: str = "reference"):
+        super().__init__()
+        if convention not in ("reference", "paper"):
+            raise ValueError(f"convention must be 'reference' or 'paper', got {convention!r}")
+        self.r_real, self.r_fake, self.alpha, self.convention = r_real, r_fake, alpha, convention
+        limit = math.sqrt(0.75)  # flax variance_scaling(0.25, "fan_in", "uniform") of a [1, D] kernel
+        self.center = nn.Parameter(torch.empty(1, input_dim).uniform_(-limit, limit))
+
+    def forward(self, embeddings: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        scores = (_normalize(embeddings.float()) @ _normalize(self.center.float()).t())[:, 0]
+        is_real = targets == 1
+        if self.convention == "paper":
+            margin = torch.where(is_real, self.r_real - scores, scores - self.r_fake)
+        else:
+            margin = torch.where(is_real, scores - self.r_real, self.r_fake - scores)
+        # softplus(z) = -log sigmoid(-z), exact where torch's softplus turns linear
+        return -F.logsigmoid(-self.alpha * margin).mean(), scores[:, None]
 
 
 class MarginSoftmaxLoss(nn.Module):
@@ -287,6 +375,12 @@ class LambdaMAnneal:
 
 
 LOSSES = {
+    "softmax": SoftmaxLoss,
+    "focal": FocalLoss,
     "margin_softmax": MarginSoftmaxLoss,
     "margin_softmax_v1": MarginSoftmaxLossV1,
+    "logistic_affinity": LogisticAffinityLoss,
+    "ocsoftmax": OCSoftmax,
 }
+# the heads that take lambda_m and margin_offset (JAX framework.py:65-66)
+MARGIN_LOSSES = ("margin_softmax", "margin_softmax_v1")

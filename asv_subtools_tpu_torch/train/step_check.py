@@ -3,11 +3,14 @@ and type, and the distance between two such steps leaf by leaf.
 
 The nets (shared by chip_smoke.py and tests/test_torch_cuda.py): ECAPA-TDNN
 (:func:`ecapa_net`), the ResNet x-vector (:func:`resnet_net`), the
-Conformer x-vector (:func:`conformer_net`) and the TDNN x-vectors
+Conformer x-vector (:func:`conformer_net`), the TDNN x-vectors
 (:func:`xvector_net`: SnowdarXvector 512/512 or FactoredXvector width 1.0,
-recipes/configs/{snowdar,factored}_xvector.yaml), each in a SpeakerNet
-with a margin head over 5994 classes and seeded random weights; full
-width by default, as ``bench.py:58-90`` trains them.
+recipes/configs/{snowdar,factored}_xvector.yaml), the RepVGG x-vector
+(:func:`repvgg_net`, recipes/configs/repvgg.yaml) and the lawlict ECAPA
+(:func:`lawlict_net`, recipes/configs/ecapa_lawlict.yaml), each in a
+SpeakerNet with a margin head over 5994 classes and seeded random
+weights; full width by default, as ``bench.py:58-90`` trains them.
+:data:`ROADMAP_ECAPA` is ecapa_roadmap.yaml's backbone (C1024, MQMHA).
 
 The case of the train step's card-against-CPU checks (chip_smoke.py, the
 card tests and tools/train_step_conditioning.py): a narrow net of one
@@ -39,7 +42,8 @@ import numpy as np
 import torch
 
 from ..features import FbankOptions, MelOptions, wave_features
-from ..models import ConformerXvector, EcapaTdnn, FactoredXvector, ResNetXvector, SnowdarXvector, SpeakerNet
+from ..models import (ConformerXvector, EcapaLawlict, EcapaTdnn, FactoredXvector, RepVggXvector, ResNetXvector,
+                      SnowdarXvector, SpeakerNet)
 from ..weights import init_weights_
 from .trainer import TrainStepConfig, init_train_state, make_train_step
 from .optim import sgd
@@ -60,6 +64,15 @@ NARROW_RESNET = dict(layers=(1, 1, 1, 1), base_planes=8)
 # recipes/configs/{snowdar,factored}_xvector.yaml: AM m=0.2
 AM = ("margin_softmax", {"method": "am", "m": 0.2})
 NARROW_FTDNN = dict(width=0.125, embd_dim=128)
+# recipes/configs/repvgg.yaml: AAM m=0.2 through the sub-centre head's class
+REPVGG_AAM = ("margin_softmax_v1", {"method": "aam", "m": 0.2})
+NARROW_REPVGG = dict(num_blocks=(1, 1, 1, 1), base_channels=8)
+# recipes/configs/ecapa_roadmap.yaml's backbone and head
+ROADMAP_ECAPA = dict(pooling="mqmha", pooling_params={"num_q": 2, "num_head": 2})
+ROADMAP_HEAD = ("margin_softmax_v1", {"method": "aam", "m": 0.2, "s": 30.0, "sub_k": 2, "adapt_method": "topk",
+                                      "topk": 5})
+# recipes/configs/ecapa_lawlict.yaml: AM m=0.2 s=30
+LAWLICT_AM = ("margin_softmax", {"method": "am", "m": 0.2, "s": 30.0})
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -79,10 +92,11 @@ def plain_features(waves: torch.Tensor) -> torch.Tensor:
     return wave_features(waves.cpu(), None, OPTS, torch.float32)[0]
 
 
-def ecapa_net(head=SUBCENTER_TOPK, seed: int = 0, channels: int = 256) -> SpeakerNet:
-    """SpeakerNet(EcapaTdnn(80 bins, channels, embedding 192, MFA 1536)) with
-    ``head`` over 5994 classes and seeded random weights, in f32 on the CPU."""
-    backbone = EcapaTdnn(80, channels=channels, embd_dim=192, mfa_conv=1536, device="cpu")
+def ecapa_net(head=SUBCENTER_TOPK, seed: int = 0, channels: int = 256, **backbone: Any) -> SpeakerNet:
+    """SpeakerNet(EcapaTdnn(80 bins, channels, embedding 192, MFA 1536,
+    ``backbone``)) with ``head`` over 5994 classes and seeded random
+    weights, in f32 on the CPU."""
+    backbone = EcapaTdnn(80, channels=channels, embd_dim=192, mfa_conv=1536, device="cpu", **backbone)
     return init_weights_(SpeakerNet(backbone, *head, num_targets=NUM_TARGETS), seed)
 
 
@@ -115,14 +129,33 @@ def xvector_net(family: str = "snowdar", head=AM, seed: int = 0, **backbone: Any
     return init_weights_(SpeakerNet(model, *head, num_targets=NUM_TARGETS), seed)
 
 
+def repvgg_net(head=REPVGG_AAM, seed: int = 0, **backbone: Any) -> SpeakerNet:
+    """SpeakerNet(RepVggXvector(80 bins, ``backbone``; the reference's
+    RepSPK base 32, blocks 2-4-14-1, width (1, 1, 1, 2.5), embedding 256
+    by default)) with ``head`` over 5994 classes and seeded random
+    weights, in f32 on the CPU."""
+    net = SpeakerNet(RepVggXvector(80, device="cpu", **backbone), *head, num_targets=NUM_TARGETS)
+    return init_weights_(net, seed)
+
+
+def lawlict_net(head=LAWLICT_AM, seed: int = 0, **backbone: Any) -> SpeakerNet:
+    """SpeakerNet(EcapaLawlict(80 bins, ``backbone``; C512, embedding 192
+    by default)) with ``head`` over 5994 classes and seeded random
+    weights, in f32 on the CPU."""
+    net = SpeakerNet(EcapaLawlict(80, device="cpu", **backbone), *head, num_targets=NUM_TARGETS)
+    return init_weights_(net, seed)
+
+
 def narrow_net(family: str) -> Callable[..., SpeakerNet]:
     """``make_net`` of the card-against-CPU step for ``family`` ("ecapa",
-    "resnet", "conformer" or "ftdnn"): the narrow net of that family."""
+    "resnet", "conformer", "ftdnn" or "repvgg"): the narrow net of that
+    family."""
     if family == "ecapa":
         return ecapa_net
     if family == "ftdnn":
         return lambda head=AAM, seed=0: xvector_net("ftdnn", head, seed, **NARROW_FTDNN)
-    make, kw = {"resnet": (resnet_net, NARROW_RESNET), "conformer": (conformer_net, NARROW_CONFORMER)}[family]
+    make, kw = {"resnet": (resnet_net, NARROW_RESNET), "conformer": (conformer_net, NARROW_CONFORMER),
+                "repvgg": (repvgg_net, NARROW_REPVGG)}[family]
     return lambda head=AAM, seed=0: make(head, seed, **kw)
 
 

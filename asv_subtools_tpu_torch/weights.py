@@ -15,7 +15,10 @@ port's modules carry the flax module names, so each leaf maps by rule:
   ``att2`` kernel ``[1, K, C]`` beside it;
 * ``bias``, BN, LayerNorm and GroupNorm ``scale`` (params) and ``mean``,
   ``var`` (batch_stats) map one to one; so do the margin losses' classifier
-  ``loss/weight`` (``[C * sub_k, D]``), their ring radius ``ring_r``, the
+  ``loss/weight`` (``[C * sub_k, D]``), the logistic affinity head's
+  scalars ``loss/w`` and ``loss/b`` and the one-class head's
+  ``loss/center`` (``[1, D]``; these four only directly under the
+  ``loss`` module), the margin losses' ring radius ``ring_r``, the
   curricular statistic ``curricular_t`` (batch_stats), the relative
   attention's ``pos_bias_u`` and ``pos_bias_v`` (``[H, Dh]``), the LDE
   pooling's ``mu`` (``[D, C]``) and ``s``, the xi-vector pooling's
@@ -24,7 +27,10 @@ port's modules carry the flax module names, so each leaf maps by rule:
   and the Conformer's depthwise kernel ``[k, 1, D]`` take the 1-D conv
   rule (``[out, in/groups, k]``); the Dense of a TDNN layer with an
   irregular context (``affine/affine/kernel``, ``[len(ctx) * in, out]``)
-  takes the Dense rule. A non-affine BatchNorm has no params to map.
+  takes the Dense rule; so do the softmax and focal heads'
+  ``loss/affine/kernel``. Grouped 2-D kernels ``[kh, kw, in/groups, out]``
+  and RepVGG's deployed 5x5 ``reparam`` kernels take the 2-D conv rule.
+  A non-affine BatchNorm has no params to map.
 
 A whole train state crosses too (:func:`train_state_from_variables` and
 :func:`train_state_to_variables`): the step, the ``SpeakerNet`` params,
@@ -33,9 +39,10 @@ the batch_stats and the optimizer state, whose moment trees (optax's
 
 Every leaf is consumed exactly once; a leaf no rule takes raises, and
 :func:`load_variables` raises on any port parameter left unset. The rules
-hold for every ported family (ECAPA-TDNN, ResNet x-vector, Conformer
-x-vector, the TDNN x-vectors); the ``*ecapa*`` names are the original ones and stay as
-aliases.
+hold for every ported family (ECAPA-TDNN with any pooling, the lawlict
+ECAPA, ResNet and RepVGG x-vectors in train and deploy shape, Conformer
+x-vector, the TDNN x-vectors) and every loss head; the ``*ecapa*`` names
+are the original ones and stay as aliases.
 """
 
 from __future__ import annotations
@@ -55,7 +62,14 @@ _SPLIT_CONV = "att1"
 _ONE_TO_ONE_PARAMS = ("bias", "scale", "ring_r", "pos_bias_u", "pos_bias_v", "mu", "s", "prior_mean",
                       "prior_logprec", "t")
 _STATS = ("mean", "var", "curricular_t")
-_MARGIN_LOSS = "loss"  # SpeakerNet's head: its "weight" is no Dense kernel
+# SpeakerNet's head: its "weight" is no Dense kernel; these leaves map one
+# to one directly under it ("b" or "w" elsewhere would catch other leaves)
+_LOSS = "loss"
+_LOSS_PARAMS = ("weight", "w", "b", "center")
+
+
+def _is_loss_param(mods, leaf: str) -> bool:
+    return leaf in _LOSS_PARAMS and bool(mods) and mods[-1] == _LOSS
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = (),
@@ -87,7 +101,7 @@ def _to_port(collection: str, path: Tuple[str, ...], value: np.ndarray, siblings
     if collection == "batch_stats" and leaf in _STATS:
         return key(leaf), value
     if collection == "params":
-        if leaf in _ONE_TO_ONE_PARAMS or (leaf == "weight" and mods and mods[-1] == _MARGIN_LOSS):
+        if leaf in _ONE_TO_ONE_PARAMS or _is_loss_param(mods, leaf):
             return key(leaf), value
         if _is_split_conv(path, value, siblings):
             return key("kernel"), value
@@ -111,7 +125,7 @@ def variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
             key, arr = _to_port(collection, path, value, siblings)
             if key in out:
                 raise ValueError(f"two leaves map to {key}")
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+            out[key] = torch.from_numpy(np.array(arr, order="C"))  # a copy; keeps a 0-d leaf 0-d
     return out
 
 
@@ -123,7 +137,7 @@ def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str,
         value = tensor.detach().cpu().numpy()
         if leaf in _STATS:
             collection, name = "batch_stats", leaf
-        elif leaf in _ONE_TO_ONE_PARAMS + ("kernel",) or (leaf == "weight" and mods and mods[-1] == _MARGIN_LOSS):
+        elif leaf in _ONE_TO_ONE_PARAMS + ("kernel",) or _is_loss_param(mods, leaf):
             collection, name = "params", leaf
         elif leaf == "weight" and value.ndim == 4:
             collection, name, value = "params", "kernel", value.transpose(2, 3, 1, 0)
@@ -136,7 +150,7 @@ def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str,
         node = out[collection]
         for m in mods:
             node = node.setdefault(m, {})
-        node[name] = np.ascontiguousarray(value)
+        node[name] = np.array(value, order="C")
     return out
 
 
@@ -163,7 +177,10 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
     normal with std 1/sqrt(fan_in) (lecun), biases 0, norm scales 1, the
     relative attention's ``pos_bias_*`` uniform in +-sqrt(6 / (H + Dh))
     (xavier), the LDE centres ``mu`` standard normal and its ``s`` 1, the
-    xi-vector prior and the learnable temperatures 0."""
+    xi-vector prior and the learnable temperatures 0, the one-class head's
+    ``center`` uniform in +-sqrt(0.75) (flax's variance_scaling(0.25,
+    "fan_in", "uniform") of a ``[1, D]`` kernel). The logistic affinity
+    head's ``w`` and ``b`` keep their constructor's constants."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -180,6 +197,9 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
                 p.copy_(torch.randn(p.shape, generator=gen).to(device=p.device, dtype=p.dtype))
             elif leaf in ("prior_mean", "prior_logprec", "t"):
                 p.zero_()
+            elif leaf == "center":
+                limit = math.sqrt(0.75)
+                p.copy_(((torch.rand(p.shape, generator=gen) * 2 - 1) * limit).to(device=p.device, dtype=p.dtype))
             elif leaf in ("pos_bias_u", "pos_bias_v"):
                 limit = math.sqrt(6.0 / sum(p.shape))
                 p.copy_(((torch.rand(p.shape, generator=gen) * 2 - 1) * limit).to(device=p.device, dtype=p.dtype))

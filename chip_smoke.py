@@ -47,8 +47,8 @@ Phases (any failure raises and the script exits non-zero):
      statistics pooling on, held against the same model with the flag off
      fed by the plain front end and against an f32 model on the f32 plain
      front end; timed with the flag on and off; one batch profiled; then the Extractor run as in 6.
-     The launch counters are zeroed just before each of the eleven main
-     paths (6 to 16) drives the port and read just after; every kernel
+     The launch counters are zeroed just before each of the fifteen main
+     paths (6 to 20) drives the port and read just after; every kernel
      of a path must have been launched in it.
   8. the train step of ECAPA-TDNN C1024 (SpeakerNet with the sub-centre
      top-k AAM head over 5994 classes, seeded random weights, bf16
@@ -177,7 +177,32 @@ Phases (any failure raises and the script exits non-zero):
      epoch ms/step, the host's wait, loss and accuracy; the extraction;
      Cavg and EER% (not gated). Checks: finite losses, the ark/scp read
      back, a finite Cavg, and no kernel launched (the counters read).
- 17. a "kernels" JSON line, then the device JSON as the last line.
+ 17. RepVggXvector served at full width and depth (repvgg.yaml: RepSPK
+     blocks 2-4-14-1, base 32, width (1, 1, 1, 2.5), embedding 256;
+     seeded random weights, running statistics away from (0, 1)) behind
+     make_wave_embed_fn on one [128, 160000] batch in bf16: the train
+     shape with K4 fused and unfused, and the deployed model
+     (deploy_repvgg_xvector, K4 fused), each held against the unfused
+     bf16 train shape on the plain front end (0.9999; the deployed bf16
+     model 0.999: its trunk rounds at other places) and the f32 train
+     shape on the f32 plain front end (0.999); the deployed f32 model
+     against the f32 train shape per utterance at 0.99999; the Extractor
+     run with each shape. After the counted window: ms/batch in turns and
+     which shape is the faster, one batch of each shape profiled, and K4
+     on the model's own pooling input [128, 125, 6400] as in 14.
+ 18. ECAPA-TDNN C1024 with MQMHA pooling (ecapa_roadmap.yaml) served with
+     its three Res2 chains unfused and fused (K3), held as in 6, the
+     Extractor run, timed in turns, one batch profiled.
+ 19. the lawlict ECAPA-TDNN C512 (ecapa_lawlict.yaml) served as in 6 (K1
+     its only kernel), the Extractor run, timed, one batch profiled.
+ 20. the train steps of the three models on their presets, as in 9 (B=128
+     x 2 s, bf16 on f32 masters, K1 in the step, 30 steps under the sync
+     check, the last loss below the first): RepVGG with AAM m=0.2 through
+     margin_softmax_v1, sgd 1e-2 on warmR; the MQMHA ECAPA with the
+     sub-centre top-k AAM head, adamW on 1cycle and MarginWarm; lawlict
+     with AM m=0.2, adamW on cyclic triangular2; then a narrow RepVGG's
+     f32 and f64 steps, card against CPU, with 8's bounds.
+ 21. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
 line) is device time over many launches back to back: one CUDA event, N
@@ -1043,7 +1068,8 @@ def _card_against_cpu(torch, family: str = "ecapa"):
     head = SUBCENTER_TOPK if family == "ecapa" else AAM
     what = {"ecapa": "SpeakerNet ECAPA C256", "resnet": "SpeakerNet ResNet base8 1-1-1-1",
             "conformer": "SpeakerNet Conformer 2L-64D-2H, dropout 0",
-            "ftdnn": "SpeakerNet F-TDNN width 0.125, use_semi_orth over step 0 (0 % 4 == 0)"}[family]
+            "ftdnn": "SpeakerNet F-TDNN width 0.125, use_semi_orth over step 0 (0 % 4 == 0)",
+            "repvgg": "SpeakerNet RepVGG RepSPK 1-1-1-1 base 8"}[family]
     semi = family == "ftdnn"
     wave, y = modulated_waves(8, SEED + 30)
     feats, seed = plain_features(wave), SEED + 32
@@ -2046,6 +2072,277 @@ def phase_olr(torch, device_label):
     return counts
 
 
+# The RepVGG x-vector, the roadmap ECAPA and the lawlict ECAPA
+# (recipes/configs/{repvgg,ecapa_roadmap,ecapa_lawlict}.yaml)
+REPVGG_COSINE = 0.99999  # the deployed f32 model against its train shape, per utterance
+
+
+def _seed_running_stats(torch, model, seed: int):
+    """BatchNorm running statistics away from (0, 1): means N(0, 0.1^2),
+    variances U[0.5, 2], so that a fold of the BNs into the convs shows."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            if name.endswith(".mean"):
+                b.copy_(torch.randn(b.shape, generator=g) * 0.1)
+            elif name.endswith(".var"):
+                b.copy_(torch.rand(b.shape, generator=g) * 1.5 + 0.5)
+    return model
+
+
+def _served_batch(torch, seed: int):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wave = torch.randn((BATCH, SAMPLES), generator=gen, device=dev) * 1000.0
+    mask = torch.ones((BATCH, SAMPLES), dtype=torch.bool, device=dev)
+    return [wave * (1.0 + 1e-4 * i) for i in range(4)], mask
+
+
+def _hold(torch, label: str, emb, embd: int, refs: dict) -> None:
+    """emb finite and [BATCH, embd]; its least per-utterance cosine against
+    each reference of ``refs`` ({what: (embeddings, bar)}) at its bar."""
+    check(tuple(emb.shape) == (BATCH, embd) and bool(torch.isfinite(emb.float()).all()),
+          f"served {label} embeddings not finite or of the wrong shape")
+    got = {what: (float(cosine(emb, ref).min()), bar) for what, (ref, bar) in refs.items()}
+    print(f"served {label}: min per-utterance cosine " + ", ".join(f"vs {w} {c:.6f} (>= {b})"
+                                                                    for w, (c, b) in got.items()), flush=True)
+    check(all(c >= b for c, b in got.values()), f"served {label} embeddings disagree with the references")
+
+
+def _turns(torch, label: str, runs: dict, waves, mask, device_label: str) -> dict:
+    """ms/batch of each run of ``runs`` in turns (a, b, ..., ..., b, a),
+    the best of each printed beside the turns."""
+    order = list(runs) + list(runs)[::-1]
+    turns = [(name, timed_batches(torch, runs[name], waves, mask, iters=3)) for name in order]
+    best = {name: min(ms for n, ms in turns if n == name) for name in runs}
+    audio_s = BATCH * SAMPLES / 16.0
+    print(f"served {label} [{BATCH},{SAMPLES}] ms/batch on {device_label}: "
+          + ", ".join(f"{name} {ms:.2f} ({audio_s / ms:.0f} audio-s/s)" for name, ms in best.items())
+          + " (turns " + " ".join(f"{n} {ms:.2f}" for n, ms in turns) + ")", flush=True)
+    return best
+
+
+def phase_served_repvgg(torch, device_label):
+    """RepVggXvector at full width and depth from repvgg.yaml (RepSPK blocks
+    2-4-14-1, base 32, width (1, 1, 1, 2.5), embedding 256; seeded random
+    weights and running statistics away from (0, 1)), bf16, behind
+    make_wave_embed_fn on one [128, 160000] batch: the train shape with the
+    statistics pooling fused (K4) and unfused, and the deployed model
+    (deploy_repvgg_xvector: one 5x5 conv a block, K4 fused). Each is held
+    against the unfused bf16 train shape on the plain front end and the
+    f32 train shape on the f32 plain front end; the deployed f32 model
+    against the f32 train shape on the same features at REPVGG_COSINE.
+    Then the Extractor run as in 6. After the counted window: ms/batch in
+    turns (which of the two shapes is faster is printed), one batch of
+    each shape profiled, and K4 on the model's own pooling input
+    [128, 125, 6400]."""
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.models import RepVggXvector, deploy_repvgg_xvector
+    from asv_subtools_tpu_torch.train.step_check import OPTS
+    from asv_subtools_tpu_torch.weights import init_weights_
+
+    model32 = _seed_running_stats(torch, init_weights_(RepVggXvector(80, base_channels=32, device="cpu"), SEED + 100),
+                                  SEED + 101).cuda()
+    off16 = copy.deepcopy(model32).to(torch.bfloat16)
+    on16 = copy.deepcopy(off16)
+    on16.head.stats.fused_inference = True
+    dep32 = deploy_repvgg_xvector(model32)
+    dep16 = copy.deepcopy(dep32).to(torch.bfloat16)
+    dep16.head.stats.fused_inference = True
+    waves, mask = _served_batch(torch, SEED + 102)
+    wrap = lambda model: make_wave_embed_fn(lambda x, m: model(x, m), OPTS, dtype=torch.bfloat16)
+    embed = {"train shape, fused pooling": wrap(on16), "train shape, unfused": wrap(off16),
+             "deployed, fused pooling": wrap(dep16)}
+    with torch.inference_mode():
+        ref16 = _plain_embed(torch, off16, OPTS, torch.bfloat16, torch.bfloat16)(waves[0], mask)
+        ref32 = _plain_embed(torch, model32, OPTS, torch.float32, torch.float32)(waves[0], mask)
+        dep_ref32 = _plain_embed(torch, dep32, OPTS, torch.float32, torch.float32)(waves[0], mask)
+        c = float(cosine(dep_ref32, ref32).min())
+        print(f"RepVGG deployed f32 vs train shape f32 on the same f32 plain features: min per-utterance cosine "
+              f"{c:.7f} (>= {REPVGG_COSINE})", flush=True)
+        check(c >= REPVGG_COSINE, "the deployed RepVGG disagrees with its train shape")
+        del dep_ref32
+        torch.cuda.synchronize()
+
+        # the main path: counters from zero
+        zero_launches()
+        for name, fn in embed.items():
+            emb = fn(waves[0], mask)
+            torch.cuda.synchronize()
+            # the deployed bf16 trunk rounds at other places (one folded
+            # 5x5 conv where the train shape sums three bf16 branches): it
+            # is held at the bar of bf16 against f32 on both references
+            bar16 = 0.999 if name.startswith("deployed") else 0.9999
+            _hold(torch, f"RepVGG bf16 {name}", emb, 256,
+                  {"the unfused train shape + plain front end (bf16)": (ref16, bar16),
+                   "the f32 train shape + f32 plain front end": (ref32, 0.999)})
+    server_run(torch, embed["train shape, fused pooling"], "RepVGG train shape")
+    server_run(torch, embed["deployed, fused pooling"], "RepVGG deployed")
+    counts = read_launches("RepVGG served", ("fused_fbank", "fused_stats_pooling"))
+
+    with torch.inference_mode():
+        best = _turns(torch, "RepVGG bf16", embed, waves, mask, device_label)
+        fast = min(("train shape, fused pooling", "deployed, fused pooling"), key=best.get)
+        print(f"served RepVGG: the faster of the two shapes on this card is the {fast.split(',')[0]} "
+              f"(5x5 deploy convs: about 41.5 GMAC an utterance; the train shape's branches 18/25 of that)",
+              flush=True)
+        for name in ("train shape, fused pooling", "deployed, fused pooling"):
+            profile_served_batch(torch, lambda: embed[name](waves[0], mask), what=f"one served RepVGG batch ({name})")
+        seen = {}
+        hook = on16.head.stats.register_forward_hook(lambda mod, args, out: seen.update(x=args[0], mask=args[1]))
+        embed["train shape, fused pooling"](waves[0], mask)
+        hook.remove()
+        _k4_on_the_model(torch, seen["x"], seen["mask"], "RepVGG")
+    return counts
+
+
+def phase_served_roadmap_ecapa(torch, device_label):
+    """ECAPA-TDNN C1024 with MQMHA pooling (ecapa_roadmap.yaml: 2 queries x
+    2 heads, embedding 192; seeded random weights), bf16, behind
+    make_wave_embed_fn on one [128, 160000] batch, with its three Res2
+    chains unfused and fused (K3); held and timed as in 6, one batch
+    profiled, the Extractor run."""
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.models import EcapaTdnn, Res2NetBlock
+    from asv_subtools_tpu_torch.nn import fused_res2_chain
+    from asv_subtools_tpu_torch.train.step_check import OPTS, ROADMAP_ECAPA
+    from asv_subtools_tpu_torch.weights import init_weights_
+
+    model32 = init_weights_(EcapaTdnn(80, channels=1024, embd_dim=192, **ROADMAP_ECAPA), SEED + 110)
+    off16 = copy.deepcopy(model32).to(torch.bfloat16)
+    on16 = copy.deepcopy(off16)
+    chains = [m for m in on16.modules() if isinstance(m, Res2NetBlock)]
+    check(len(chains) == 3, f"expected 3 Res2NetBlocks, found {len(chains)}")
+    for m in chains:
+        m.fused_inference = True
+    waves, mask = _served_batch(torch, SEED + 111)
+    wrap = lambda model: make_wave_embed_fn(lambda x, m: model(x, m), OPTS, dtype=torch.bfloat16)
+    embed = {"chains unfused": wrap(off16), "chains fused": wrap(on16)}
+    with torch.inference_mode():
+        ref16 = _plain_embed(torch, off16, OPTS, torch.bfloat16, torch.bfloat16)(waves[0], mask)
+        ref32 = _plain_embed(torch, model32, OPTS, torch.float32, torch.float32)(waves[0], mask)
+        torch.cuda.synchronize()
+
+        # the main path: counters from zero
+        zero_launches()
+        emb_off = embed["chains unfused"](waves[0], mask)
+        _hold(torch, "ECAPA C1024 MQMHA bf16, chains unfused", emb_off, 192,
+              {"the same model + plain front end (bf16)": (ref16, 0.9999),
+               "the f32 model + f32 plain front end": (ref32, 0.999)})
+        emb_on = embed["chains fused"](waves[0], mask)
+        torch.cuda.synchronize()
+        # phase 6's bars for the fused chains: the two bf16 paths round at
+        # other places
+        _hold(torch, "ECAPA C1024 MQMHA bf16, chains fused", emb_on, 192,
+              {"the unfused bf16 model": (emb_off, 0.999), "the f32 model + f32 plain front end": (ref32, 0.999)})
+        check(fused_res2_chain.last_route == "tensor_core", "the served Res2 chains left the tensor-core kernel")
+    server_run(torch, embed["chains fused"], "ECAPA C1024 MQMHA")
+    counts = read_launches("ECAPA C1024 MQMHA served", ("fused_fbank", "fused_res2_chain"))
+    with torch.inference_mode():
+        _turns(torch, "ECAPA C1024 MQMHA bf16", embed, waves, mask, device_label)
+        profile_served_batch(torch, lambda: embed["chains fused"](waves[0], mask),
+                             what="one served ECAPA C1024 MQMHA batch (chains fused)")
+    return counts
+
+
+def phase_served_lawlict(torch, device_label):
+    """The lawlict ECAPA-TDNN C512 (ecapa_lawlict.yaml: embedding 192; seeded
+    random weights), bf16, behind make_wave_embed_fn on one [128, 160000]
+    batch; held and timed as in 6, one batch profiled, the Extractor run.
+    K1 is its only kernel."""
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.models import EcapaLawlict
+    from asv_subtools_tpu_torch.train.step_check import OPTS
+    from asv_subtools_tpu_torch.weights import init_weights_
+
+    model32 = init_weights_(EcapaLawlict(80, channels=512, embd_dim=192), SEED + 120)
+    model16 = copy.deepcopy(model32).to(torch.bfloat16)
+    waves, mask = _served_batch(torch, SEED + 121)
+    embed = make_wave_embed_fn(lambda x, m: model16(x, m), OPTS, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        ref16 = _plain_embed(torch, model16, OPTS, torch.bfloat16, torch.bfloat16)(waves[0], mask)
+        ref32 = _plain_embed(torch, model32, OPTS, torch.float32, torch.float32)(waves[0], mask)
+        torch.cuda.synchronize()
+
+        # the main path: counters from zero
+        zero_launches()
+        emb = embed(waves[0], mask)
+        torch.cuda.synchronize()
+        _hold(torch, "ECAPA lawlict C512 bf16", emb, 192,
+              {"the same model + plain front end (bf16)": (ref16, 0.9999),
+               "the f32 model + f32 plain front end": (ref32, 0.999)})
+    server_run(torch, embed, "ECAPA lawlict C512")
+    counts = read_launches("ECAPA lawlict C512 served", ("fused_fbank",))
+    with torch.inference_mode():
+        _turns(torch, "ECAPA lawlict C512 bf16", {"bf16": embed}, waves, mask, device_label)
+        profile_served_batch(torch, lambda: embed(waves[0], mask), what="one served ECAPA lawlict C512 batch")
+    return counts
+
+
+def _warm_step(step, warm):
+    """``step`` with the margin warm-up's (offset, lambda) of each step fed
+    in as Python numbers (the host counts the steps: no wait on the card)."""
+    count = [0]
+
+    def run(state, batch, gen):
+        offset, lam = warm.step(count[0])
+        count[0] += 1
+        return step(state, batch, gen, lambda_m=lam, margin_offset=offset)
+
+    return run
+
+
+def phase_train_new(torch, device_label):
+    """The train steps of RepVggXvector, the MQMHA ECAPA C1024 and the
+    lawlict ECAPA C512 on their presets (5994 classes): RepVGG with AAM
+    m=0.2 through margin_softmax_v1 and sgd 1e-2 on warmR t_0 20000
+    (repvgg.yaml); the MQMHA ECAPA with the sub-centre top-k AAM head and
+    adamW (wd 5e-5) on 1cycle (max_lr 2e-3, 90000 steps), MarginWarm(1, 3,
+    -0.2, 0.0, epoch_iter 10000) feeding the margin (ecapa_roadmap.yaml);
+    lawlict with AM m=0.2 s=30 and adamW (wd 5e-5) on cyclic triangular2
+    (1e-8..1e-3, up 15000; ecapa_lawlict.yaml). Each as in 9: B=128 x 2 s
+    of raw waves, bf16 on f32 masters, K1 in the step, 30 steps on one
+    fixed batch under the sync check, 20 timed, one profiled, the last loss
+    below the first. Then a narrow RepVGG's (blocks 1-1-1-1, base 8) f32
+    and f64 steps, card against CPU, with 8's bounds."""
+    from asv_subtools_tpu_torch.nn import MarginWarm
+    from asv_subtools_tpu_torch.train import (TrainStepConfig, cyclic, get_lr_schedule, get_optimizer,
+                                              init_train_state, make_train_step, one_cycle)
+    from asv_subtools_tpu_torch.train.step_check import (LAWLICT_AM, ROADMAP_ECAPA, ROADMAP_HEAD, ecapa_net,
+                                                         lawlict_net, repvgg_net)
+
+    runs = (
+        ("RepVGG", lambda: repvgg_net(seed=SEED + 130), lambda: get_lr_schedule("warmR", base_lr=1e-2, t_0=20000),
+         lambda sched: get_optimizer("sgd", sched), None, "sgd momentum 0.9 wd 1e-4 warmR 1e-2"),
+        ("ECAPA C1024 MQMHA", lambda: ecapa_net(ROADMAP_HEAD, SEED + 131, channels=1024, **ROADMAP_ECAPA),
+         lambda: one_cycle(max_lr=2e-3, total_steps=90000),
+         lambda sched: get_optimizer("adamW", sched, weight_decay=5e-5), MarginWarm(1, 3, -0.2, 0.0, epoch_iter=10000),
+         "adamW wd 5e-5 1cycle 2e-3, MarginWarm"),
+        ("ECAPA lawlict C512", lambda: lawlict_net(LAWLICT_AM, SEED + 132),
+         lambda: cyclic(base_lr=1e-8, max_lr=1e-3, step_size_up=15000, mode="triangular2"),
+         lambda sched: get_optimizer("adamW", sched, weight_decay=5e-5), None,
+         "adamW wd 5e-5 cyclic triangular2 1e-8..1e-3"),
+    )
+    counts = {}
+    for i, (label, make_net, make_sched, make_tx, warm, opt) in enumerate(runs):
+        opts, gen, wave, labels = _train_batch(torch, SEED + 135 + i)
+        net = make_net()
+        schedule = make_sched()
+        tx = make_tx(schedule)
+        state = init_train_state(net, tx, "cuda")
+        step = make_train_step(net, tx, schedule, TrainStepConfig(compute_dtype=torch.bfloat16, wave_input=True,
+                                                                  fbank_opts=opts))
+        if warm is not None:
+            step = _warm_step(step, warm)
+        c = run_fixed_batch(torch, step, state, {"x": wave, "y": labels}, gen, f"train {label} bf16",
+                            f"{label} train step", device_label, falls_to=1.0, opt=opt)
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        del state, step, net
+        torch.cuda.empty_cache()
+    _card_against_cpu(torch, "repvgg")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2089,6 +2386,14 @@ def main() -> int:
     paths.append(phase_train_xvector(torch, smi))
     torch.cuda.empty_cache()
     paths.append(phase_olr(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_served_repvgg(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_served_roadmap_ecapa(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_served_lawlict(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_train_new(torch, smi))
     for kernel_name, k in kernels.items():
         k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -49,6 +49,15 @@ served SnowdarXvector batch (512 channels, bf16, the fused pooling)
 against the f32 model on the f32 plain front end at cosine 0.999, K4
 launched once.
 
+RepVGG, the lawlict ECAPA and the MQMHA ECAPA: K4 on RepVGG's pooling
+input [128, 125, 6400] bf16 (12,800-byte rows: the ring kernel), rtol
+1e-4 / atol 1e-5 against the plain version; a RepVggXvector (RepSPK,
+blocks 1-2-2-1, base 16, running statistics away from (0, 1)) deployed
+against its train shape on the card in f32, TF32 off, at per-utterance
+cosine 0.99999; one bf16 forward of each of the three models, card
+against CPU, at cosine 0.999 (both round every layer to bf16, in other
+orders).
+
 The scoring back end's device functions (f32, TF32 off): asnorm_device at
 E=100, T=130 against a cohort of 600 (top 64) and at the scale of
 tests/test_backend_scale.py (600 x 970, cohort 5,994, top 300) against
@@ -825,4 +834,68 @@ def test_served_xvector_with_the_fused_pooling(card):
         ref = model32(cmvn_utterance(feats, mask=fmask) * fmask[..., None], fmask)
     assert emb.shape == (8, 512) and bool(torch.isfinite(emb.float()).all())
     cos = torch.nn.functional.cosine_similarity(emb.float(), ref, dim=-1)
+    assert float(cos.min()) >= 0.999, cos
+
+
+def test_stats_pooling_kernel_on_the_repvgg_pooling_input(card):
+    """RepVggXvector's pooling input at B=128 x 10 s: [128, 125, 6400] bf16
+    (F'=10 x C=640, contiguous after the flatten), masked."""
+    g = torch.Generator(device=card).manual_seed(11)
+    x = (torch.randn((128, 125, 6400), generator=g, device=card) + 0.5).to(torch.bfloat16)
+    lengths = torch.linspace(20, 125, 128, device=card).long()
+    mask = torch.arange(125, device=card)[None, :] < lengths[:, None]
+    got = fused_stats_pooling(x, mask)
+    assert fused_stats_pooling.last_route == "ring" and got.shape == (128, 12800)
+    torch.testing.assert_close(got, fused_stats_pooling_plain(x, mask), atol=1e-5, rtol=1e-4)
+
+
+def _seeded_stats(model, seed):
+    """Running statistics away from (0, 1), so that a fold shows them."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            if name.endswith(".mean"):
+                b.copy_(torch.randn(b.shape, generator=g) * 0.1)
+            elif name.endswith(".var"):
+                b.copy_(torch.rand(b.shape, generator=g) * 1.5 + 0.5)
+    return model
+
+
+def test_deployed_repvgg_matches_the_train_shape_on_the_card(card):
+    from asv_subtools_tpu_torch.models import RepVggXvector, deploy_repvgg_xvector
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = _seeded_stats(init_weights_(RepVggXvector(80, num_blocks=(1, 2, 2, 1), base_channels=16,
+                                                      device="cpu"), 3), 4).to(card)
+    deployed = deploy_repvgg_xvector(model)
+    assert next(deployed.parameters()).is_cuda
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn((8, 300, 80), generator=g, device=card)
+    mask = torch.arange(300, device=card)[None, :] < torch.linspace(100, 300, 8, device=card).long()[:, None]
+    with torch.inference_mode():
+        a, b = model(x, mask), deployed(x, mask)
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    assert float(cos.min()) >= 0.99999, cos
+
+
+@pytest.mark.parametrize("family", ["repvgg", "lawlict", "roadmap_ecapa"])
+def test_new_models_bf16_forward_card_against_cpu(card, family):
+    import copy
+
+    from asv_subtools_tpu_torch.models import EcapaLawlict, EcapaTdnn, RepVggXvector
+    from asv_subtools_tpu_torch.train.step_check import ROADMAP_ECAPA
+
+    make = {"repvgg": lambda: RepVggXvector(80, num_blocks=(1, 2, 2, 1), base_channels=16, device="cpu"),
+            "lawlict": lambda: EcapaLawlict(80, channels=128, device="cpu"),
+            "roadmap_ecapa": lambda: EcapaTdnn(80, channels=128, mfa_conv=384, **ROADMAP_ECAPA, device="cpu")}[family]
+    cpu = _seeded_stats(init_weights_(make(), 6), 7).to(torch.bfloat16)
+    on_card = copy.deepcopy(cpu).to(card)
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((4, 200, 80), generator=g).to(torch.bfloat16)
+    mask = torch.arange(200)[None, :] < torch.tensor([200, 150, 90, 40])[:, None]
+    with torch.inference_mode():
+        got = on_card(x.to(card), mask.to(card)).float().cpu()
+        ref = cpu(x, mask).float()
+    assert bool(torch.isfinite(got).all())
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
     assert float(cos.min()) >= 0.999, cos

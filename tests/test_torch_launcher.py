@@ -184,19 +184,9 @@ def _jax_init_variables(params):
     return jax.tree_util.tree_map(np.asarray, jax.device_get(variables))
 
 
-def test_launcher_against_jax_launcher(corpus, tmp_path):
-    base = _params(corpus, "", epochs=1)
-    base["data"]["spec_aug"] = False
-    # sgd at a small rate: an f32 step of a narrow net with train-mode
-    # BatchNorm at B=8 is ill-conditioned (the two sides' rounding grows
-    # about 20-fold a step at lr 0.05); at 1e-3 the weights move little and
-    # the losses compare the batches, margins and schedules step by step
-    base["train"]["optimizer"] = {"name": "sgd", "learning_rate": 1e-3}
-    base["train"]["lr_schedule"] = {"name": "constant", "base_lr": 1e-3}
-    base["loss"] = {"name": "margin_softmax_v1", "params": {"method": "aam", "m": 0.2, "s": 30.0, "sub_k": 2,
-                                                            "adapt_method": "topk", "topk": 5}}
-    base["train"]["margin_warm"] = {"start_epoch": 1, "end_epoch": 2, "offset_margin": -0.2, "init_lambda": 0.0,
-                                    "epoch_iter": 4}
+def _losses_against_jax(base, tmp_path):
+    """The four per-step losses of one epoch of ``base`` through the JAX
+    Launcher and through the port's, both from one JAX init."""
     variables = _jax_init_variables(dict(base, exp_dir=str(tmp_path / "init")))
     jax_ckpt = str(tmp_path / "jax_init")
 
@@ -223,8 +213,139 @@ def test_launcher_against_jax_launcher(corpus, tmp_path):
         launcher.build_model()
         launcher.train(egs)
         losses[side] = np.asarray(_step_losses(exp))
+    return losses
+
+
+def test_launcher_against_jax_launcher(corpus, tmp_path):
+    base = _params(corpus, "", epochs=1)
+    base["data"]["spec_aug"] = False
+    # sgd at a small rate: an f32 step of a narrow net with train-mode
+    # BatchNorm at B=8 is ill-conditioned (the two sides' rounding grows
+    # about 20-fold a step at lr 0.05); at 1e-3 the weights move little and
+    # the losses compare the batches, margins and schedules step by step
+    base["train"]["optimizer"] = {"name": "sgd", "learning_rate": 1e-3}
+    base["train"]["lr_schedule"] = {"name": "constant", "base_lr": 1e-3}
+    base["loss"] = {"name": "margin_softmax_v1", "params": {"method": "aam", "m": 0.2, "s": 30.0, "sub_k": 2,
+                                                            "adapt_method": "topk", "topk": 5}}
+    base["train"]["margin_warm"] = {"start_epoch": 1, "end_epoch": 2, "offset_margin": -0.2, "init_lambda": 0.0,
+                                    "epoch_iter": 4}
+    losses = _losses_against_jax(base, tmp_path)
     assert len(losses["jax"]) == len(losses["port"]) == 4
     np.testing.assert_allclose(losses["port"], losses["jax"], rtol=LOSS_RTOL)
+
+
+def test_repvgg_launcher_against_jax_launcher(corpus, tmp_path):
+    """repvgg.yaml's head and optimizer (AAM m=0.2 through
+    margin_softmax_v1, sgd on warmR) with a narrow RepSPK trunk (blocks
+    1-1-1-1, base 4), four steps, on the terms of the test above."""
+    base = _params(corpus, "", epochs=1)
+    base["data"]["spec_aug"] = False
+    base["model"] = {"name": "repvgg_xvector", "params": {"base_channels": 4, "num_blocks": [1, 1, 1, 1],
+                                                          "embd_dim": 16}}
+    base["loss"] = {"name": "margin_softmax_v1", "params": {"method": "aam", "m": 0.2}}
+    base["train"]["optimizer"] = {"name": "sgd", "learning_rate": 1e-3}
+    base["train"]["lr_schedule"] = {"name": "warmR", "base_lr": 1e-3, "t_0": 20000}
+    losses = _losses_against_jax(base, tmp_path)
+    assert len(losses["jax"]) == len(losses["port"]) == 4
+    np.testing.assert_allclose(losses["port"], losses["jax"], rtol=LOSS_RTOL)
+
+
+# the four presets of this family: the preset's model at full width, and a
+# narrow copy of it (its head, optimizer and schedule as they are) trained
+PRESETS = {
+    "repvgg": ({"base_channels": 4, "num_blocks": [1, 1, 1, 1], "embd_dim": 16}, "RepVggXvector", 256),
+    "ecapa_lawlict": ({"channels": 32, "embd_dim": 16}, "EcapaLawlict", 192),
+    "ecapa_roadmap": ({"channels": 32, "mfa_conv": 48, "embd_dim": 16}, "EcapaTdnn", 192),
+    "ecapa_roadmap_lm": ({"channels": 32, "mfa_conv": 48, "embd_dim": 16}, "EcapaTdnn", 192),
+}
+
+
+def _preset(corpus, exp, name):
+    from asv_subtools_tpu_torch.utils import load_yaml
+
+    params = load_yaml(os.path.join("recipes", "configs", f"{name}.yaml"))
+    data = _params(corpus, exp)["data"]
+    params["data"] = dict(params.get("data", {}), **{k: data[k] for k in ("train_wav_scp", "train_utt2spk",
+                                                                         "num_bins", "workers", "shuffle_buffer")},
+                          batch_size=8, chunk_seconds=1.0, num_workers=1)
+    params["exp_dir"] = exp
+    params["train"] = dict(params["train"], epochs=1, compute_dtype="float32", report_interval=1, transfer=None)
+    return params
+
+
+@pytest.mark.parametrize("name", list(PRESETS))
+def test_presets_build_and_train_through_the_launcher(corpus, tmp_path, name):
+    narrow, cls, embd = PRESETS[name]
+    params = _preset(corpus, str(tmp_path / "exp"), name)
+    launcher = Launcher(params, device="cpu")
+    launcher.build_egs()
+    net = launcher.build_model()  # the preset's width
+    assert type(net.backbone).__name__ == cls and net.backbone.embd_dim == embd
+    if name.startswith("ecapa_roadmap"):
+        assert net.backbone.bn_stats.mean.shape == (6144,)  # mqmha, 2 queries x 1536
+        assert type(net.loss).__name__ == "MarginSoftmaxLossV1" and net.loss.sub_k == 2
+    if name == "repvgg":
+        assert net.backbone.repvgg.block == "spk" and net.backbone.repvgg.output_dim(80) == 6400
+    params["model"]["params"] = dict(params["model"]["params"], **narrow)
+    launcher = Launcher(params, device="cpu")
+    egs = launcher.build_egs()
+    launcher.build_model()
+    launcher.train(egs)
+    losses = _step_losses(str(tmp_path / "exp"))
+    assert len(losses) >= 3 and all(np.isfinite(losses))
+
+
+def test_roadmap_two_phase_run_with_transfer(corpus, tmp_path):
+    """ecapa_roadmap then ecapa_roadmap_lm, as JAX's
+    test_two_phase_roadmap_end_to_end runs them (tests/test_launcher.py):
+    phase 1 trains the MQMHA ECAPA with the sub-centre top-k AAM head and
+    the margin warm-up; phase 2 takes everything but the classifier from
+    phase 1's checkpoint (exclude: [loss]) and fine-tunes with the larger
+    margin and longer chunks at lr 2e-5; then extraction on the MQMHA path."""
+    from asv_subtools_tpu_torch.utils import load_yaml
+
+    base = load_yaml("recipes/configs/ecapa_roadmap.yaml")
+    lm = load_yaml("recipes/configs/ecapa_roadmap_lm.yaml")
+    tiny = {"name": "ecapa_tdnn", "params": dict(base["model"]["params"], channels=32, embd_dim=16, mfa_conv=48)}
+    data = {k: v for k, v in _params(corpus, "")["data"].items() if k != "spec_aug"}
+    data.update(batch_size=8, shuffle_buffer=8, chunk_seconds=0.6)
+    p1 = {"exp_dir": str(tmp_path / "exp_roadmap"), "data": data, "model": tiny,
+          "loss": {"name": base["loss"]["name"], "params": dict(base["loss"]["params"], topk=3)},
+          "train": {"epochs": 2, "optimizer": {"name": "adamW", "learning_rate": 2e-3},
+                    "lr_schedule": {"name": "1cycle", "max_lr": 2e-3, "total_steps": 24},
+                    "margin_warm": dict(base["train"]["margin_warm"], epoch_iter=3), "compute_dtype": "float32",
+                    "report_interval": 100},
+          "extract": {"mode": "wave", "batch": 8, "workers": 2}}
+    l1 = Launcher(p1, device="cpu")
+    egs1 = l1.build_egs()
+    l1.build_model()
+    assert l1.params["loss"]["params"]["sub_k"] == 2 and l1.params["loss"]["params"]["adapt_method"] == "topk"
+    state1 = l1.train(egs1)
+    ckpt = os.path.join(p1["exp_dir"], "checkpoints", "2.params")
+    assert os.path.exists(ckpt)
+
+    p2 = {"exp_dir": str(tmp_path / "exp_roadmap_lm"), "data": dict(data, chunk_seconds=1.0), "model": tiny,
+          "loss": {"name": lm["loss"]["name"], "params": dict(lm["loss"]["params"], topk=3)},
+          "train": {"epochs": 1, "optimizer": {"name": "adamW", "learning_rate": 2e-5},
+                    "lr_schedule": {"name": "constant", "base_lr": 2e-5}, "compute_dtype": "float32",
+                    "transfer": {"from": ckpt, "exclude": ["loss"]}, "report_interval": 100},
+          "extract": p1["extract"]}
+    l2 = Launcher(p2, device="cpu")
+    egs2 = l2.build_egs()
+    l2.build_model()
+    assert l2.params["loss"]["params"]["m"] == 0.5
+    state2 = l2.train(egs2)
+    # the transfer carried phase 1's backbone: at lr 2e-5 phase 2 stays
+    # near it, where a fresh init would differ at O(0.1); the classifier
+    # was not carried
+    keys = [k for k in state1.params if k.startswith("backbone.")]
+    drift = max(float((state1.params[k] - state2.params[k]).abs().max()) for k in keys)
+    assert drift < 5e-3, drift
+    assert not torch.allclose(state1.params["loss.weight"], state2.params["loss.weight"])
+    stats = l2.extract(os.path.join(corpus, "eval", "wav.scp"), str(tmp_path / "xv_lm"))
+    assert stats["utts"] == 8
+    embs = dict(jax_read_vec_flt_scp(str(tmp_path / "xv_lm.scp")))
+    assert len(embs) == 8 and all(v.shape == (16,) and np.isfinite(v).all() for v in embs.values())
 
 
 @pytest.mark.parametrize("change,item", [
@@ -233,9 +354,8 @@ def test_launcher_against_jax_launcher(corpus, tmp_path):
     ({"data": {"feat_backend": "native"}}, 10),
     ({"train": {"fsdp": True}}, 5),
     ({"train": {"sam": {"rho": 0.05}}}, 4),
-    ({"model": {"name": "fd_xvector", "params": {}}}, 8),
-    ({"model": {"name": "multi_task_xvector", "params": {}}}, 8),
-    ({"model": {"name": "repvgg_xvector", "params": {}}}, 8),
+    ({"model": {"name": "fd_xvector", "params": {}}}, 4),
+    ({"model": {"name": "multi_task_xvector", "params": {}}}, 4),
 ])
 def test_unported_options_raise(corpus, tmp_path, change, item):
     params = _params(corpus, str(tmp_path / "exp"))

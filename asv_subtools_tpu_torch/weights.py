@@ -56,6 +56,7 @@ import torch
 from torch import nn
 
 from .device import resolve_device
+from .nn.loss import LOSSES, MARGIN_LOSSES
 from .train.trainer import TrainState
 
 _SPLIT_CONV = "att1"
@@ -179,13 +180,19 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
     (xavier), the LDE centres ``mu`` standard normal and its ``s`` 1, the
     xi-vector prior and the learnable temperatures 0, the one-class head's
     ``center`` uniform in +-sqrt(0.75) (flax's variance_scaling(0.25,
-    "fan_in", "uniform") of a ``[1, D]`` kernel). The logistic affinity
-    head's ``w`` and ``b`` keep their constructor's constants."""
+    "fan_in", "uniform") of a ``[1, D]`` kernel), the margin heads'
+    classifier ``weight`` normal with std 0.01 (flax's normal(0.01), JAX
+    nn/loss.py:133, 250). The logistic affinity head's ``w`` and ``b``
+    keep their constructor's constants."""
+    margin_heads = tuple(LOSSES[name] for name in MARGIN_LOSSES)
+    classifiers = {id(m.weight) for m in model.modules() if isinstance(m, margin_heads)}
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("weight", "kernel"):
+            if id(p) in classifiers:
+                p.copy_((torch.randn(p.shape, generator=gen) * 0.01).to(device=p.device, dtype=p.dtype))
+            elif leaf in ("weight", "kernel"):
                 fan_in = math.prod(p.shape[1:]) if leaf == "weight" else math.prod(p.shape[:-1])
                 w = torch.randn(p.shape, generator=gen) * fan_in ** -0.5
                 p.copy_(w.to(device=p.device, dtype=p.dtype))

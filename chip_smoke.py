@@ -47,8 +47,8 @@ Phases (any failure raises and the script exits non-zero):
      statistics pooling on, held against the same model with the flag off
      fed by the plain front end and against an f32 model on the f32 plain
      front end; timed with the flag on and off; one batch profiled; then the Extractor run as in 6.
-     The launch counters are zeroed just before each of the fifteen main
-     paths (6 to 20) drives the port and read just after; every kernel
+     The launch counters are zeroed just before each of the sixteen main
+     paths (6 to 21) drives the port and read just after; every kernel
      of a path must have been launched in it.
   8. the train step of ECAPA-TDNN C1024 (SpeakerNet with the sub-centre
      top-k AAM head over 5994 classes, seeded random weights, bf16
@@ -202,7 +202,25 @@ Phases (any failure raises and the script exits non-zero):
      sub-centre top-k AAM head, adamW on 1cycle and MarginWarm; lawlict
      with AM m=0.2, adamW on cyclic triangular2; then a narrow RepVGG's
      f32 and f64 steps, card against CPU, with 8's bounds.
- 21. a "kernels" JSON line, then the device JSON as the last line.
+ 21. the repo's EER gates through the port's own functions
+     (asv_subtools_tpu_torch/recipes: the counterparts of recipes/
+     quality_gate.py, roadmap_gate.py, antispoof_gate.py,
+     adaptation_gate.py, demo_synthetic.py and repvgg_deploy_gate.py) at a
+     cut: the quality gate (seed 7, 48 speakers, ECAPA C128, B=64 x 2 s,
+     bf16, K1 in the step), the anti-spoof gate (OCSoftmax, its pool of
+     480 pairs), the adaptation gate (48 + 24 + 24 speakers) and the demo
+     (64 harmonic voices, AS-norm) at GATE_STEPS steps each; the roadmap
+     gate's MQMHA config at GATE_STEPS steps and its LM finetune at
+     GATE_LM_STEPS; the RepVGG deploy gate on a synth_datadir corpus of
+     24 speakers x 8 + 4 utterances for one epoch. The gates' synthesis
+     renders in worker processes. Checks: every loss finite and the last
+     below the first (the roadmap's MarginWarm config: below the loss of
+     the step from which the margin is full; the LM finetune's 10 steps at
+     lr under 5e-5 and RepVGG's one epoch loss: finite),
+     each gate's JSON line holding its JAX counterpart's keys, the RepVGG
+     fold's mean cosine above 0.999, and K1 launched in the phase. The
+     EERs are printed, not gated, at this cut.
+ 22. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
 line) is device time over many launches back to back: one CUDA event, N
@@ -2343,6 +2361,106 @@ def phase_train_new(torch, device_label):
     return counts
 
 
+# The repo's EER gates at a cut (the full runs: 400-600 steps, 25 epochs)
+GATE_STEPS = 40
+GATE_LM_STEPS = 10
+GATE_KEYS = {
+    "quality": {"metric", "eer_percent", "band", "pass", "speakers", "train_steps", "final_loss", "final_acc",
+                "train_seconds", "device"},
+    "roadmap row": {"config", "eer_percent", "final_acc", "train_seconds"},
+    "roadmap": {"metric", "rows"},
+    "antispoof": {"metric", "cm_eer_percent", "min_tdcf", "band", "pass", "train_steps", "final_loss",
+                  "train_seconds", "device"},
+    "adaptation": {"metric", "eer_percent", "best_adaptation", "improves", "train_steps", "train_seconds",
+                   "device"},
+    "adaptation table": {"cosine", "plda_source", "plda_aplda", "plda_coral", "plda_coral_plus",
+                         "plda_indomain_only", "plda_lip_reg", "plda_cip_reg"},
+    "demo": {"speakers", "train_steps", "train_seconds", "final_loss", "eval_utts", "extract_seconds",
+             "eer_percent", "eer_asnorm_percent", "min_dcf_p05", "device"},
+    "repvgg": {"deploy_vs_train_mean_cosine", "eer_train", "eer_deploy"},
+}
+
+
+def phase_gates(torch, device_label):
+    """The repo's EER gates through the port's own functions, on the card,
+    at a cut (see 21 in the module docstring). Each gate prints its JSON
+    line; the EERs are not gated here."""
+    from asv_subtools_tpu_torch.recipes import (adaptation_gate, antispoof_gate, demo_synthetic, quality_gate,
+                                                repvgg_deploy_gate, roadmap_gate, synth_datadir)
+    from asv_subtools_tpu_torch.recipes.gate_corpus import Renderer
+
+    def has_keys(label, line, keys):
+        missing = keys - set(line)
+        check(not missing, f"the {label} gate's JSON line lacks {sorted(missing)}")
+
+    def finite(label, losses):
+        check(len(losses) > 0 and all(np.isfinite(losses)), f"a {label} gate loss was not finite: {losses}")
+
+    def falls(label, losses, start=0):
+        """Finite, and the last loss below the one at ``start`` (under
+        MarginWarm: the step from which the margin is full)."""
+        finite(label, losses)
+        check(losses[-1] < losses[start],
+              f"the {label} gate's loss did not fall: {losses[start]:.4f} at step {start + 1} -> {losses[-1]:.4f}")
+        print(f"gate {label}: loss {losses[start]:.4f} at step {start + 1} -> {losses[-1]:.4f} at step "
+              f"{len(losses)}", flush=True)
+
+    zero_launches()
+    t0 = time.perf_counter()
+    times = {}
+    out = quality_gate.run_gate(steps=GATE_STEPS, seed=7, device="cuda")
+    has_keys("quality", out, GATE_KEYS["quality"])
+    falls("quality", out["losses"])
+    times["quality"] = time.perf_counter() - t0
+
+    t = time.perf_counter()
+    out = roadmap_gate.run(steps=GATE_STEPS, lm_steps=GATE_LM_STEPS, configs=("mqmha",), device="cuda")
+    has_keys("roadmap", out, GATE_KEYS["roadmap"])
+    for row in out["rows"]:
+        has_keys("roadmap", row, GATE_KEYS["roadmap row"])
+    check([r["config"] for r in out["rows"]] == ["mqmha", "lm_finetune"], f"roadmap rows: {out['rows']}")
+    # the margin warms up over the first GATE_STEPS // 4 steps, raising the
+    # loss; the LM finetune's 10 steps at lr under 5e-5 only show it finite
+    falls("roadmap mqmha", out["losses"]["mqmha"], start=GATE_STEPS // 4)
+    finite("roadmap lm_finetune", out["losses"]["lm_finetune"])
+    times["roadmap"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    out = antispoof_gate.run_gate(steps=GATE_STEPS, device="cuda")
+    has_keys("antispoof", out, GATE_KEYS["antispoof"])
+    falls("antispoof", out["losses"])
+    times["antispoof"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    out = adaptation_gate.run_gate(steps=GATE_STEPS, device="cuda")
+    has_keys("adaptation", out, GATE_KEYS["adaptation"])
+    has_keys("adaptation", out["eer_percent"], GATE_KEYS["adaptation table"])
+    falls("adaptation", out["losses"])
+    times["adaptation"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    out = demo_synthetic.run(steps=GATE_STEPS, device="cuda")
+    has_keys("demo", out, GATE_KEYS["demo"])
+    falls("demo", out["losses"])
+    times["demo"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with Renderer() as render:
+            synth_datadir.write_datadir(f"{tmp}/data", spk=24, train_utts=8, eval_utts=4, render=render)
+        out = repvgg_deploy_gate.run_gate(f"{tmp}/data", f"{tmp}/exp", epochs=1, device="cuda")
+    has_keys("repvgg", out, GATE_KEYS["repvgg"])
+    finite("RepVGG", out["losses"])
+    check(out["deploy_vs_train_mean_cosine"] > repvgg_deploy_gate.MIN_COSINE,
+          f"the RepVGG fold's mean cosine {out['deploy_vs_train_mean_cosine']} is not above "
+          f"{repvgg_deploy_gate.MIN_COSINE}")
+    times["repvgg"] = time.perf_counter() - t
+    counts = read_launches("gates", ("fused_fbank",))
+    print("gates: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+          + f"; {time.perf_counter() - t0:.1f} s in all on {device_label}", flush=True)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2394,6 +2512,8 @@ def main() -> int:
     paths.append(phase_served_lawlict(torch, smi))
     torch.cuda.empty_cache()
     paths.append(phase_train_new(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_gates(torch, smi))
     for kernel_name, k in kernels.items():
         k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

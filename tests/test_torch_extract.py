@@ -187,12 +187,15 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     """Every module of the port, imported in a fresh interpreter, pulls in
-    neither JAX nor the JAX package."""
+    neither JAX nor the JAX package, nor the JAX gates' top-level
+    ``recipes`` and ``tools`` scripts (the port keeps its own copies)."""
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'asv_subtools_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'asv_subtools_tpu', 'recipes', 'tools')\n"
+        "           or m in ('quality_gate', 'roadmap_gate', 'antispoof_gate', 'adaptation_gate',\n"
+        "                    'demo_synthetic', 'repvgg_deploy_gate', 'make_synth_datadir'))\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('asv_subtools_tpu_torch')]))\n"
     )

@@ -12,9 +12,10 @@ checkpoints and the reporter. Scoring: the statistical back end
 classifiers, fusion, i-vectors, the metrics and ``ScoreSets``), f64 numpy
 on the host, with the cosine score matrices, ``asnorm_device`` and the
 PLDA LLR matrix (``llr_matrix_device``) in f32 on the card. The recipe's
-entry point, ``launcher.Launcher`` (stages 0-3: online wave egs from
-``data/``, training, extraction to a Kaldi ark/scp, scoring a trial list
-with EER and minDCF), runs as
+entry point, ``launcher.Launcher`` (stages 0-3: online wave egs or the
+offline chunk egs of ``data/``, training, with the multi-task and FD-AL
+x-vectors, SAM and the LR finder, extraction to a Kaldi ark/scp, scoring
+a trial list with EER and minDCF), runs as
 ``python -m asv_subtools_tpu_torch.recipes.voxceleb``. Public functions
 keep the JAX layouts: channels-last ``[B, T, C]`` and ``[B, T]`` masks,
 True = valid.

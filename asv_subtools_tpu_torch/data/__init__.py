@@ -1,6 +1,6 @@
-"""Data pipeline: wav sources, augmentation, chunking, batching (numpy and
-scipy; counterpart: asv_subtools_tpu/data). The offline chunk egs
-(asv_subtools_tpu/data/egs_offline.py) are not ported yet (ROADMAP)."""
+"""Data pipeline: wav sources, augmentation, chunking, batching, and the
+offline chunk egs over feature arks (numpy and scipy; counterpart:
+asv_subtools_tpu/data)."""
 
 from . import processor
 from .augment import (
@@ -26,6 +26,17 @@ from .dataset import (
     WavEgs,
     WavEgsXvector,
     build_spk2int,
+)
+from .egs_offline import (
+    Chunk,
+    ChunkEgs,
+    ChunkEgsMultiTask,
+    ChunkSamples,
+    build_chunk_egs_from_dir,
+    get_info_from_egsdir,
+    prepare_egs_dir,
+    read_ali_scp,
+    read_chunk_csv,
 )
 from .signal import (
     compute_amplitude,

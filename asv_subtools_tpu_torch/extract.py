@@ -28,6 +28,7 @@ from .io.kaldi import ArkScpWriter
 @dataclasses.dataclass
 class ExtractConfig:
     buckets: Sequence[int] = (200, 400, 800, 1600, 3200, 6400, 10000)
+    batch_sizes: Optional[Dict[int, int]] = None  # a bucket's batch size; default_batch elsewhere
     max_chunk: int = 10000
     default_batch: int = 32
 
@@ -130,13 +131,14 @@ class Extractor:
                     self._stats["utts"] += 1
             return out
 
+        batch_sizes = cfg.batch_sizes or {}
         for key, feats in items:
             chunks, weights = _chunk(np.asarray(feats, np.float32), cfg.max_chunk)
             expected[key] = len(chunks)
             for c, w in zip(chunks, weights):
                 b = _bucket_for(c.shape[0], cfg.buckets)
                 pending[b].append((key, c, w))
-                if len(pending[b]) >= cfg.default_batch:
+                if len(pending[b]) >= batch_sizes.get(b, cfg.default_batch):
                     yield from flush(b)
         for b in cfg.buckets:
             yield from flush(b)

@@ -1,6 +1,6 @@
 """Feature-extraction configuration (the port's own copy).
 
-Counterpart: asv_subtools_tpu/features/config.py:18-105. Frozen, hashable
+Counterpart: asv_subtools_tpu/features/config.py:18-105 and 156-169. Frozen, hashable
 dataclasses so the host-side constant caches in functional.py and
 fused_fbank.py can key on them. Semantics follow the Kaldi feature front
 end (kaldifeat feature-window.h, feature-fbank.h, mel-computations.h).
@@ -99,6 +99,18 @@ class FbankOptions:
     @property
     def dim(self) -> int:
         return self.mel_opts.num_bins + (1 if self.use_energy else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class VadOptions:
+    """Energy-VAD options (Kaldi compute-vad; reference
+    runtime/extractor/torch_asv_extractor.cc:14-62 and conf/vad-5.5.conf:
+    threshold 5.5, mean scale 0.5)."""
+
+    energy_threshold: float = 5.5
+    energy_mean_scale: float = 0.5
+    frames_context: int = 0
+    proportion_threshold: float = 0.6
 
 
 def mel_scale(freq):

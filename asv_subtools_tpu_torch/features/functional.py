@@ -1,26 +1,35 @@
-"""Kaldi-compatible log-mel fbank and utterance CMVN as torch functions.
+"""Kaldi-compatible log-mel fbank, energy VAD and CMVN as torch functions.
 
-Counterpart: asv_subtools_tpu/features/functional.py:51-335 and 634-663.
+Counterpart: asv_subtools_tpu/features/functional.py:51-335 and 583-717.
 This is the golden code that the fused fbank kernel (fused_fbank.py) is
 held against. Per-config constants (window, mel filterbank, DFT) are
 computed on the host in float64 numpy and handed to the device as float32,
-as the JAX package does. The spectrum is the "gemm" mode: two real matrix
-products against the DFT cosine and sine matrices.
+as the JAX package does. The spectrum is the "gemm" mode (two real matrix
+products against the DFT cosine and sine matrices) or an rfft in float64.
 
-Supported: snip_edges=True and dither=0, the extraction path.
-Spec: kaldifeat feature-window.cc, mel-computations.cc, feature-fbank.cc.
+The plain front end takes Kaldi's framing options: dither (gaussian noise
+of std ``dither`` per sample, drawn only when a generator is given: a
+numpy ``Generator`` on the host, as JAX's numpy path draws it, or a
+``torch.Generator`` on the tensor's device) and ``snip_edges=False``
+(frames centred on multiples of the shift, the wave padded by reflection).
+The fused kernel takes neither (check_extraction_options), as JAX's
+fused_fbank does not. The Kaldi-style host front end's other steps:
+energy VAD (compute_vad_energy), voiced-frame selection
+(select_voiced_frames) and sliding CMVN (cmvn_sliding).
+Spec: kaldifeat feature-window.cc, mel-computations.cc, feature-fbank.cc;
+Kaldi compute-vad and apply-cmvn-sliding.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from .config import EPSILON, FbankOptions, FrameOptions, MelOptions, mel_scale
+from .config import EPSILON, FbankOptions, FrameOptions, MelOptions, VadOptions, mel_scale
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,30 +114,52 @@ def dft_matrices(padded_window_size: int, num_bins_keep: int) -> tuple[np.ndarra
 
 
 def check_extraction_options(opts: FrameOptions) -> None:
+    """The fused fbank's options: dither 0 and snip_edges (JAX
+    pallas_fbank.py:254-255 rejects the others too)."""
     if opts.dither != 0.0 or not opts.snip_edges:
-        raise ValueError("the port supports dither=0 and snip_edges=True only")
+        raise ValueError("the fused fbank supports dither=0 and snip_edges=True only")
 
 
 def frame_signal(wave: torch.Tensor, opts: FrameOptions) -> torch.Tensor:
-    """Slice waveforms [..., num_samples] into frames [..., num_frames, window_size]."""
-    check_extraction_options(opts)
-    num_frames = opts.num_frames(wave.shape[-1])
+    """Slice waveforms [..., num_samples] into frames [..., num_frames,
+    window_size]. With ``snip_edges=False`` the wave is first extended by
+    reflection at both ends (JAX functional.py:203-224)."""
+    num_samples = wave.shape[-1]
+    shift, length = opts.window_shift, opts.window_size
+    num_frames = opts.num_frames(num_samples)
     if num_frames <= 0:
-        raise ValueError(f"waveform too short: {wave.shape[-1]} samples")
-    frames = wave.unfold(-1, opts.window_size, opts.window_shift)
-    return frames[..., :num_frames, :]
+        raise ValueError(f"waveform too short: {num_samples} samples")
+    if not opts.snip_edges:
+        num_pad = (num_frames - 1) * shift + length - num_samples
+        left = (length - shift) // 2
+        right = num_pad - left
+        wave = torch.cat([wave[..., :left].flip(-1), wave, wave[..., num_samples - right:].flip(-1)], dim=-1)
+    return wave.unfold(-1, length, shift)[..., :num_frames, :]
+
+
+def _dither_noise(shape: torch.Size, dither: float, rng: Any, device: torch.device) -> torch.Tensor:
+    """Gaussian noise of std ``dither``: from a numpy Generator as JAX's
+    host path draws it (f64 normals times dither, cast to f32), or from a
+    torch.Generator on ``device``."""
+    if isinstance(rng, np.random.Generator):
+        return torch.from_numpy((dither * rng.normal(size=tuple(shape))).astype(np.float32)).to(device)
+    if isinstance(rng, torch.Generator):
+        return torch.randn(shape, generator=rng, device=device, dtype=torch.float32) * dither
+    raise TypeError(f"dither needs a numpy Generator or a torch.Generator, got {type(rng).__name__}")
 
 
 def _process_window(
-    frames: torch.Tensor, opts: FrameOptions, *, need_raw_energy: bool = True
+    frames: torch.Tensor, opts: FrameOptions, *, rng: Any = None, need_raw_energy: bool = True
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """DC-remove / raw-energy / preemphasis / window / pad (dither=0).
+    """Dither / DC-remove / raw-energy / preemphasis / window / pad.
 
-    frames: [..., num_frames, window_size] (Kaldi int16 sample scale).
+    frames: [..., num_frames, window_size] (Kaldi int16 sample scale). The
+    dither is drawn only when ``rng`` is given (JAX functional.py:236-238).
     Returns (padded_frames [..., num_frames, padded_window_size], raw_log_energy).
     """
-    check_extraction_options(opts)
     frames = frames.to(torch.float32)
+    if opts.dither != 0.0 and rng is not None:
+        frames = frames + _dither_noise(frames.shape, opts.dither, rng, frames.device)
     if opts.remove_dc_offset:
         frames = frames - frames.mean(dim=-1, keepdim=True)
     raw_log_energy = torch.zeros(frames.shape[:-1], dtype=torch.float32, device=frames.device)
@@ -165,16 +196,18 @@ def power_spectrum(padded_frames: torch.Tensor, opts: FrameOptions, *, keep_bins
     return re * re + im * im
 
 
-def compute_fbank(wave: torch.Tensor, opts: FbankOptions = FbankOptions(), *, fft_mode: str = "gemm") -> torch.Tensor:
+def compute_fbank(wave: torch.Tensor, opts: FbankOptions = FbankOptions(), *, rng: Any = None,
+                  fft_mode: str = "gemm") -> torch.Tensor:
     """Log-mel filterbank. wave [..., num_samples] -> [..., num_frames, dim].
-    ``fft_mode`` as in :func:`power_spectrum`.
+    ``fft_mode`` as in :func:`power_spectrum`; ``rng`` draws the dither
+    (see :func:`_dither_noise`; none without it, as in JAX).
 
     Parity: reference runtime/kaldifeat/csrc/feature-fbank.cc:46-108.
     """
     fo = opts.frame_opts
     frames = frame_signal(wave, fo)
     need_raw = opts.use_energy and opts.raw_energy
-    padded, raw_log_energy = _process_window(frames, fo, need_raw_energy=need_raw)
+    padded, raw_log_energy = _process_window(frames, fo, rng=rng, need_raw_energy=need_raw)
     if opts.use_energy and not opts.raw_energy:
         raw_log_energy = torch.log(torch.clamp_min((padded * padded).sum(-1), EPSILON))
 
@@ -222,3 +255,81 @@ def cmvn_utterance(
     if norm_vars:
         out = out / torch.sqrt(var + eps)
     return out
+
+
+def compute_vad_energy(log_energy: torch.Tensor, opts: VadOptions = VadOptions(),
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Frame-level energy VAD -> float {0, 1} per frame (Kaldi compute-vad;
+    JAX functional.py:583-630). log_energy [..., T]: the frames' log
+    energies (an energy column of the features); ``mask`` [..., T] marks
+    valid frames of a padded batch (True = valid), whose mean alone sets
+    the threshold and which alone vote."""
+    t_axis = log_energy.shape[-1]
+    if mask is None:
+        valid = torch.ones_like(log_energy, dtype=torch.bool)
+        count = float(t_axis)
+    else:
+        valid = mask.to(torch.bool)
+        count = torch.clamp_min(valid.sum(-1, keepdim=True).to(torch.float32), 1.0)
+    validf = valid.to(torch.float32)
+    threshold = opts.energy_threshold
+    if opts.energy_mean_scale != 0.0:
+        mean = torch.where(valid, log_energy, 0.0).sum(-1, keepdim=True) / count
+        threshold = threshold + opts.energy_mean_scale * mean
+    above = torch.where(valid, (log_energy > threshold).to(torch.float32), 0.0)
+    ctx = opts.frames_context
+    if ctx == 0:
+        return above * validf
+    # windowed vote over 2 ctx + 1 frames: voiced where num >= den * proportion
+    num, den = (_window_sum(v, ctx) for v in (above, validf))
+    return (num >= den * opts.proportion_threshold).to(torch.float32) * validf
+
+
+def _window_sum(x: torch.Tensor, ctx: int) -> torch.Tensor:
+    """The sum over frames t - ctx .. t + ctx along the last axis, zeros past the ends."""
+    t = x.shape[-1]
+    xp = torch.nn.functional.pad(x, (ctx, ctx))
+    out = torch.zeros_like(x)
+    for i in range(2 * ctx + 1):
+        out = out + xp[..., i:i + t]
+    return out
+
+
+def cmvn_sliding(feats: torch.Tensor, *, window: int = 300, norm_vars: bool = False,
+                 eps: float = 1e-10) -> torch.Tensor:
+    """Sliding-window CMVN (Kaldi apply-cmvn-sliding, center=true; JAX
+    functional.py:666-700): frame t is normalised by the frames of a
+    ``window``-frame window centred on it and shifted to lie inside the
+    utterance; an utterance of at most ``window`` frames gets
+    :func:`cmvn_utterance`. feats [..., T, D]."""
+    t_len = feats.shape[-2]
+    if t_len <= window:
+        return cmvn_utterance(feats, norm_vars=norm_vars, eps=eps)
+    t = torch.arange(t_len, device=feats.device)
+    start = torch.clamp(t - window // 2, 0, t_len - window)
+    end = start + window
+
+    def window_sums(x):
+        cs = torch.cat([torch.zeros_like(x[..., :1, :]), torch.cumsum(x, dim=-2)], dim=-2)
+        return cs.index_select(-2, end) - cs.index_select(-2, start)
+
+    mean = window_sums(feats) / float(window)
+    out = feats - mean
+    if norm_vars:
+        var = window_sums(feats * feats) / float(window) - mean * mean
+        out = out / torch.sqrt(torch.clamp_min(var, eps))
+    return out
+
+
+def select_voiced_frames(feats: torch.Tensor, voiced: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Voiced frames moved to the front in order (a stable partition),
+    and the mask of the voiced count: (feats [..., T, D], mask [..., T])
+    (Kaldi select-voiced-frames at a static shape; JAX
+    functional.py:703-717)."""
+    t_len = feats.shape[-2]
+    is_voiced = voiced > 0.5
+    key = torch.where(is_voiced, 0, 1) * t_len + torch.arange(t_len, device=feats.device)
+    order = torch.argsort(key, dim=-1)
+    gathered = feats.gather(-2, order[..., None].expand(*order.shape, feats.shape[-1]))
+    count = is_voiced.sum(-1, keepdim=True)
+    return gathered, torch.arange(t_len, device=feats.device) < count

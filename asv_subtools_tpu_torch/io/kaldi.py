@@ -556,15 +556,17 @@ def write_mat_file(fd_or_path, mat: np.ndarray, binary: bool = True) -> None:
 
 
 class ArkScpWriter:
-    """Paired vector ark+scp writer (Kaldi 'ark,scp:xvector.ark,xvector.scp')."""
+    """Paired ark+scp writer (Kaldi 'ark,scp:xvector.ark,xvector.scp'):
+    float vectors, or float matrices with ``matrix=True`` (feature arks)."""
 
-    def __init__(self, ark_path: str, scp_path: Optional[str] = None):
+    def __init__(self, ark_path: str, scp_path: Optional[str] = None, matrix: bool = False):
         self.ark_path = os.path.abspath(ark_path)
         self._ark = open(ark_path, "wb")
         self._scp = open(scp_path, "w") if scp_path else None
+        self._matrix = matrix
 
     def write(self, key: str, array: np.ndarray) -> None:
-        offset = write_vec_flt(self._ark, array, key)
+        offset = (write_mat if self._matrix else write_vec_flt)(self._ark, array, key)
         if self._scp:
             self._scp.write(f"{key} {self.ark_path}:{offset}\n")
 

@@ -16,11 +16,19 @@ the reference launcher idiom (runEcapaXvector_online.py:99-445). The
 Launcher runs on ``device``: the CUDA card unless ``device="cpu"``; it
 raises without a card.
 
+Stage 0 builds the online wave egs or, with ``data.egs_type="offline"``,
+the chunk egs of an egs dir (data/egs_offline.py ``prepare_egs_dir``)
+over precomputed feature arks, with ``data.ali_scp`` (phone alignments:
+the multi-task egs) and ``data.aux_utt2label`` (auxiliary classes: the FD
+egs). Stage 1 trains, all through the Trainer, a SpeakerNet, the
+``multi_task_xvector`` (MultiTaskNet), the ``fd_xvector`` (FDSpeakerNet,
+two optimizers in turn, ``train.fd``) or, with ``train.sam`` or the
+optimizer's ``sam`` flag, by the two-pass SAM step; ``find_lr`` sweeps
+the learning rate on the same egs.
+
 Not ported yet; each raises NotImplementedError naming its ROADMAP item:
-the offline chunk egs, SAM, ``find_lr`` and the multi-task and FD-AL
-models, which train on those egs (Queue 1 item 4), ``fsdp`` and
-``num_model > 1`` (item 5), the native host front end (item 10) and host
-mfcc/pitch features (item 11).
+``fsdp`` and ``num_model > 1`` (Queue 1 item 5), the native host front
+end (item 10) and host mfcc/pitch features (item 11).
 
 Two choices differ from the JAX Launcher: the held-out validation egs
 keep their last, partial batch (the JAX egs drop it, so a hold-out
@@ -81,7 +89,10 @@ DEFAULT_PARAMS: Dict[str, Any] = {
         "speech_aug": None,
         # >1 = persistent pool of spawn PROCESSES (MultiprocessLoader)
         "num_workers": 1,
-        # "offline" (the chunk egs) is ROADMAP item 4
+        # "offline" = the chunk egs of egs_dir (data.egs_offline.prepare_egs_dir:
+        # train.egs.csv / valid.egs.csv / info); aug/aug_params pick the
+        # per-chunk SpecAugment or Cutout, ali_scp and aux_utt2label the
+        # multi-task and FD labels
         "egs_type": "online",
         "egs_dir": "",
     },
@@ -111,6 +122,8 @@ DEFAULT_PARAMS: Dict[str, Any] = {
     "extract": {
         "buckets": [200, 400, 800, 1600, 3200, 6400, 10000],
         "batch": 32,
+        # feature mode: {bucket: batch size} (ExtractConfig.batch_sizes)
+        "batch_sizes": None,
         "mode": "feature",
         "workers": 8,
     },
@@ -119,6 +132,20 @@ DEFAULT_PARAMS: Dict[str, Any] = {
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def _sam_config(t: Dict[str, Any], opt: Dict[str, Any]) -> Optional[tuple]:
+    """(rho, adaptive) of the SAM step, from ``train.sam`` ({rho,
+    adaptive}) or the optimizer's ``sam`` flag (``sam_rho``,
+    ``sam_adaptive``, popped from ``opt``), or None without either. The
+    flag names the same step: JAX's factory wraps the optimizer in
+    optax.contrib.sam, whose update needs a gradient function that no
+    train step hands it (and under optax 0.2.6 the wrapper raises)."""
+    flag, rho, adaptive = opt.pop("sam", False), opt.pop("sam_rho", 0.05), opt.pop("sam_adaptive", False)
+    if t.get("sam"):
+        cfg = t["sam"] if isinstance(t["sam"], dict) else {}
+        return float(cfg.get("rho", 0.05)), bool(cfg.get("adaptive", False))
+    return (float(rho), bool(adaptive)) if flag else None
 
 
 class Launcher:
@@ -167,9 +194,9 @@ class Launcher:
             raise _not_ported(f"data.feat_type={p['feat_type']!r} (host mfcc and pitch features)", 11)
         if p.get("feat_backend", "numpy") != "numpy":
             raise _not_ported(f"data.feat_backend={p['feat_backend']!r} (the native host front end)", 10)
-        if p.get("egs_type", "online") == "offline":
-            raise _not_ported("data.egs_type='offline' (the chunk egs)", 4)
         self.feat_opts = FbankOptions(mel_opts=MelOptions(num_bins=int(p["num_bins"]))) if p.get("num_bins") else None
+        if p.get("egs_type", "online") == "offline":
+            return self._build_offline_egs(p)
         opts = self.feat_opts or FbankOptions()
         # the width the net sees: the in-step fbank has no energy column
         self.feat_dim = opts.dim if p.get("compute_feat", True) else opts.mel_opts.num_bins
@@ -244,27 +271,81 @@ class Launcher:
             return MultiprocessLoader(make_train_egs, num_workers=n_proc)
         return make_train_egs()
 
-    def build_model(self) -> SpeakerNet:
-        """The SpeakerNet of ``model`` and ``loss`` on the launcher's
-        device, its weights drawn from ``seed``. The backbone's
-        ``input_dim`` is the width of the features the egs give."""
+    def _build_offline_egs(self, p: Dict[str, Any]):
+        """The chunk egs of ``data.egs_dir`` (JAX launcher.py:254-319; the
+        reference's runSnowdarXvector.py family: get_chunk_egs.py egs dir
+        -> BaseBunch.get_bunch_from_egsdir). The validation egs are the
+        egs dir's valid.egs.csv, every chunk once (the last batch kept)."""
+        from .data.egs_offline import (ChunkEgs, ChunkEgsMultiTask, build_chunk_egs_from_dir, get_info_from_egsdir,
+                                       read_ali_scp, read_chunk_csv)
+
+        feat_dim, num_targets, train_csv, valid_csv = get_info_from_egsdir(p["egs_dir"], p.get("train_csv_name"),
+                                                                           p.get("valid_csv_name"))
+        self.num_targets, self.feat_dim = num_targets, feat_dim
+        self.logger.info("offline egs: %d targets, feat_dim %d (%s)", num_targets, feat_dim, p["egs_dir"])
+        self.valid_egs = None
+        if valid_csv:
+            kw = dict(batch_size=p["batch_size"], drop_last=False, seed=self.params["seed"])
+            chunks = read_chunk_csv(valid_csv)
+            self.valid_egs = (ChunkEgsMultiTask(chunks, read_ali_scp(p["ali_scp"]), **kw) if p.get("ali_scp")
+                              else ChunkEgs(chunks, **kw))
+        make_egs = functools.partial(build_chunk_egs_from_dir, dict(
+            train_csv=train_csv, batch_size=p["batch_size"], aug=p.get("aug"), aug_params=p.get("aug_params"),
+            ali_scp=p.get("ali_scp"), aux_utt2label=p.get("aux_utt2label"), seed=self.params["seed"]))
+        n_proc = int(p.get("num_workers", 1))
+        if n_proc > 1:
+            from .data import MultiprocessLoader
+
+            return MultiprocessLoader(make_egs, num_workers=n_proc)
+        return make_egs()
+
+    def build_model(self) -> torch.nn.Module:
+        """The net of ``model`` and ``loss`` on the launcher's device, its
+        weights drawn from ``seed``: a SpeakerNet, or for
+        ``multi_task_xvector`` a MultiTaskNet (``model.params`` also holds
+        ``num_phones`` and ``mt_alpha``) and for ``fd_xvector`` an
+        FDSpeakerNet (``num_aux_targets``). The backbone's ``input_dim`` is
+        the width of the features the egs give."""
         m, l = self.params["model"], self.params["loss"]
         mparams = dict(m.get("params", {}))
         mparams.setdefault("input_dim", self.feat_dim)
-        backbone = MODELS[m["name"]](**mparams, device=self.device)
-        self.net = SpeakerNet(backbone=backbone, loss_name=l["name"], loss_params=l.get("params", {}),
-                              num_targets=self.num_targets)
+        head = dict(num_targets=self.num_targets, loss_name=l["name"], loss_params=l.get("params", {}))
+        if m["name"] == "multi_task_xvector":
+            from .models import MultiTaskNet
+
+            num_phones, mt_alpha = mparams.pop("num_phones"), mparams.pop("mt_alpha", 0.1)
+            self.net = MultiTaskNet(MODELS[m["name"]](**mparams, device=self.device), num_phones=num_phones,
+                                    mt_alpha=mt_alpha, **head)
+        elif m["name"] == "fd_xvector":
+            from .train.fd import FDSpeakerNet
+
+            num_aux = mparams.pop("num_aux_targets", 9)
+            self.net = FDSpeakerNet(MODELS[m["name"]](**mparams, device=self.device), num_aux_targets=num_aux,
+                                    **head)
+        else:
+            self.net = SpeakerNet(backbone=MODELS[m["name"]](**mparams, device=self.device), **head)
         init_weights_(self.net, self.params["seed"])
         return self.net
 
     # -- stage 1 ------------------------------------------------------------
     def train(self, egs, resume_from: Optional[str] = None):
+        """Epochs of the train step through the Trainer. ``train.sam``
+        ({rho, adaptive}) or the optimizer's ``sam`` flag (``sam_rho``,
+        ``sam_adaptive``) takes the two-pass SAM step (feature input
+        only); an FDSpeakerNet takes the FD step, two optimizers in turn
+        (``train.fd``: aux_weight, adv_weight, cycle, adv_steps and
+        adv_optimizer {name, learning_rate, ...}, sgd 1e-2 by default;
+        JAX launcher.py:523-591), and validates nothing, as in JAX."""
         t = self.params["train"]
         if t.get("fsdp"):
             raise _not_ported("train.fsdp", 5)
-        if t.get("sam"):
-            raise _not_ported("train.sam (the two-pass SAM step)", 4)
+        from .train.fd import FDSpeakerNet
+
+        fd = isinstance(self.net, FDSpeakerNet)
         opt = dict(t["optimizer"])
+        sam = _sam_config(t, opt)
+        if sam and not self.params["data"].get("compute_feat", True):
+            raise ValueError("SAM requires feature-input egs (data.compute_feat=True or offline egs)")
         sched_cfg = dict(t["lr_schedule"])
         sched_name = sched_cfg.pop("name")
         plateau = None
@@ -298,12 +379,30 @@ class Launcher:
             spec_aug=wave and self.params["data"].get("spec_aug", False),
             model_warmup_steps=int(t.get("model_warmup_steps", 0) or 0),
         )
+        step_fn = None
+        if fd:
+            from .train.fd import init_fd_state, make_fd_train_step
+
+            f = t.get("fd") or {}
+            adv_cfg = dict(f.get("adv_optimizer", {"name": "sgd", "learning_rate": 1e-2}))
+            tx_adv = get_optimizer(adv_cfg.pop("name"), **adv_cfg)
+            step_fn = make_fd_train_step(
+                self.net, tx, tx_adv, aux_weight=float(f.get("aux_weight", 0.1)),
+                adv_weight=float(f.get("adv_weight", 0.1)), cycle=int(f.get("cycle", 70)),
+                adv_steps=int(f.get("adv_steps", 20)), config=config)
+        elif sam:
+            # the two-pass SAM step (the reference's runSnowdarXvectorSAM
+            # family, trainer_online_sam.py)
+            from .train.sam import make_sam_train_step
+
+            step_fn = make_sam_train_step(self.net, tx, rho=sam[0], adaptive=sam[1], config=config)
         reporter = Reporter(log_dir=os.path.join(self.params["exp_dir"], "log"))
         trainer = Trainer(self.net, tx, lr_schedule=schedule, config=config, margin_warm=margin_warm,
                           plateau=plateau, report_interval=t["report_interval"], reporter=reporter,
-                          device=self.device)
+                          device=self.device, step_fn=step_fn)
         self.trainer = trainer
-        state = trainer.init_state()
+        # FD's opt_state is the pair (main, adversary)
+        state = init_fd_state(self.net, tx, tx_adv, self.device) if fd else trainer.init_state()
         start_epoch = 0
         if resume_from:
             state = load_checkpoint(resume_from, state)
@@ -332,7 +431,7 @@ class Launcher:
             egs.set_epoch(epoch)
             state, metrics = trainer.run_epoch(state, Prefetcher(egs, pin_memory=pin), generator, epoch=epoch)
             stats = dict(trainer.epoch_stats, epoch=epoch + 1)
-            if self.valid_egs is not None:
+            if self.valid_egs is not None and not fd:
                 vmetrics = trainer.validate(state, iter(self.valid_egs))
                 metrics = {**metrics, **{f"valid_{k}": v for k, v in vmetrics.items()}}
                 if trainer.plateau is not None:
@@ -346,8 +445,41 @@ class Launcher:
         self.state = state
         return state
 
-    def find_lr(self, egs, start_lr: float = 1e-8, end_lr: float = 1.0, num_steps: int = 100):
-        raise _not_ported("Launcher.find_lr (the LR range finder)", 4)
+    def find_lr(self, egs, start_lr: float = 1e-8, end_lr: float = 1.0, num_steps: int = 100) -> Dict[str, Any]:
+        """The LR range finder on this configuration's net, optimizer and
+        egs (JAX launcher.py:593-646; the reference launchers'
+        run_lr_finder flag, lr_finder.py:24-219): the train step with the
+        optimizer's base LR 1.0 and ``lr_scale`` the swept LR, from the
+        net's seeded weights; on wave egs the fused fbank kernel runs in
+        the step. The host reads each step's loss: one wait a step.
+        Returns {"lrs", "losses", "suggested_lr"}."""
+        from .data.dataset import _pin_batch
+        from .train import init_train_state, make_train_step, run_lr_finder
+        from .train.trainer import batch_to_device
+
+        t = self.params["train"]
+        opt = dict(t["optimizer"])
+        opt.pop("learning_rate", None)
+        _sam_config(t, opt)  # the finder runs the plain step
+        tx = get_optimizer(opt.pop("name"), learning_rate=1.0, **opt)
+        cfg = TrainStepConfig(max_change=t["max_change"],
+                              compute_dtype=torch.bfloat16 if t["compute_dtype"] == "bfloat16" else torch.float32,
+                              wave_input=not self.params["data"].get("compute_feat", True),
+                              fbank_opts=self.feat_opts)
+        step = make_train_step(self.net, tx, config=cfg)
+        # pinned: the copy to the card is queued, so the loss read is the only wait
+        pin = _pin_batch if self.device.type == "cuda" else (lambda b: b)
+
+        def step_fn(state, batch, generator, lr):
+            batch = batch_to_device(pin(batch), self.device, keys=("x", "y", "mask"))
+            return step(state, batch, generator, 1.0, 0.0, lr)
+
+        state = init_train_state(self.net, tx, self.device)
+        generator = torch.Generator(device=self.device).manual_seed(self.params["seed"])
+        out = run_lr_finder(step_fn, state, iter(egs), generator, start_lr=start_lr, end_lr=end_lr,
+                            num_steps=num_steps)
+        self.logger.info("lr finder: suggested_lr=%s", out["suggested_lr"])
+        return out
 
     # -- stage 2 ------------------------------------------------------------
     def extract(self, wav_scp: str, out_prefix: str, state=None) -> Dict:
@@ -362,7 +494,10 @@ class Launcher:
 
         def model_apply(x, mask):
             backbone.eval()
-            return torch.func.functional_call(backbone, tensors, (x, mask))
+            out = torch.func.functional_call(backbone, tensors, (x, mask))
+            # the multi-task and FD x-vectors return a pair; extraction takes
+            # the (speaker) embedding (JAX launcher.py:659-663)
+            return out[0] if isinstance(out, tuple) else out
 
         if e.get("mode", "feature") == "wave":
             if self.params["data"].get("feat_type", "fbank") != "fbank":
@@ -392,8 +527,8 @@ class Launcher:
 
             items = ParallelMapper(decode, entries, workers=e.get("workers", 8))
         else:
-            ex = Extractor(model_apply, ExtractConfig(buckets=tuple(e["buckets"]), default_batch=e["batch"]),
-                           device=self.device)
+            ex = Extractor(model_apply, ExtractConfig(buckets=tuple(e["buckets"]), default_batch=e["batch"],
+                                                      batch_sizes=e.get("batch_sizes")), device=self.device)
             items = iter(WavEgsXvector(
                 wav_scp, feat_opts=getattr(self, "feat_opts", None),
                 feat_type=self.params["data"].get("feat_type", "fbank"),

@@ -2,17 +2,10 @@ from .conformer import ConformerXvector
 from .ecapa import EcapaAttentiveStatsPool, EcapaTdnn, Res2NetBlock, SEConnect, SERes2Block
 from .ecapa_lawlict import (EcapaLawlict, LawlictAttentiveStatsPool, LawlictRes2Block, LawlictSERes2Block,
                             SEConnectLinear)
-from .framework import SpeakerNet, chunk_utterance, l2_norm
+from .framework import SpeakerNet, chunk_utterance, extract_embedding_chunked, l2_norm
+from .multitask import DALRegularizer, FDXvector, MultiTaskNet, MultiTaskXvector, fd_adversarial_loss, phone_frame_loss
 from .resnet_xvector import RepVggXvector, ResNetXvector, deploy_repvgg_xvector
 from .xvector import ExtendedXvector, FactoredXvector, SnowdarXvector, Xvector
-
-
-def _not_ported(name: str):
-    def build(*args, **kwargs):
-        raise NotImplementedError(f"model {name!r} is not ported yet: it trains on the offline chunk egs "
-                                  "(ROADMAP Queue 1 item 4)")
-
-    return build
 
 
 # the Launcher's model names (JAX models/__init__.py:36-48)
@@ -26,20 +19,25 @@ MODELS = {
     "factored_xvector": FactoredXvector,
     "ecapa_lawlict": EcapaLawlict,
     "repvgg_xvector": RepVggXvector,
-    **{name: _not_ported(name) for name in ("multi_task_xvector", "fd_xvector")},
+    "multi_task_xvector": MultiTaskXvector,
+    "fd_xvector": FDXvector,
 }
 
 __all__ = [
     "ConformerXvector",
+    "DALRegularizer",
     "EcapaAttentiveStatsPool",
     "EcapaLawlict",
     "EcapaTdnn",
     "ExtendedXvector",
+    "FDXvector",
     "FactoredXvector",
     "LawlictAttentiveStatsPool",
     "LawlictRes2Block",
     "LawlictSERes2Block",
     "MODELS",
+    "MultiTaskNet",
+    "MultiTaskXvector",
     "RepVggXvector",
     "Res2NetBlock",
     "ResNetXvector",
@@ -51,5 +49,8 @@ __all__ = [
     "Xvector",
     "chunk_utterance",
     "deploy_repvgg_xvector",
+    "extract_embedding_chunked",
+    "fd_adversarial_loss",
     "l2_norm",
+    "phone_frame_loss",
 ]

@@ -3,12 +3,13 @@
 from __future__ import annotations
 
 import inspect
-from typing import Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from ..nn.loss import LOSSES, MARGIN_LOSSES, Scalar
 
 
@@ -72,6 +73,20 @@ def chunk_utterance(feats: np.ndarray, max_chunk: int = 10000) -> Tuple[np.ndarr
         chunks.append(feats[t - length :])
         weights = np.concatenate([weights, np.asarray([remainder], np.float32)])
     return np.stack(chunks), weights / weights.sum()
+
+
+def extract_embedding_chunked(embed_fn: Callable, feats: Any, max_chunk: int = 10000,
+                              device: Any = None) -> torch.Tensor:
+    """Whole-utterance embedding of feats [T, D]: :func:`chunk_utterance`'s
+    chunks embedded in one batched call ``embed_fn(chunks [n, L, D],
+    None) -> [n, E]`` on ``device`` (the CUDA card unless ``device="cpu"``;
+    raises without a card), then averaged with the chunks' frame weights
+    (JAX framework.py:107)."""
+    dev = resolve_device(device)
+    feats = feats.detach().cpu().numpy() if isinstance(feats, torch.Tensor) else np.asarray(feats)
+    chunks, weights = chunk_utterance(feats, max_chunk)
+    embs = embed_fn(torch.from_numpy(chunks).to(dev), None)
+    return (embs * torch.from_numpy(weights).to(dev)[:, None]).sum(0)
 
 
 def l2_norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:

@@ -43,6 +43,52 @@ def _check_position(position: str) -> None:
         raise ValueError(f"position must be near, near_affine or far, got {position!r}")
 
 
+def build_snowdar_trunk(module: nn.Module, input_dim: int, channels: int, *, extend: bool, skip_connection: bool,
+                        se_block: bool, se_ratio: int, momentum: float, bn_affine: bool) -> None:
+    """Add the snowdar frame-level trunk, tdnn1 .. tdnn4, to ``module``
+    under the flax names (JAX models/xvector.py:90 ``snowdar_trunk``, which
+    scopes its layers into the calling model): ``extend`` interleaves the
+    E-TDNN 1x1 layers ``ex_tdnn1`` .. ``ex_tdnn5``; ``se_block`` puts SE
+    blocks ``se1`` .. ``se3`` after tdnn1-3 (and ``se4`` after ex_tdnn4 when
+    extended); ``skip_connection`` adds tdnn1's output (before its SE) to
+    tdnn4's once. Shared by SnowdarXvector, MultiTaskXvector and FDXvector."""
+    plan = [("tdnn1", (-2, -1, 0, 1, 2), "se1")]
+    if extend:
+        plan += [("ex_tdnn1", (0,), None)]
+    plan += [("tdnn2", (-2, 0, 2), "se2")]
+    if extend:
+        plan += [("ex_tdnn2", (0,), None)]
+    plan += [("tdnn3", (-3, 0, 3), "se3")]
+    if extend:
+        plan += [("ex_tdnn3", (0,), None), ("ex_tdnn4", (-4, 0, 4), "se4"), ("ex_tdnn5", (0,), None)]
+    plan += [("tdnn4", (0,), None)]
+    module.skip_connection = skip_connection
+    module._plan = []
+    in_dim = input_dim
+    for name, ctx, se_name in plan:
+        module.add_module(name, ReluBatchNormTdnnLayer(in_dim, channels, ctx, momentum, bn_affine=bn_affine))
+        in_dim = channels
+        se = se_name if se_block else None
+        if se is not None:
+            module.add_module(se, SEBlock(channels, ratio=se_ratio))
+        module._plan.append((name, se))
+
+
+def snowdar_trunk(module: nn.Module, h: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The trunk :func:`build_snowdar_trunk` added to ``module``: h [B, D, T]
+    -> [B, C, T]."""
+    identity = None
+    for name, se in module._plan:
+        h = getattr(module, name)(h, mask)
+        if module.skip_connection and name == "tdnn1":
+            identity = h
+        if module.skip_connection and name == "tdnn4":
+            h = h + identity
+        if se is not None:
+            h = getattr(module, se)(h, mask)
+    return h
+
+
 class _TwoEmbeddings(nn.Module):
     """pooling -> affine [far] -> relu, BN -> affine [near_affine] -> relu,
     BN [near], with the two layers named ``<first>_affine``/``<first>_bn``
@@ -118,26 +164,9 @@ class SnowdarXvector(_TwoEmbeddings):
                  bn_affine: bool = False, device: Any = None):
         super().__init__()
         c = num_frame_channels
-        self.skip_connection, self.aug_dropout, self.tail_dropout = skip_connection, aug_dropout, tail_dropout
-        plan = [("tdnn1", (-2, -1, 0, 1, 2), "se1")]
-        if extend:
-            plan += [("ex_tdnn1", (0,), None)]
-        plan += [("tdnn2", (-2, 0, 2), "se2")]
-        if extend:
-            plan += [("ex_tdnn2", (0,), None)]
-        plan += [("tdnn3", (-3, 0, 3), "se3")]
-        if extend:
-            plan += [("ex_tdnn3", (0,), None), ("ex_tdnn4", (-4, 0, 4), "se4"), ("ex_tdnn5", (0,), None)]
-        plan += [("tdnn4", (0,), None)]
-        self._plan = []
-        in_dim = input_dim
-        for name, ctx, se_name in plan:
-            self.add_module(name, ReluBatchNormTdnnLayer(in_dim, c, ctx, momentum, bn_affine=bn_affine))
-            in_dim = c
-            se = se_name if se_block else None
-            if se is not None:
-                self.add_module(se, SEBlock(c, ratio=se_ratio))
-            self._plan.append((name, se))
+        self.aug_dropout, self.tail_dropout = aug_dropout, tail_dropout
+        build_snowdar_trunk(self, input_dim, c, extend=extend, skip_connection=skip_connection, se_block=se_block,
+                            se_ratio=se_ratio, momentum=momentum, bn_affine=bn_affine)
         self.tdnn5 = ReluBatchNormTdnnLayer(c, 1500, (0,), momentum, bn_affine=bn_affine)
         self._build_head(1500, embd_dim, pooling, pooling_params, ("tdnn6", "tdnn7"), momentum=momentum,
                          use_scale=bn_affine, use_bias=bn_affine)
@@ -151,17 +180,7 @@ class SnowdarXvector(_TwoEmbeddings):
         _check_position(position)
         if self.aug_dropout > 0 and self.training:
             x = dropout(x, self.aug_dropout, generator)
-        h = x.transpose(1, 2)
-        identity = None
-        for name, se in self._plan:
-            h = getattr(self, name)(h, mask)
-            if self.skip_connection and name == "tdnn1":
-                identity = h
-            if self.skip_connection and name == "tdnn4":
-                h = h + identity
-            if se is not None:
-                h = getattr(self, se)(h, mask)
-        z = self._head(self.tdnn5(h, mask), mask, position)
+        z = self._head(self.tdnn5(snowdar_trunk(self, x.transpose(1, 2), mask), mask), mask, position)
         if position == "near" and self.tail_dropout > 0 and self.training:
             z = dropout(z, self.tail_dropout, generator)
         return z

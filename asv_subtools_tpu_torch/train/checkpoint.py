@@ -12,7 +12,8 @@ The payload holds plain dicts of CPU tensors and ints, so
 as JSON text, which is valid YAML: a YAML reader takes it, and writing it
 needs no YAML library. Resume restores params and batch_stats, and the
 optimizer state only when asked (the reference skips it,
-trainer_online.py:125-130). Transfer learning copies whole top-level
+trainer_online.py:125-130). The optimizer state of an FD run is the pair
+(main, adversary), saved and restored as a tuple. Transfer learning copies whole top-level
 subtrees by name like framework.py:133-143's transform_keys: the port's
 state_dict prefixes ``backbone.`` and ``loss.`` stand for the JAX trees
 ``params["backbone"]`` and ``params["loss"]``.
@@ -33,6 +34,8 @@ from .trainer import TrainState
 def _to_cpu(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):  # FD's (main, adversary) optimizer states
+        return tuple(_to_cpu(v) for v in tree)
     return tree.detach().cpu()
 
 
@@ -77,6 +80,10 @@ def _restore_like(template: Any, data: Any, what: str) -> Any:
             extra = sorted(set(data) - set(template)) if isinstance(data, dict) else []
             raise ValueError(f"checkpoint {what} do not match the state: missing {missing}, unexpected {extra}")
         return {k: _restore_like(template[k], data[k], what) for k in template}
+    if isinstance(template, tuple):
+        if not isinstance(data, (tuple, list)) or len(data) != len(template):
+            raise ValueError(f"checkpoint {what} do not match the state: {len(template)} optimizer states expected")
+        return tuple(_restore_like(t, d, what) for t, d in zip(template, data))
     if tuple(data.shape) != tuple(template.shape):
         raise ValueError(f"checkpoint {what}: shape {tuple(data.shape)} != {tuple(template.shape)}")
     return data.to(device=template.device, dtype=template.dtype)
@@ -106,6 +113,8 @@ def load_checkpoint(path: str, state: Optional[TrainState] = None, *, restore_op
 def _to_device(tree: Any, dev: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to_device(v, dev) for v in tree)
     return tree.to(dev)
 
 

@@ -23,7 +23,7 @@ than two dims (biases and BN affines).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -111,22 +111,34 @@ def get_optimizer(name: str = "adamW", learning_rate: LearningRate = 3e-4, beta1
                   ) -> GradientTransformation:
     """An optimizer by the reference's name: sgd | sgdw | adam | adamW, with
     the JAX factory's signature. ``adam`` takes no weight decay, as the
-    JAX factory's optax.adam does.
+    JAX factory's optax.adam does. ``sam`` raises ValueError: SAM is a
+    train step here (train/sam.py ``make_sam_train_step``), which the
+    Launcher takes for ``train.sam`` or the optimizer's ``sam`` flag.
+    JAX's factory wraps the base in optax.contrib.sam, whose update needs
+    a gradient function that no train step hands it (and under optax 0.2.6
+    the call raises TypeError: no ``rho`` keyword); ``sam_rho`` and
+    ``sam_adaptive`` belong to the flag.
 
-    ralamb, adamod, novograd, eve and the lookahead, gc and sam wrappers are
-    not ported yet and raise NotImplementedError; beta3 and the lookahead
-    and sam settings belong to them."""
+    ralamb, adamod, novograd, eve and the lookahead and gc wrappers are
+    not ported yet and raise NotImplementedError naming ROADMAP Queue 1
+    item 8; beta3 and the lookahead settings belong to them."""
     key = name.lower()
-    if key in _NOT_PORTED or gc or lookahead or sam:
-        raise NotImplementedError(f"optimizer {name!r} (gc={gc}, lookahead={lookahead}, sam={sam}) is not ported yet")
+    if sam:
+        raise ValueError("SAM is a train step, not an optimizer: use train/sam.py make_sam_train_step (the "
+                         "Launcher takes it for train.sam or the optimizer's sam flag)")
+    if key in _NOT_PORTED or gc or lookahead:
+        raise NotImplementedError(f"optimizer {name!r} (gc={gc}, lookahead={lookahead}) is not ported yet "
+                                  "(ROADMAP Queue 1 item 8)")
     mask = no_weight_decay_mask if decay_kernels_only else None
     if key == "sgd":
-        return _optimizer(learning_rate, momentum=momentum, nesterov=nesterov, weight_decay=weight_decay,
+        base = _optimizer(learning_rate, momentum=momentum, nesterov=nesterov, weight_decay=weight_decay,
                           decay_first=True, mask=mask)
-    if key == "sgdw":
-        return _optimizer(learning_rate, momentum=momentum, nesterov=nesterov, weight_decay=weight_decay, mask=mask)
-    if key == "adam":
-        return _optimizer(learning_rate, adam=(beta1, beta2, eps))
-    if key in ("adamw", "adam_w"):
-        return _optimizer(learning_rate, adam=(beta1, beta2, eps), weight_decay=weight_decay, mask=mask)
-    raise ValueError(f"Unknown optimizer {name!r}")
+    elif key == "sgdw":
+        base = _optimizer(learning_rate, momentum=momentum, nesterov=nesterov, weight_decay=weight_decay, mask=mask)
+    elif key == "adam":
+        base = _optimizer(learning_rate, adam=(beta1, beta2, eps))
+    elif key in ("adamw", "adam_w"):
+        base = _optimizer(learning_rate, adam=(beta1, beta2, eps), weight_decay=weight_decay, mask=mask)
+    else:
+        raise ValueError(f"Unknown optimizer {name!r}")
+    return base

@@ -9,7 +9,13 @@ recipes/configs/{snowdar,factored}_xvector.yaml), the RepVGG x-vector
 (:func:`repvgg_net`, recipes/configs/repvgg.yaml) and the lawlict ECAPA
 (:func:`lawlict_net`, recipes/configs/ecapa_lawlict.yaml), each in a
 SpeakerNet with a margin head over 5994 classes and seeded random
-weights; full width by default, as ``bench.py:58-90`` trains them.
+weights; full width by default, as ``bench.py:58-90`` trains them. The
+offline route's nets: :func:`multitask_net` and :func:`fd_net`, whose one
+step on features :func:`offline_step` runs (the SAM step too).
+
+``python3 -m asv_subtools_tpu_torch.train.step_check resnet 24`` on a
+card splits the f32 step's card-against-CPU gap over seeds between the
+front end and the trunk (:func:`f32_gap_split`).
 :data:`ROADMAP_ECAPA` is ecapa_roadmap.yaml's backbone (C1024, MQMHA).
 
 The case of the train step's card-against-CPU checks (chip_smoke.py, the
@@ -42,9 +48,10 @@ import numpy as np
 import torch
 
 from ..features import FbankOptions, MelOptions, wave_features
-from ..models import (ConformerXvector, EcapaLawlict, EcapaTdnn, FactoredXvector, RepVggXvector, ResNetXvector,
-                      SnowdarXvector, SpeakerNet)
+from ..models import (ConformerXvector, EcapaLawlict, EcapaTdnn, FactoredXvector, FDXvector, MultiTaskNet,
+                      MultiTaskXvector, RepVggXvector, ResNetXvector, SnowdarXvector, SpeakerNet)
 from ..weights import init_weights_
+from .fd import FDSpeakerNet
 from .trainer import TrainStepConfig, init_train_state, make_train_step
 from .optim import sgd
 
@@ -73,6 +80,13 @@ ROADMAP_HEAD = ("margin_softmax_v1", {"method": "aam", "m": 0.2, "s": 30.0, "sub
                                       "topk": 5})
 # recipes/configs/ecapa_lawlict.yaml: AM m=0.2 s=30
 LAWLICT_AM = ("margin_softmax", {"method": "am", "m": 0.2, "s": 30.0})
+
+# the offline route's nets (recipes/configs/multitask.yaml: the softmax
+# head, 128 phones; FD-AL: an AM head and a 9-class softmax auxiliary head;
+# SAM on snowdar_xvector.yaml's AM head), narrow for the card-against-CPU step
+NARROW_OFFLINE = dict(num_frame_channels=128, embd_dim=128)
+PHONES, AUX_CLASSES = 128, 9
+FD_CYCLE = dict(cycle=4, adv_steps=2)
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -263,3 +277,115 @@ def host_waits(fn: Callable[[], Any]) -> Tuple[Any, List[str]]:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     return out, [f"{w.filename}:{w.lineno}" for w in caught if SYNC_WARNING in str(w.message)]
+
+
+def multitask_net(seed: int = 0, **backbone: Any) -> MultiTaskNet:
+    """MultiTaskNet(MultiTaskXvector(80 bins, ``backbone``; 512/512 by
+    default)) with multitask.yaml's softmax head over 5994 classes and 128
+    phones, seeded random weights, in f32 on the CPU."""
+    model = MultiTaskXvector(80, device="cpu", **{"num_frame_channels": 512, "embd_dim": 512, **backbone})
+    return init_weights_(MultiTaskNet(model, NUM_TARGETS, PHONES, "softmax"), seed)
+
+
+def fd_net(seed: int = 0, **backbone: Any) -> FDSpeakerNet:
+    """FDSpeakerNet(FDXvector(80 bins, ``backbone``; 512/512 by default))
+    with an AM head over 5994 classes and a softmax auxiliary head over 9,
+    seeded random weights, in f32 on the CPU."""
+    model = FDXvector(80, device="cpu", **{"num_frame_channels": 512, "embd_dim": 512, **backbone})
+    return init_weights_(FDSpeakerNet(model, NUM_TARGETS, AUX_CLASSES, *AM), seed)
+
+
+def offline_step(kind: str, device: Any, dtype: torch.dtype, feats: torch.Tensor, y: torch.Tensor,
+                 seed: int = 0) -> StepResult:
+    """One SGD step (lr 0.1) on features [B, T, 80] of the narrow offline-
+    route net ``kind`` on ``device`` in ``dtype``: "multitask" (the train
+    step on the targets {spk, phone}, seeded phone labels), "fd" (the FD
+    step at step index 2 of a cycle of 4 with 2 adversary steps: a main
+    step) or "sam" (the SAM step, rho 0.05, of the narrow SnowdarXvector
+    with the AM head)."""
+    from .fd import make_fd_train_step
+    from .sam import make_sam_train_step
+
+    wide = torch.float64 if dtype == torch.float64 else torch.float32
+    config = TrainStepConfig(compute_dtype=dtype)
+    x = feats.to(device, dtype)
+    g = torch.Generator().manual_seed(seed + 1)
+    batch = {"x": x, "y": y.to(device)}
+    if kind == "multitask":
+        net = multitask_net(seed, **NARROW_OFFLINE).to(wide)
+        batch["y"] = {"spk": batch["y"], "phone": torch.randint(0, PHONES, x.shape[:2], generator=g).to(device)}
+        tx = sgd(0.1)
+        state = init_train_state(net, tx, device)
+        new, m = make_train_step(net, tx, config=config)(state, batch, torch.Generator(device=device).manual_seed(0))
+    elif kind == "fd":
+        net = fd_net(seed, **NARROW_OFFLINE).to(wide)
+        batch["aux_y"] = torch.randint(0, AUX_CLASSES, y.shape, generator=g).to(device)
+        tx = sgd(0.1)
+        state = init_train_state(net, tx, device)
+        state.opt_state = (state.opt_state, tx.init(state.params))
+        new, m = make_fd_train_step(net, tx, tx, config=config, **FD_CYCLE)(state, batch, step_index=2)
+    else:
+        net = xvector_net("snowdar", AM, seed, **NARROW_OFFLINE).to(wide)
+        tx = sgd(0.1)
+        state = init_train_state(net, tx, device)
+        new, m = make_sam_train_step(net, tx, config=config)(state, batch, torch.Generator(device=device).manual_seed(0))
+    return StepResult({k: float(v) for k, v in m.items()},
+                      {k: (new.params[k] - state.params[k]).double().cpu() for k in state.params},
+                      {k: v.double().cpu() for k, v in new.batch_stats.items()})
+
+
+def f32_gap_split(family: str, seed: int, card: Any) -> Dict[str, float]:
+    """Where an f32 wave-input step of ``narrow_net(family)`` on the card
+    parts from the same step on the CPU (the AAM head, waves and weights
+    of ``seed``): the relative gaps of grad_norm and loss, card against
+    CPU, on waves (each device's front end: the fbank kernel in its f32
+    mode on the card, the plain version on the CPU) and on the CPU's
+    features (the trunk alone); the front end's largest distance (the
+    card's features against the CPU's); and each f32 step's grad_norm
+    against the f64 step's on the CPU's features, which says whose f32
+    sum moved."""
+    make = narrow_net(family)
+    wave, y = modulated_waves(8, seed)
+    feats = plain_features(wave)
+    card_feats = wave_features(wave.to(card), None, OPTS, torch.float32)[0].cpu()
+    ref = sgd_step("cpu", torch.float64, feats, y, AAM, seed, make_net=make)
+    cd_wave = sgd_step(card, torch.float32, wave, y, AAM, seed, wave_input=True, make_net=make)
+    cpu_wave = sgd_step("cpu", torch.float32, wave, y, AAM, seed, wave_input=True, make_net=make)
+    cd_feat = sgd_step(card, torch.float32, feats, y, AAM, seed, make_net=make)
+    cpu_feat = sgd_step("cpu", torch.float32, feats, y, AAM, seed, make_net=make)
+    f64 = ref.metrics["grad_norm"]
+    return {"seed": seed,
+            "wave_grad_norm": rel(cd_wave.metrics["grad_norm"], cpu_wave.metrics["grad_norm"]),
+            "wave_loss": rel(cd_wave.metrics["loss"], cpu_wave.metrics["loss"]),
+            "feat_grad_norm": rel(cd_feat.metrics["grad_norm"], cpu_feat.metrics["grad_norm"]),
+            "feat_loss": rel(cd_feat.metrics["loss"], cpu_feat.metrics["loss"]),
+            "front_end_max_abs": float((card_feats - feats).abs().max()),
+            "card_wave_vs_f64": rel(cd_wave.metrics["grad_norm"], f64),
+            "cpu_wave_vs_f64": rel(cpu_wave.metrics["grad_norm"], f64),
+            "card_feat_vs_f64": rel(cd_feat.metrics["grad_norm"], f64),
+            "cpu_feat_vs_f64": rel(cpu_feat.metrics["grad_norm"], f64)}
+
+
+def main(argv: List[str] = None) -> int:
+    """``python3 -m asv_subtools_tpu_torch.train.step_check [FAMILY [SEEDS]]``
+    on a machine with a card: :func:`f32_gap_split` for seeds 0 .. SEEDS-1
+    (24 by default) of FAMILY (resnet by default), one JSON line a seed,
+    then the largest of each reading. TF32 is off."""
+    import json
+    import sys
+
+    argv = sys.argv[1:] if argv is None else argv
+    family = argv[0] if argv else "resnet"
+    seeds = int(argv[1]) if len(argv) > 1 else 24
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = [f32_gap_split(family, seed, torch.device("cuda")) for seed in range(seeds)]
+    for row in rows:
+        print(json.dumps(row), flush=True)
+    print(json.dumps({"family": family, "seeds": seeds,
+                      **{f"max_{k}": max(r[k] for r in rows) for k in rows[0] if k != "seed"}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -126,25 +126,23 @@ def _keep(finite: torch.Tensor, new: Any, old: Any) -> Any:
     return torch.where(finite, new, old)
 
 
-def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Optional[Callable] = None,
-                    config: TrainStepConfig = TrainStepConfig()) -> Callable:
-    """Build ``step(state, batch, generator, lambda_m=1.0, margin_offset=0.0,
-    lr_scale=1.0) -> (state, metrics)``.
+def speaker_targets(y: Any) -> torch.Tensor:
+    """The speaker labels of a batch's targets: multi-task batches carry
+    ``{"spk": [B], "phone": [B, T]}`` (JAX trainer.py:163-166)."""
+    return y["spk"] if isinstance(y, dict) else y
 
-    batch = {"x": [B, T, D] features or [B, S] waves, "y": [B], optional
-    "mask": [B, T] frames or [B, S] samples}; with ``accum_grad`` > 1, B
-    must be a multiple of it. ``generator`` (on the state's device) draws
-    SpecAugment and dropout. ``lambda_m`` and ``margin_offset`` feed the
-    margin loss, ``lr_scale`` (ReduceOnPlateau's scale) scales the updates,
-    not the gradients. A net whose ``forward`` takes ``warmup`` gets it:
-    ``step / model_warmup_steps`` in float32 on the device, or 1.0 when
-    ``model_warmup_steps`` is 0. metrics: loss, accuracy, grad_norm,
-    skipped (1.0 on a kept state) and, given ``lr_schedule``, lr at the
-    state's step times lr_scale; all 0-dim tensors on the device.
-    """
-    for name, off in (("mixup_alpha", 0.0), ("remat", None)):
-        if getattr(config, name) != off:
-            raise NotImplementedError(f"TrainStepConfig.{name} is not ported yet")
+
+def _rows(y: Any, part: slice) -> Any:
+    return {k: v[part] for k, v in y.items()} if isinstance(y, dict) else y[part]
+
+
+def make_loss_and_grads(net: nn.Module, config: TrainStepConfig) -> Callable:
+    """``fn(params, batch_stats, x, y, mask, generator, lambda_m,
+    margin_offset, warmup) -> (loss, accuracy, new batch_stats, grads)``:
+    one forward and backward of ``net`` in the compute type on the f32
+    masters (in wave mode after the fused fbank, CMVN and SpecAugment);
+    the grads in ``params``' order. The train step and the SAM step share
+    it."""
     opts = config.fbank_opts or FbankOptions()
     dtype = config.compute_dtype
     net_takes_warmup = "warmup" in inspect.signature(type(net).forward).parameters
@@ -168,7 +166,32 @@ def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Opt
         grads = torch.autograd.grad(loss, list(leaves.values()))
         # the buffers the BatchNorms assigned in train mode
         new_stats = {k: tensors[k] for k in batch_stats}
-        return loss.detach(), compute_accuracy(logits.detach(), y), new_stats, list(grads)
+        return loss.detach(), compute_accuracy(logits.detach(), speaker_targets(y)), new_stats, list(grads)
+
+    return loss_and_grads
+
+
+def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Optional[Callable] = None,
+                    config: TrainStepConfig = TrainStepConfig()) -> Callable:
+    """Build ``step(state, batch, generator, lambda_m=1.0, margin_offset=0.0,
+    lr_scale=1.0) -> (state, metrics)``.
+
+    batch = {"x": [B, T, D] features or [B, S] waves, "y": [B] (or a
+    multi-task net's {"spk": [B], "phone": [B, T]}), optional "mask":
+    [B, T] frames or [B, S] samples}; with ``accum_grad`` > 1, B
+    must be a multiple of it. ``generator`` (on the state's device) draws
+    SpecAugment and dropout. ``lambda_m`` and ``margin_offset`` feed the
+    margin loss, ``lr_scale`` (ReduceOnPlateau's scale) scales the updates,
+    not the gradients. A net whose ``forward`` takes ``warmup`` gets it:
+    ``step / model_warmup_steps`` in float32 on the device, or 1.0 when
+    ``model_warmup_steps`` is 0. metrics: loss, accuracy, grad_norm,
+    skipped (1.0 on a kept state) and, given ``lr_schedule``, lr at the
+    state's step times lr_scale; all 0-dim tensors on the device.
+    """
+    for name, off in (("mixup_alpha", 0.0), ("remat", None)):
+        if getattr(config, name) != off:
+            raise NotImplementedError(f"TrainStepConfig.{name} is not ported yet (ROADMAP Queue 1 item 8)")
+    loss_and_grads = make_loss_and_grads(net, config)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator,
              lambda_m: Any = 1.0, margin_offset: Any = 0.0, lr_scale: Any = 1.0) -> Tuple[TrainState, dict]:
@@ -185,7 +208,7 @@ def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Opt
         for i in range(a):
             part = slice(i * mb, (i + 1) * mb)
             loss_i, acc_i, stats, grads_i = loss_and_grads(
-                state.params, stats, x[part], y[part], None if mask is None else mask[part], generator,
+                state.params, stats, x[part], _rows(y, part), None if mask is None else mask[part], generator,
                 lambda_m, margin_offset, warmup)
             grads = grads_i if grads is None else torch._foreach_add(grads, grads_i)
             loss, acc = loss + loss_i, acc + acc_i
@@ -226,15 +249,17 @@ def make_eval_step(net: nn.Module) -> Callable:
     ``torch.no_grad``. batch = {"x", "y", optional "mask", optional
     "weight" [B]}: a row of weight 0 contributes nothing; without weights
     every row counts once. The loss is the per-row cross entropy of the
-    head's logits (no margin in eval mode)."""
+    head's logits (no margin in eval mode); a multi-task batch is scored
+    on its speaker labels."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         net.eval()
-        x, y = batch["x"], batch["y"]
+        x, targets = batch["x"], batch["y"]
+        y = speaker_targets(targets)
         dtype = next(p.dtype for p in state.params.values() if p.is_floating_point())
         with torch.no_grad():
             _, logits, _ = torch.func.functional_call(net, {**state.params, **state.batch_stats},
-                                                      (x.to(dtype), y), {"mask": batch.get("mask")})
+                                                      (x.to(dtype), targets), {"mask": batch.get("mask")})
             w = batch.get("weight")
             if w is None:
                 w = torch.ones(y.shape[0], dtype=torch.float32, device=y.device)
@@ -256,6 +281,26 @@ def _fetch(values: Dict[str, Any]) -> Dict[str, float]:
     return {k: out[k] for k in values}
 
 
+def batch_to_device(batch: Dict, device: torch.device,
+                    keys: Tuple[str, ...] = ("x", "y", "mask", "phone_y", "aux_y")) -> Dict[str, Any]:
+    """A host batch's ``keys`` on ``device`` (``non_blocking``: from pinned
+    memory the copies are queued), labels as int64. A dual-label batch
+    (``phone_y``, the multi-task chunk egs) gets the multi-task net's
+    targets ``{"spk": y, "phone": phone_y}`` (JAX trainer.py:606-610)."""
+    out = {}
+    for k in keys:
+        if k in batch:
+            v = batch[k]
+            v = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+            out[k] = v.to(device, non_blocking=True)
+    for k in ("y", "phone_y", "aux_y"):
+        if k in out:
+            out[k] = out[k].long()
+    if "phone_y" in out:
+        out["y"] = {"spk": out["y"], "phone": out.pop("phone_y")}
+    return out
+
+
 class Trainer:
     """Epoch loop: host batches -> train steps on one device -> report,
     validate (JAX trainer.py:472-678, with no mesh).
@@ -269,11 +314,15 @@ class Trainer:
     its wall time, the host's wait for each batch, the host's time from
     each batch's arrival to the end of its step's turn (the copy, the
     queued step and, at a report point, the fetch) and, on a CUDA device,
-    each step's time between two CUDA events."""
+    each step's time between two CUDA events. ``step_fn`` takes the place
+    of the train step (train/sam.py's, with the same signature; a step_fn
+    that takes ``step_index``, as train/fd.py's does, gets the host step
+    count there). A batch with ``phone_y`` trains and validates a
+    multi-task net on the targets ``{"spk": y, "phone": phone_y}``."""
 
     def __init__(self, net: nn.Module, tx: GradientTransformation, lr_schedule: Optional[Callable] = None,
                  config: TrainStepConfig = TrainStepConfig(), margin_warm=None, plateau=None,
-                 report_interval: int = 100, reporter=None, device: Any = None):
+                 report_interval: int = 100, reporter=None, device: Any = None, step_fn: Optional[Callable] = None):
         self.net = net
         self.tx = tx
         self.lr_schedule = lr_schedule
@@ -284,7 +333,8 @@ class Trainer:
         self.reporter = reporter
         self.device = resolve_device(device)
         self.epoch_stats: Dict[str, Any] = {}
-        self._train_step = make_train_step(net, tx, lr_schedule, config)
+        self._train_step = step_fn if step_fn is not None else make_train_step(net, tx, lr_schedule, config)
+        self._takes_step_index = "step_index" in inspect.signature(self._train_step).parameters
         self._eval_step = make_eval_step(net)
 
     def init_state(self) -> TrainState:
@@ -292,14 +342,7 @@ class Trainer:
         return init_train_state(self.net, self.tx, self.device)
 
     def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        out = {}
-        for k in ("x", "y", "mask"):
-            if k in batch:
-                v = batch[k]
-                v = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
-                out[k] = v.to(self.device, non_blocking=True)
-        out["y"] = out["y"].long()
-        return out
+        return batch_to_device(batch, self.device)
 
     def run_epoch(self, state: TrainState, data_iter: Iterable[Dict], generator: torch.Generator, epoch: int = 0,
                   valid_iter: Optional[Callable] = None) -> Tuple[TrainState, Dict]:
@@ -338,7 +381,9 @@ class Trainer:
             if self.device.type == "cuda":
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 start.record()
-            state, metrics = self._train_step(state, batch, generator, float(lam), float(moff), float(lr_scale))
+            kwargs = {"step_index": host_step + n} if self._takes_step_index else {}
+            state, metrics = self._train_step(state, batch, generator, float(lam), float(moff), float(lr_scale),
+                                              **kwargs)
             if self.device.type == "cuda":
                 end.record()
                 events.append((start, end))
@@ -372,7 +417,8 @@ class Trainer:
         sums: Dict[str, Any] = {"loss_sum": 0.0, "acc_sum": 0.0, "n": 0.0}
         for batch in valid_iter:
             batch = self._to_device(batch)
-            batch["weight"] = torch.ones(batch["y"].shape[0], dtype=torch.float32, device=self.device)
+            batch["weight"] = torch.ones(speaker_targets(batch["y"]).shape[0], dtype=torch.float32,
+                                         device=self.device)
             m = self._eval_step(state, batch)
             sums = {k: sums[k] + m[k] for k in sums}
         got = _fetch(sums)

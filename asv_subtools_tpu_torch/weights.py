@@ -17,8 +17,8 @@ port's modules carry the flax module names, so each leaf maps by rule:
   ``var`` (batch_stats) map one to one; so do the margin losses' classifier
   ``loss/weight`` (``[C * sub_k, D]``), the logistic affinity head's
   scalars ``loss/w`` and ``loss/b`` and the one-class head's
-  ``loss/center`` (``[1, D]``; these four only directly under the
-  ``loss`` module), the margin losses' ring radius ``ring_r``, the
+  ``loss/center`` (``[1, D]``; these four only directly under a loss
+  head: ``loss``, MultiTaskNet's ``loss_spk`` or FD's ``loss2``), the margin losses' ring radius ``ring_r``, the
   curricular statistic ``curricular_t`` (batch_stats), the relative
   attention's ``pos_bias_u`` and ``pos_bias_v`` (``[H, Dh]``), the LDE
   pooling's ``mu`` (``[D, C]``) and ``s``, the xi-vector pooling's
@@ -33,9 +33,10 @@ port's modules carry the flax module names, so each leaf maps by rule:
   A non-affine BatchNorm has no params to map.
 
 A whole train state crosses too (:func:`train_state_from_variables` and
-:func:`train_state_to_variables`): the step, the ``SpeakerNet`` params,
-the batch_stats and the optimizer state, whose moment trees (optax's
-``mu``, ``nu`` or ``trace``) map by the params' rules.
+:func:`train_state_to_variables`): the step, the net's params
+(``SpeakerNet``, ``MultiTaskNet`` or ``FDSpeakerNet``), the batch_stats
+and the optimizer state, whose moment trees (optax's ``mu``, ``nu`` or
+``trace``) map by the params' rules; FD's optimizer state is a pair.
 
 Every leaf is consumed exactly once; a leaf no rule takes raises, and
 :func:`load_variables` raises on any port parameter left unset. The rules
@@ -63,14 +64,16 @@ _SPLIT_CONV = "att1"
 _ONE_TO_ONE_PARAMS = ("bias", "scale", "ring_r", "pos_bias_u", "pos_bias_v", "mu", "s", "prior_mean",
                       "prior_logprec", "t")
 _STATS = ("mean", "var", "curricular_t")
-# SpeakerNet's head: its "weight" is no Dense kernel; these leaves map one
-# to one directly under it ("b" or "w" elsewhere would catch other leaves)
-_LOSS = "loss"
+# the loss heads (SpeakerNet's ``loss``, MultiTaskNet's ``loss_spk``,
+# FDSpeakerNet's ``loss`` and ``loss2``): a head's "weight" is no Dense
+# kernel; these leaves map one to one directly under a head ("b" or "w"
+# elsewhere would catch other leaves)
+_LOSSES = ("loss", "loss_spk", "loss2")
 _LOSS_PARAMS = ("weight", "w", "b", "center")
 
 
 def _is_loss_param(mods, leaf: str) -> bool:
-    return leaf in _LOSS_PARAMS and bool(mods) and mods[-1] == _LOSS
+    return leaf in _LOSS_PARAMS and bool(mods) and mods[-1] in _LOSSES
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = (),
@@ -227,7 +230,8 @@ def train_state_from_variables(net: nn.Module, tree: Mapping, device: Any = None
     """A JAX train state as numpy trees -> the port's ``TrainState`` for ``net``.
 
     ``tree = {"step", "params", "batch_stats", "opt_state": {"count", and
-    moment trees such as "mu", "nu" (adam) or "trace" (sgd momentum)}}``.
+    moment trees such as "mu", "nu" (adam) or "trace" (sgd momentum)}}``;
+    FD's ``opt_state`` is the pair (main, adversary) of such dicts.
     Leaves keep their types; tensors go to ``device`` (the CUDA card unless
     ``device="cpu"``). Raises on a leaf no rule consumes and on a
     parameter, buffer or moment left unset."""
@@ -241,30 +245,37 @@ def train_state_from_variables(net: nn.Module, tree: Mapping, device: Any = None
     stats = {k: v for k, v in state.items() if k not in named_params}
     _check_keys("params", params, named_params)
     _check_keys("batch_stats", stats, named_buffers)
-    opt_state = {"count": torch.as_tensor(np.asarray(tree["opt_state"]["count"]), dtype=torch.int32)}
-    for name, moments in tree["opt_state"].items():
-        if name == "count":
-            continue
-        moment = variables_to_state_dict({"params": moments})
-        _check_keys(f"optimizer {name}", moment, named_params)
-        opt_state[name] = moment
+    def optimizer(tree_opt: Mapping) -> dict:
+        opt = {"count": torch.as_tensor(np.asarray(tree_opt["count"]), dtype=torch.int32).to(dev)}
+        for name, moments in tree_opt.items():
+            if name != "count":
+                moment = variables_to_state_dict({"params": moments})
+                _check_keys(f"optimizer {name}", moment, named_params)
+                opt[name] = to_dev(moment)
+        return opt
+
     to_dev = lambda d: {k: v.to(dev) for k, v in d.items()}
+    tree_opt = tree["opt_state"]
     return TrainState(
         step=torch.as_tensor(np.asarray(tree["step"]), dtype=torch.int32).to(dev),
         params=to_dev(params), batch_stats=to_dev(stats),
-        opt_state={k: v.to(dev) if k == "count" else to_dev(v) for k, v in opt_state.items()})
+        opt_state=tuple(map(optimizer, tree_opt)) if isinstance(tree_opt, (tuple, list)) else optimizer(tree_opt))
 
 
 def train_state_to_variables(state: TrainState) -> Dict[str, Any]:
     """The inverse of :func:`train_state_from_variables`: the port's
     ``TrainState`` -> numpy trees in the JAX layout."""
     variables = state_dict_to_variables({**state.params, **state.batch_stats})
-    opt_state: Dict[str, Any] = {"count": state.opt_state["count"].cpu().numpy()}
-    for name, moment in state.opt_state.items():
-        if name != "count":
-            opt_state[name] = state_dict_to_variables(moment)["params"]
+
+    def optimizer(opt: Mapping) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"count": opt["count"].cpu().numpy()}
+        out.update({name: state_dict_to_variables(m)["params"] for name, m in opt.items() if name != "count"})
+        return out
+
+    opt_state = state.opt_state
     return {"step": state.step.cpu().numpy(), "params": variables["params"],
-            "batch_stats": variables["batch_stats"], "opt_state": opt_state}
+            "batch_stats": variables["batch_stats"],
+            "opt_state": tuple(map(optimizer, opt_state)) if isinstance(opt_state, tuple) else optimizer(opt_state)}
 
 
 ecapa_variables_to_state_dict = variables_to_state_dict

@@ -47,9 +47,9 @@ Phases (any failure raises and the script exits non-zero):
      statistics pooling on, held against the same model with the flag off
      fed by the plain front end and against an f32 model on the f32 plain
      front end; timed with the flag on and off; one batch profiled; then the Extractor run as in 6.
-     The launch counters are zeroed just before each of the sixteen main
-     paths (6 to 21) drives the port and read just after; every kernel
-     of a path must have been launched in it.
+     The launch counters are zeroed just before each of the seventeen
+     main paths (6 to 22) drives the port and read just after; every
+     kernel of a path must have been launched in it.
   8. the train step of ECAPA-TDNN C1024 (SpeakerNet with the sub-centre
      top-k AAM head over 5994 classes, seeded random weights, bf16
      compute on f32 masters) on raw waves at B=128 x 2 s, K1 inside the
@@ -220,7 +220,44 @@ Phases (any failure raises and the script exits non-zero):
      each gate's JSON line holding its JAX counterpart's keys, the RepVGG
      fold's mean cosine above 0.999, and K1 launched in the phase. The
      EERs are printed, not gated, at this cut.
- 22. a "kernels" JSON line, then the device JSON as the last line.
+ 22. the offline chunk-egs route through the port's Launcher. Host
+     preparation (not on the card): a synthetic corpus of 64 speakers x 24
+     utterances of 2.5-4.0 s (2 evaluation ones of 1.5-12 s) through the
+     Kaldi-style host front end (recipes/synthetic.py
+     write_feature_datadir: 80-bin fbank with dither 1.0 from a seeded
+     numpy generator, energy VAD with VadOptions(), sliding CMVN, the
+     voiced frames) to a feature ark/scp with utt2num_frames, seeded
+     128-phone alignments and 9 auxiliary classes, prepare_egs_dir (chunk
+     200, 64 utterances held out); K1 against its plain version at
+     find_lr's shape (the recipe's 2.015 s chunk), outside the counted
+     window. Then: multitask.yaml at full width (MultiTaskXvector 512,
+     tdnn5 1500, embedding 512, phonetic branch 3x512, the softmax head,
+     sgd on warmR, bf16) on the offline egs at B=128 x 200 frames x 80
+     with two spawn workers for one epoch: ms/step by CUDA events, the
+     host's data wait, the losses every 4 steps (they must be finite and
+     fall), speaker accuracy, the phone loss and accuracy on a validation
+     batch, and host waits exactly the Trainer's fetches; fd_xvector at
+     full width (9 aux classes, cycle 4, 2 adversary steps) for one epoch
+     through the Launcher's Trainer (losses finite and falling, host
+     waits the Trainer's), then a cycle on the card under the sync check
+     where an adversary step moves the DAL projections alone and a main
+     step every other leaf; snowdar_xvector.yaml with train.sam rho 0.05
+     for one epoch (losses finite and falling, host waits the Trainer's)
+     and a SAM step against the plain step on one batch under the sync
+     check; Launcher.find_lr on the voxceleb recipe's Launcher (ECAPA
+     C1024, adamW, wave input, K1 in the step) for 20 steps: K1 once a step,
+     one host wait a step, the raw losses finite and the smoothed curve
+     their debiased running mean; the multi-task and FD x-vectors served at
+     full width behind make_wave_embed_fn on one [128, 160000] batch with
+     K4 fused and unfused, held against the unfused bf16 model on the
+     plain front end (0.9999) and an f32 model (0.999); Launcher.extract
+     of the evaluation list in wave mode (K1) and feature mode (host
+     features, ExtractConfig.batch_sizes). K1 and K4 must launch in that
+     window. After it: K4 against its plain version on the served
+     models' pooling inputs, and extract_embedding_chunked on the
+     utterances longer than 400 frames against their chunks embedded one
+     at a time (cosine 0.99999).
+ 23. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
 line) is device time over many launches back to back: one CUDA event, N
@@ -2461,6 +2498,377 @@ def phase_gates(torch, device_label):
     return counts
 
 
+# the offline route: 64 synthetic speakers x 24 training utterances of
+# 2.5-4.0 s (and 2 evaluation ones of 1.5-12 s) through the Kaldi-style
+# host front end; chunks of 200 frames, 64 utterances held out
+OFFLINE_SPEAKERS, OFFLINE_TRAIN_UTTS, OFFLINE_EVAL_UTTS = 64, 24, 2
+OFFLINE_CHUNK, OFFLINE_VALID, OFFLINE_PHONES, OFFLINE_AUX = 200, 64, 128, 9
+OFFLINE_REPORT = 4  # a report point every 4 steps: the losses the phase holds
+FIND_LR_STEPS = 20
+OFFLINE_MAX_CHUNK = 400  # frames: extract_embedding_chunked's chunk on the long evaluation utterances
+
+
+def _preset(name: str) -> dict:
+    from asv_subtools_tpu_torch.utils import load_yaml
+
+    return load_yaml(f"recipes/configs/{name}.yaml")
+
+
+def _offline_params(preset: str, tmp: str, exp: str, **data) -> dict:
+    """``preset``'s model, head, optimizer and schedule at full width on the
+    offline egs of ``tmp``, bf16, B=128, one epoch."""
+    p = _preset(preset)
+    return {"exp_dir": f"{tmp}/{exp}", "seed": SEED + 90,
+            "data": {"egs_type": "offline", "egs_dir": f"{tmp}/egs", "batch_size": BATCH, "num_bins": 80, **data},
+            "model": p["model"], "loss": p["loss"],
+            "train": dict(p["train"], epochs=1, compute_dtype="bfloat16", report_interval=OFFLINE_REPORT),
+            "extract": {"mode": "wave", "batch": 32, "workers": 4,
+                        "batch_sizes": {200: 64, 400: 32, 800: 16, 1600: 8}}}
+
+
+def _step_ms(torch, run, n: int = 6) -> float:
+    """Median ms of ``run()`` between CUDA events over n calls after one,
+    none allowed to wait on the card."""
+    run()
+    events = []
+    with no_host_sync(torch):
+        for _ in range(n):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            events.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
+
+
+def _reported_losses(exp: str) -> list:
+    from asv_subtools_tpu_torch.train import read_report_csv
+
+    return list(read_report_csv(f"{exp}/log/train.csv")["loss"])
+
+
+def phase_offline(torch, device_label):
+    """The offline chunk-egs route through the port's Launcher (see 22 in
+    the module docstring)."""
+    import itertools
+
+    from asv_subtools_tpu_torch.data import prepare_egs_dir
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.features import FbankOptions, MelOptions, fused_fbank, fused_fbank_plain
+    from asv_subtools_tpu_torch.io import read_vec_flt_scp, read_wav
+    from asv_subtools_tpu_torch.launcher import Launcher
+    from asv_subtools_tpu_torch.models import extract_embedding_chunked, phone_frame_loss
+    from asv_subtools_tpu_torch.nn import fused_stats_pooling, fused_stats_pooling_plain
+    from asv_subtools_tpu_torch.recipes.synthetic import write_corpus, write_feature_datadir, write_offline_labels
+    from asv_subtools_tpu_torch.recipes.voxceleb import recipe_params
+    from asv_subtools_tpu_torch.train import (TrainStepConfig, get_optimizer, init_fd_state, init_train_state,
+                                              make_fd_train_step, make_sam_train_step, make_train_step)
+    from asv_subtools_tpu_torch.train.fd import is_adversary
+    from asv_subtools_tpu_torch.train.step_check import fd_net, host_waits, multitask_net
+
+    dev = torch.device("cuda")
+    opts = FbankOptions(mel_opts=MelOptions(num_bins=80))
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. host preparation
+        t0 = time.perf_counter()
+        write_corpus(tmp, num_spks=OFFLINE_SPEAKERS, train_per_spk=OFFLINE_TRAIN_UTTS,
+                     eval_per_spk=OFFLINE_EVAL_UTTS, dur=(2.5, 4.0), eval_dur=(1.5, 12.0), seed=SEED + 91)
+        t1 = time.perf_counter()
+        n_utts = write_feature_datadir(f"{tmp}/train", f"{tmp}/feats", num_bins=80, seed=SEED + 92)
+        t2 = time.perf_counter()
+        ali_scp, utt2aux = write_offline_labels(f"{tmp}/feats", OFFLINE_PHONES, OFFLINE_AUX, seed=SEED + 93)
+        feat_dim, targets = prepare_egs_dir(f"{tmp}/feats", f"{tmp}/egs", chunk_size=OFFLINE_CHUNK,
+                                            valid_num_utts=OFFLINE_VALID, seed=SEED + 94)
+        with open(f"{tmp}/egs/train.egs.csv") as f:
+            n_chunks = sum(1 for _ in f) - 1
+        with open(f"{tmp}/feats/utt2num_frames") as f:
+            voiced = sum(int(line.split()[1]) for line in f if line.strip())
+        print(f"offline host preparation: corpus {OFFLINE_SPEAKERS} speakers x ({OFFLINE_TRAIN_UTTS} of 2.5-4.0 s + "
+              f"{OFFLINE_EVAL_UTTS} eval of 1.5-12 s) {t1 - t0:.1f} s; Kaldi-style host features of {n_utts} "
+              f"utterances (80-bin fbank, dither 1.0, energy VAD, sliding CMVN 300, voiced frames: {voiced} frames) "
+              f"{t2 - t1:.1f} s; {OFFLINE_PHONES}-phone alignments, {OFFLINE_AUX} aux classes; egs dir: feat_dim "
+              f"{feat_dim}, {targets} targets, {n_chunks} training chunks of {OFFLINE_CHUNK} frames, "
+              f"{OFFLINE_VALID} utterances held out ({time.perf_counter() - t2:.1f} s)", flush=True)
+        check(feat_dim == 80 and targets == OFFLINE_SPEAKERS and n_chunks >= 4 * BATCH,
+              "the offline egs dir is not what the corpus should give")
+
+        # K1 against its plain version at find_lr's shape (the recipe's
+        # chunk), outside the counted window
+        fl_params = recipe_params(tmp, f"{tmp}/find_lr", epochs=1, batch_size=BATCH, channels=1024)
+        fl_params["data"].update(shuffle_buffer=RECIPE_SHUFFLE, workers=4)
+        finder = Launcher(fl_params)
+        fl_egs = finder.build_egs()
+        finder.build_model()
+        batches = []
+        for epoch in itertools.count():
+            fl_egs.set_epoch(epoch)
+            batches += list(itertools.islice(iter(fl_egs), FIND_LR_STEPS - len(batches)))
+            if len(batches) >= FIND_LR_STEPS:
+                break
+        x = torch.as_tensor(batches[0]["x"], device=dev)
+        k, _ = fused_fbank(x, opts, dft_dtype=torch.bfloat16, with_energy=False)
+        route = fused_fbank.last_route
+        pl, _ = fused_fbank_plain(x, opts, dft_dtype=torch.bfloat16, with_energy=False)
+        torch.cuda.synchronize()
+        k1_err = max_abs(k, pl)
+        check(route == "tensor_core" and k1_err <= 1e-3,
+              f"K1 at find_lr's shape {tuple(x.shape)} disagrees with its plain version ({k1_err:.3e})")
+        del x, k, pl
+
+        # the main path: counters from zero
+        zero_launches()
+
+        # 2. multitask.yaml at full width: two spawn workers, one epoch
+        waits: dict = {}
+        mt = Launcher(_offline_params("multitask", tmp, "mt", ali_scp=ali_scp, num_workers=2))
+        mt_egs = mt.build_egs()
+        mt.build_model()
+        with counted_host_waits(waits):
+            mt_state = mt.train(mt_egs)
+        torch.cuda.synchronize()
+        st = mt.epoch_stats[0]
+        mt_losses = _reported_losses(f"{tmp}/mt")
+        pace = _pace(st, skip=2)
+        vb = next(iter(mt.valid_egs))
+        with torch.inference_mode():
+            tensors = {k[len("backbone."):]: v for k, v in {**mt_state.params, **mt_state.batch_stats}.items()
+                       if k.startswith("backbone.")}
+            _, ph = torch.func.functional_call(mt.net.backbone.eval(), tensors, (torch.as_tensor(vb["x"], device=dev),))
+            logits = torch.nn.functional.linear(ph, mt_state.params["phone_affine.weight"],
+                                                mt_state.params["phone_affine.bias"])
+            phones = torch.as_tensor(vb["phone_y"], device=dev).long()
+            ph_loss = float(phone_frame_loss(logits, phones, num_phones=OFFLINE_PHONES))
+            ph_acc = float((logits.argmax(-1) == phones).float().mean())
+        mt_reports = mt_egs.worker_reports
+        print(f"offline multitask.yaml (MultiTaskXvector 512 / tdnn5 1500 / embedding 512, phonetic branch 3x512, "
+              f"softmax head over {targets}, {OFFLINE_PHONES} phones, sgd 1e-2 warmR, bf16) [{BATCH},{OFFLINE_CHUNK},80], "
+              f"two spawn workers: {st['steps']} steps, {float(np.median(st['step_ms'])):.2f} ms/step (median, CUDA "
+              f"events; {pace['ms']:.2f} from step 3), the host's wait for a batch {pace['wait_ms']:.2f} ms median "
+              f"(data wait {pace['share']:.1%} of the host's time from step 3); loss (reported every "
+              f"{OFFLINE_REPORT} steps) " + ", ".join(f"{v:.4f}" for v in mt_losses)
+              + f"; epoch loss {st['metrics']['loss']:.4f}, speaker accuracy {st['metrics']['accuracy']:.4f}, "
+              f"validation loss {st['metrics']['valid_loss']:.4f} (accuracy {st['metrics']['valid_accuracy']:.4f}); "
+              f"phone loss {ph_loss:.4f}, phone accuracy {ph_acc:.4f} on a validation batch (random phones: chance "
+              f"{1 / OFFLINE_PHONES:.4f}); host waits {waits['run_epoch']} (expected 2 + steps // {OFFLINE_REPORT}); "
+              f"on {device_label}", flush=True)
+        check(all(np.isfinite(mt_losses)) and len(mt_losses) >= 3 and mt_losses[-1] < mt_losses[0]
+              and np.isfinite(st["metrics"]["valid_loss"]) and np.isfinite(ph_loss),
+              "the multi-task losses were not finite or did not fall")
+        check(waits["run_epoch"] == [2 + st["steps"] // OFFLINE_REPORT],
+              f"the multi-task epoch waited on the card {waits['run_epoch']} times: {waits['run_epoch places']}")
+        check(len(mt_reports) == 2 and all(r["cuda_visible_devices"] == "" and not r["cuda_initialized"]
+                                           for r in mt_reports), "a loader worker saw the card")
+        del mt_state
+        torch.cuda.empty_cache()
+
+        # 3. fd_xvector at full width on the same egs, 9 aux classes
+        fd_params = _offline_params("snowdar_xvector", tmp, "fd", aux_utt2label=utt2aux)
+        fd_params["model"] = {"name": "fd_xvector", "params": {"num_aux_targets": OFFLINE_AUX}}
+        fd_params["train"]["fd"] = {"cycle": 4, "adv_steps": 2}
+        fd = Launcher(fd_params)
+        fd_egs = fd.build_egs()
+        fd.build_model()
+        waits = {}
+        with counted_host_waits(waits):
+            fd_state = fd.train(fd_egs)
+        fd_stats = fd.epoch_stats[0]
+        fd_losses = _reported_losses(f"{tmp}/fd")
+        fd_pace = _pace(fd_stats, skip=2)
+        # the cycle on the card: an adversary step moves the DAL projections
+        # alone, a main step every leaf but them; no step waits on the card
+        b0 = fd_egs.example_batch() if hasattr(fd_egs, "example_batch") else next(iter(fd_egs))
+        batch = {"x": torch.as_tensor(b0["x"], device=dev), "y": torch.as_tensor(b0["y"], device=dev).long(),
+                 "aux_y": torch.as_tensor(b0["aux_y"], device=dev).long()}
+        tx_main, tx_adv = get_optimizer("sgd", 1e-2, momentum=0.9), get_optimizer("sgd", 1e-2)
+        step = make_fd_train_step(fd.net, tx_main, tx_adv, cycle=4, adv_steps=2,
+                                  config=TrainStepConfig(compute_dtype=torch.bfloat16))
+        state = init_fd_state(fd.net, tx_main, tx_adv, dev)
+        state.params = dict(fd_state.params)
+        dal = {k for k in state.params if is_adversary(k)}
+        state, _ = step(state, batch, step_index=0)
+        torch.cuda.synchronize()
+        moved, fd_ms = [], {}
+        for i in range(1, 5):
+            before = dict(state.params)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with no_host_sync(torch):
+                start.record()
+                state, m = step(state, batch, step_index=i)
+                end.record()
+            torch.cuda.synchronize()
+            fd_ms.setdefault("adversary" if i % 4 < 2 else "main", []).append(start.elapsed_time(end))
+            moved.append({k for k in state.params if not torch.equal(before[k], state.params[k])})
+        print(f"offline FD-AL (FDXvector 512/1500/512, AM head over {targets}, softmax aux head over {OFFLINE_AUX}, "
+              f"cycle 4, 2 adversary steps, sgd warmR; bf16) [{BATCH},{OFFLINE_CHUNK},80]: {fd_stats['steps']} steps "
+              f"through the Launcher's Trainer, {float(np.median(fd_stats['step_ms'])):.2f} ms/step (median, CUDA "
+              f"events; {fd_pace['ms']:.2f} from step 3), data wait {fd_pace['share']:.1%} of the host's time from "
+              f"step 3; loss (every {OFFLINE_REPORT} steps) " + ", ".join(f"{v:.4f}" for v in fd_losses)
+              + f", epoch loss {fd_stats['metrics']['loss']:.4f}; host waits {waits['run_epoch']}; "
+              f"on the card: a step {np.median(fd_ms['adversary']):.2f} ms (adversary), "
+              f"{np.median(fd_ms['main']):.2f} ms (main), CUDA events; leaves moved per step (steps 1-4): "
+              f"{[len(x) for x in moved]} of {len(state.params)} ({len(dal)} DAL leaves); on {device_label}",
+              flush=True)
+        check(all(np.isfinite(fd_losses)) and len(fd_losses) >= 3 and fd_losses[-1] < fd_losses[0],
+              "the FD losses were not finite or did not fall")
+        check(waits["run_epoch"] == [2 + fd_stats["steps"] // OFFLINE_REPORT],
+              f"the FD epoch waited on the card {waits['run_epoch']} times: {waits['run_epoch places']}")
+        rest = set(state.params) - dal
+        check(moved == [dal, rest, rest, dal] and len(dal) == 2,
+              "an FD adversary step moved other leaves than the DAL projections, or a main step moved them")
+        del state, fd_state, step
+        torch.cuda.empty_cache()
+
+        # 4. snowdar_xvector.yaml with train.sam rho 0.05 (runSnowdarXvectorSAM)
+        sam_params = _offline_params("snowdar_xvector", tmp, "sam")
+        sam_params["train"]["sam"] = {"rho": 0.05}
+        sam = Launcher(sam_params)
+        sam_egs = sam.build_egs()
+        sam.build_model()
+        waits = {}
+        with counted_host_waits(waits):
+            sam_state = sam.train(sam_egs)
+        sam_losses = _reported_losses(f"{tmp}/sam")
+        sst = sam.epoch_stats[0]
+        batch = {"x": torch.as_tensor(b0["x"], device=dev), "y": torch.as_tensor(b0["y"], device=dev).long()}
+        tx = get_optimizer("sgd", 1e-2, momentum=0.9)
+        config = TrainStepConfig(compute_dtype=torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 95)
+        plain_state = init_train_state(sam.net, tx, dev)
+        sam_step, plain_step = make_sam_train_step(sam.net, tx, config=config), make_train_step(sam.net, tx,
+                                                                                                config=config)
+        ms_sam = _step_ms(torch, lambda: sam_step(plain_state, batch, gen))
+        ms_plain = _step_ms(torch, lambda: plain_step(plain_state, batch, gen))
+        print(f"offline snowdar_xvector.yaml + train.sam rho 0.05 (AM head over {targets}, sgd momentum 0.9 warmR, "
+              f"bf16) [{BATCH},{OFFLINE_CHUNK},80]: {sst['steps']} steps, {float(np.median(sst['step_ms'])):.2f} "
+              f"ms/step in the epoch (CUDA events); on one batch {ms_sam:.2f} ms/step against the plain step's "
+              f"{ms_plain:.2f} ({ms_sam / ms_plain:.2f}x), neither waiting on the card; loss (every {OFFLINE_REPORT} "
+              f"steps) " + ", ".join(f"{v:.4f}" for v in sam_losses) + f", validation loss "
+              f"{sst['metrics']['valid_loss']:.4f}; host waits {waits['run_epoch']}; on {device_label}", flush=True)
+        check(all(np.isfinite(sam_losses)) and sam_losses[-1] < sam_losses[0],
+              "the SAM losses were not finite or did not fall")
+        check(waits["run_epoch"] == [2 + sst["steps"] // OFFLINE_REPORT],
+              f"the SAM epoch waited on the card {waits['run_epoch']} times: {waits['run_epoch places']}")
+        del sam_state, plain_state, sam_step, plain_step
+        torch.cuda.empty_cache()
+
+        # 5. Launcher.find_lr on the voxceleb recipe's Launcher (ECAPA C1024,
+        # wave input, K1 in the step)
+        before = fused_fbank.launches
+        t0 = time.perf_counter()
+        found, fl_waits = host_waits(lambda: finder.find_lr(batches, start_lr=1e-7, end_lr=1e-1,
+                                                            num_steps=FIND_LR_STEPS))
+        fl_s = time.perf_counter() - t0
+        fl_k1 = fused_fbank.launches - before
+        print(f"offline find_lr (the recipe's ECAPA C1024, adamW, wave input [{BATCH},{batches[0]['x'].shape[1]}], "
+              f"K1 in the step; K1 against plain there {k1_err:.3e}): {len(found['lrs'])} steps of "
+              f"{FIND_LR_STEPS}, {fl_s:.2f} s, suggested lr {found['suggested_lr']}; smoothed losses "
+              + ", ".join(f"{v:.3f}" for v in found["losses"]) + "; raw losses "
+              + ", ".join(f"{v:.4f}" for v in found["raw_losses"]) + f"; K1 launches {fl_k1}, host waits "
+              f"{len(fl_waits)} (one a step: the loss read); on {device_label}", flush=True)
+        check(len(found["lrs"]) > 5 and found["suggested_lr"] is not None, "find_lr gave no suggestion")
+        # the smoothed curve is the debiased running mean of the steps' own
+        # losses (seeded with the first, as in JAX); a step that gives a
+        # non-finite loss or a wrong one shows here
+        raw = np.asarray(found["raw_losses"], np.float64)
+        avg = np.empty_like(raw)
+        for i, v in enumerate(raw):
+            avg[i] = v if i == 0 else 0.95 * avg[i - 1] + 0.05 * v
+        smoothed = avg / (1 - 0.95 ** np.arange(1, len(raw) + 1))
+        check(len(raw) == len(found["lrs"]) and np.isfinite(raw).all() and raw.min() > 0
+              and np.allclose(found["losses"], smoothed, rtol=1e-9, atol=0),
+              "find_lr's raw losses are not finite and positive, or its smoothed curve does not follow them")
+        check(fl_k1 in (len(found["lrs"]), len(found["lrs"]) + 1) and len(fl_waits) == fl_k1,
+              f"find_lr's K1 launches ({fl_k1}) and host waits ({len(fl_waits)}) are not one a step: {fl_waits}")
+        del finder
+        torch.cuda.empty_cache()
+
+        # 6. serving: the multi-task and FD x-vectors behind make_wave_embed_fn,
+        # the statistics pooling fused (K4) and unfused
+        gen = torch.Generator(device=dev).manual_seed(SEED + 96)
+        wave = torch.randn((BATCH, SAMPLES), generator=gen, device=dev) * 1000.0
+        mask = torch.ones((BATCH, SAMPLES), dtype=torch.bool, device=dev)
+        first = lambda model: (lambda x, m: model(x, m)[0])
+        pooled = {}
+        with torch.inference_mode():
+            for label, make in (("MultiTaskXvector 512/1500/512", multitask_net), ("FDXvector 512/1500/512", fd_net)):
+                model32 = make(SEED + 97).backbone.to(dev).eval()
+                off16 = copy.deepcopy(model32).to(torch.bfloat16)
+                on16 = copy.deepcopy(off16)
+                on16.stats.fused_inference = True
+                ref16 = _plain_embed(torch, first(off16), opts, torch.bfloat16, torch.bfloat16)(wave, mask)
+                ref32 = _plain_embed(torch, first(model32), opts, torch.float32, torch.float32)(wave, mask)
+                seen = {}
+                hook = on16.stats.register_forward_hook(lambda mod, args, out: seen.update(x=args[0], m=args[1]))
+                for flag, model in (("fused pooling", on16), ("unfused pooling", off16)):
+                    emb = make_wave_embed_fn(first(model), opts, dtype=torch.bfloat16)(wave, mask)
+                    torch.cuda.synchronize()
+                    c16, c32 = float(cosine(emb, ref16).min()), float(cosine(emb, ref32).min())
+                    print(f"offline served {label} bf16 [{BATCH},{SAMPLES}], {flag}: min per-utterance cosine vs "
+                          f"unfused + plain front end (bf16) {c16:.6f} (>= 0.9999), vs f32 model + f32 plain front "
+                          f"end {c32:.6f} (>= 0.999)", flush=True)
+                    check(tuple(emb.shape) == (BATCH, 512) and c16 >= 0.9999 and c32 >= 0.999,
+                          f"served {label} embeddings ({flag}) disagree")
+                hook.remove()
+                pooled[label] = seen
+                del model32, off16, on16
+
+        # Launcher.extract of the evaluation list with the trained multi-task
+        # net: wave mode (K1) and feature mode (host features, batch_sizes)
+        ex_stats = {}
+        for mode in ("wave", "feature"):
+            mt.params["extract"]["mode"] = mode
+            ex_stats[mode] = mt.extract(f"{tmp}/eval/wav.scp", f"{tmp}/xv_{mode}")
+        embs = {m: dict(read_vec_flt_scp(f"{tmp}/xv_{m}.scp")) for m in ex_stats}
+        n_eval = OFFLINE_SPEAKERS * OFFLINE_EVAL_UTTS
+        check(all(len(e) == n_eval and all(v.shape == (512,) and np.isfinite(v).all() for v in e.values())
+                  for e in embs.values()), "an extraction did not read back whole and finite")
+        counts = read_launches("offline route", ("fused_fbank", "fused_stats_pooling"))
+
+        # K4 against its plain version on the served models' pooling inputs,
+        # after the counted window
+        k4_errs = {}
+        with torch.inference_mode():
+            for label, seen in pooled.items():
+                kx = fused_stats_pooling(seen["x"], seen["m"])
+                px = fused_stats_pooling_plain(seen["x"].contiguous(), seen["m"])
+                k4_errs[label] = (max_abs(kx, px), tuple(seen["x"].shape))
+                check(close(torch, kx, px, 1e-5, 1e-4),
+                      f"K4 disagrees with its plain version on {label}'s pooling input {tuple(seen['x'].shape)}")
+        print("offline K4 against its plain version on the served models' pooling input (bf16, a [B, T, D] view "
+              "of [B, D, T] memory): " + ", ".join(f"{k} {list(shape)} {e:.3e}" for k, (e, shape) in k4_errs.items())
+              + " (rtol 1e-4, atol 1e-5)", flush=True)
+        del pooled, kx, px
+        # extract_embedding_chunked on the evaluation utterances longer than
+        # the chunk, against the chunks embedded one at a time (f32 weights)
+        backbone = mt.net.backbone.eval()
+        tensors = {k[len("backbone."):]: v for k, v in {**mt.state.params, **mt.state.batch_stats}.items()
+                   if k.startswith("backbone.")}
+        embed = lambda x, m: torch.func.functional_call(backbone, tensors, (x, m))[0]
+        from asv_subtools_tpu_torch.data.processor import compute_feats
+        from asv_subtools_tpu_torch.models import chunk_utterance
+
+        with open(f"{tmp}/eval/wav.scp") as f:
+            entries = [line.split() for line in f if line.strip()]
+        feats = [s["feat"] for s in compute_feats(opts)({"wav": read_wav(p)[0]} for _, p in entries)]
+        long = [f for f in feats if f.shape[0] > OFFLINE_MAX_CHUNK]
+        cos = []
+        with torch.inference_mode():
+            for f in long:
+                got = extract_embedding_chunked(embed, f, OFFLINE_MAX_CHUNK)
+                chunks, w = chunk_utterance(f, OFFLINE_MAX_CHUNK)
+                ref = sum(float(wi) * embed(torch.as_tensor(c[None], device=dev), None)[0] for c, wi in zip(chunks, w))
+                cos.append(float(cosine(got[None], ref[None])[0]))
+        print(f"offline extraction ({n_eval} evaluation utterances of 1.5-12 s, the trained multi-task net): wave mode "
+              f"{ex_stats['wave']['batches']} batches, {ex_stats['wave']['wall_s']:.2f} s; feature mode (host "
+              f"features, batch_sizes {mt.params['extract']['batch_sizes']}) {ex_stats['feature']['batches']} "
+              f"batches, {ex_stats['feature']['wall_s']:.2f} s; extract_embedding_chunked at {OFFLINE_MAX_CHUNK} "
+              f"frames on {len(long)} longer utterances against their chunks one at a time: min cosine "
+              f"{min(cos):.7f} (>= 0.99999); on {device_label}", flush=True)
+        check(len(long) > 0 and min(cos) >= 0.99999, "extract_embedding_chunked disagrees with its chunks")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2514,6 +2922,8 @@ def main() -> int:
     paths.append(phase_train_new(torch, smi))
     torch.cuda.empty_cache()
     paths.append(phase_gates(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_offline(torch, smi))
     for kernel_name, k in kernels.items():
         k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

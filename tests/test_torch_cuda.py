@@ -58,6 +58,16 @@ cosine 0.99999; one bf16 forward of each of the three models, card
 against CPU, at cosine 0.999 (both round every layer to bf16, in other
 orders).
 
+The offline route (the multi-task, FD-AL and SAM steps on features): one
+SGD step of each narrow net (128 channels, B=8, 198 frames) card against
+CPU with the bounds of the ECAPA step (f64 leaves to F64_LEAF_TOL, loss
+and grad_norm to 1e-10; f32 loss and grad_norm to 1e-4 of the CPU's and
+every leaf and BN statistic against the f64 step to F32_LEAF_TOL and
+F32_STATS_TOL); bf16 steps of each that never wait on the card; a whole
+FD cycle on the card where an adversary step moves the ``dal`` leaves
+alone and a main step none of them; and Launcher.find_lr on wave egs
+(a narrow ECAPA): K1 once a step and one host wait a step.
+
 The scoring back end's device functions (f32, TF32 off): asnorm_device at
 E=100, T=130 against a cohort of 600 (top 64) and at the scale of
 tests/test_backend_scale.py (600 x 970, cohort 5,994, top 300) against
@@ -407,6 +417,13 @@ def test_stats_pooling_kernel_raises_on_other_types(card):
 # f32 on either device against the f64 step, leaf by leaf, and f64 on the
 # card against the CPU: the bounds of chip_smoke.py (see there and PERF.md)
 F32_LEAF_TOL, F32_STATS_TOL, F64_LEAF_TOL = 0.12, 2e-5, 1e-8
+# The f32 wave step's grad_norm, card against CPU. The narrow ResNet's read
+# up to 1.043e-4 over 24 seeds on an H100 (python3 -m
+# asv_subtools_tpu_torch.train.step_check resnet 24; PERF.md section 6): the
+# CPU's f32 step sits up to 8.2e-5 from the f64 step, the card's 1.5e-5 on
+# the same features, and K1's f32 features move the card's by up to 4.5e-5
+# more. Its bound is twice the sweep's largest, as F32_LEAF_TOL is.
+FAMILY_F32_GRAD_NORM_TOL = {"resnet": 2e-4, "conformer": 1e-4}
 
 
 def _bf16_wave_step(card, mode):
@@ -561,11 +578,11 @@ def test_family_train_step_never_waits_on_the_card(card, family, mode):
 def test_family_train_step_on_the_card_matches_the_cpu(card, family):
     """The narrow ResNet and Conformer (dropout 0): the float64 step on the
     same features, card against CPU, each leaf to F64_LEAF_TOL; the float32
-    wave step (K1's f32 mode, TF32 off), loss and grad_norm to 1e-4 of the
-    CPU's and on each device every leaf and BN statistic against the f64
-    step (F32_LEAF_TOL, F32_STATS_TOL), the bounds of the ECAPA step. The
-    ResNet stem's running mean, a cancellation, is measured against its
-    std (step_check.worst_stat)."""
+    wave step (K1's f32 mode, TF32 off), loss to 1e-4 of the CPU's and
+    grad_norm to FAMILY_F32_GRAD_NORM_TOL, and on each device every leaf
+    and BN statistic against the f64 step (F32_LEAF_TOL, F32_STATS_TOL),
+    the bounds of the ECAPA step. The ResNet stem's running mean, a
+    cancellation, is measured against its std (step_check.worst_stat)."""
     from asv_subtools_tpu_torch.train.step_check import (AAM, modulated_waves, narrow_net, plain_features, rel,
                                                          sgd_step, worst_leaf, worst_stat)
 
@@ -580,8 +597,8 @@ def test_family_train_step_on_the_card_matches_the_cpu(card, family):
     ref = sgd_step("cpu", torch.float64, feats, y, AAM, make_net=make)
     cd = sgd_step(card, torch.float32, wave, y, AAM, wave_input=True, make_net=make)
     cpu = sgd_step("cpu", torch.float32, wave, y, AAM, wave_input=True, make_net=make)
-    for key in ("loss", "grad_norm"):
-        assert rel(cd.metrics[key], cpu.metrics[key]) <= 1e-4, key
+    assert rel(cd.metrics["loss"], cpu.metrics["loss"]) <= 1e-4
+    assert rel(cd.metrics["grad_norm"], cpu.metrics["grad_norm"]) <= FAMILY_F32_GRAD_NORM_TOL[family]
     for r in (cd, cpu):
         assert worst_leaf(r.updates, ref.updates)[0] <= F32_LEAF_TOL
         if ref.batch_stats:
@@ -899,3 +916,114 @@ def test_new_models_bf16_forward_card_against_cpu(card, family):
     assert bool(torch.isfinite(got).all())
     cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
     assert float(cos.min()) >= 0.999, cos
+
+
+@pytest.mark.parametrize("kind", ["multitask", "fd", "sam"])
+def test_offline_step_on_the_card_matches_the_cpu(card, kind):
+    from asv_subtools_tpu_torch.train.step_check import (modulated_waves, offline_step, plain_features, rel,
+                                                         worst_leaf, worst_stat)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wave, y = modulated_waves(8, 4)
+    feats = plain_features(wave)
+    cd, cpu = (offline_step(kind, d, torch.float64, feats, y) for d in (card, torch.device("cpu")))
+    assert worst_leaf(cd.updates, cpu.updates)[0] <= F64_LEAF_TOL
+    keys = ("loss",) if kind == "fd" else ("loss", "grad_norm")
+    for key in keys:
+        assert rel(cd.metrics[key], cpu.metrics[key]) <= 1e-10, key
+    ref = cpu
+    cd, cpu = (offline_step(kind, d, torch.float32, feats, y) for d in (card, torch.device("cpu")))
+    for key in keys:
+        assert rel(cd.metrics[key], cpu.metrics[key]) <= 1e-4, key
+    for r in (cd, cpu):
+        assert worst_leaf(r.updates, ref.updates)[0] <= F32_LEAF_TOL
+        assert worst_stat(r.batch_stats, ref.batch_stats)[0] <= F32_STATS_TOL
+
+
+def _offline_bf16(card, kind):
+    """(state, step(state, i), batch) of a narrow offline-route net in bf16 on the card."""
+    from asv_subtools_tpu_torch.train import init_fd_state, init_train_state, make_fd_train_step, make_train_step, sgd
+    from asv_subtools_tpu_torch.train.sam import make_sam_train_step
+    from asv_subtools_tpu_torch.train.step_check import (AM, FD_CYCLE, NARROW_OFFLINE, PHONES, fd_net,
+                                                         modulated_waves, multitask_net, plain_features, xvector_net)
+    from asv_subtools_tpu_torch.train import TrainStepConfig
+
+    wave, y = modulated_waves(8, 5)
+    batch = {"x": plain_features(wave).to(card), "y": y.to(card)}
+    config = TrainStepConfig(compute_dtype=torch.bfloat16)
+    tx = sgd(1e-2, momentum=0.9)
+    gen = torch.Generator(device=card).manual_seed(0)
+    if kind == "fd":
+        net = fd_net(**NARROW_OFFLINE)
+        batch["aux_y"] = y.to(card) % 9
+        fd_step = make_fd_train_step(net, tx, tx, config=config, **FD_CYCLE)
+        return init_fd_state(net, tx, tx, card), lambda state, i: fd_step(state, batch, step_index=i), batch
+    if kind == "multitask":
+        net = multitask_net(**NARROW_OFFLINE)
+        batch["y"] = {"spk": batch["y"], "phone": torch.randint(0, PHONES, batch["x"].shape[:2], device=card)}
+        step = make_train_step(net, tx, config=config)
+    else:
+        net = xvector_net("snowdar", AM, **NARROW_OFFLINE)
+        step = make_sam_train_step(net, tx, config=config)
+    return init_train_state(net, tx, card), lambda state, i: step(state, batch, gen), batch
+
+
+@pytest.mark.parametrize("kind", ["multitask", "fd", "sam"])
+def test_offline_steps_never_wait_on_the_card(card, kind):
+    """bf16 steps after a first one under set_sync_debug_mode("error"); for
+    FD an adversary step and a main step."""
+    state, step, _ = _offline_bf16(card, kind)
+    state, _ = step(state, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in (1, 2):
+            state, m = step(state, i)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(m["loss"])) and float(m["skipped"]) == 0.0
+
+
+def test_fd_partition_on_the_card(card):
+    """One cycle (4 steps, 2 adversary): an adversary step moves the two
+    DAL projections and nothing else; a main step moves every other leaf
+    and neither projection."""
+    from asv_subtools_tpu_torch.train.fd import is_adversary
+
+    state, step, _ = _offline_bf16(card, "fd")
+    dal = {k for k in state.params if is_adversary(k)}
+    assert dal == {"dal.w_noise.weight", "dal.w_id.weight"}
+    for i in range(4):
+        new, m = step(state, i)
+        moved = {k for k in state.params if not torch.equal(new.params[k], state.params[k])}
+        assert m["phase_adv"] == float(i < 2)
+        assert moved == (dal if i < 2 else set(state.params) - dal), (i, moved ^ dal)
+        state = new
+
+
+def test_find_lr_on_wave_input_launches_k1_once_a_step(card, tmp_path):
+    from asv_subtools_tpu_torch.launcher import Launcher
+    from asv_subtools_tpu_torch.recipes.synthetic import write_corpus
+    from asv_subtools_tpu_torch.train.step_check import host_waits
+
+    corpus = write_corpus(str(tmp_path / "corpus"), num_spks=4, train_per_spk=8)
+    opts = FbankOptions(mel_opts=MelOptions(num_bins=24))
+    fused_fbank(torch.randn(2, 16000, device=card), opts, dft_dtype=torch.bfloat16)  # K1's constants
+    params = {
+        "exp_dir": str(tmp_path / "exp"),
+        "data": {"train_wav_scp": f"{corpus}/train/wav.scp", "train_utt2spk": f"{corpus}/train/utt2spk",
+                 "chunk_seconds": 1.0, "batch_size": 4, "shuffle_buffer": 8, "compute_feat": False, "num_bins": 24},
+        "model": {"name": "ecapa_tdnn", "params": {"channels": 32, "mfa_conv": 96, "embd_dim": 16}},
+        "loss": {"name": "margin_softmax", "params": {"method": "aam", "m": 0.2}},
+        "train": {"optimizer": {"name": "adamW", "weight_decay": 5e-5}},
+    }
+    launcher = Launcher(params)
+    egs = launcher.build_egs()
+    launcher.build_model()
+    batches = list(egs)[:6]
+    before = fused_fbank.launches
+    out, waits = host_waits(lambda: launcher.find_lr(batches, start_lr=1e-6, end_lr=1e-1, num_steps=6))
+    assert len(out["lrs"]) == 6 and fused_fbank.launches - before == 6
+    assert len(waits) == 6, waits
+    assert out["suggested_lr"] is not None and all(map(lambda v: v == v, out["losses"]))

@@ -177,6 +177,69 @@ def test_read_wav_matches_jax(tmp_path, channels):
         np.testing.assert_array_equal(read_wav(f.read())[0], ref)
 
 
+@pytest.mark.parametrize("t", [80, 250, 401])
+def test_extract_embedding_chunked_matches_jax(t):
+    """A narrow SnowdarXvector on the same weights: the chunks of a [t, 24]
+    utterance embedded in one call and averaged by their frame weights
+    (max_chunk 100: one chunk, three, and four with the overlapping tail),
+    within 1e-5 of JAX's."""
+    from asv_subtools_tpu.models.framework import extract_embedding_chunked as jax_chunked
+    from asv_subtools_tpu.models.xvector import SnowdarXvector as JaxSnowdar
+    from asv_subtools_tpu_torch.models import SnowdarXvector, extract_embedding_chunked
+
+    feats = np.random.default_rng(t).normal(size=(t, 24)).astype(np.float32)
+    jm = JaxSnowdar(num_frame_channels=16, embd_dim=8)
+    v = jax.tree_util.tree_map(np.array, jm.init({"params": jax.random.PRNGKey(1)}, jnp.ones((1, 50, 24)),
+                                                 train=False))
+    ref = np.asarray(jax_chunked(lambda x, m: jm.apply(v, x, mask=m, train=False), jnp.asarray(feats), 100))
+    pm = load_variables(SnowdarXvector(24, 16, 8, device="cpu"), v)
+    calls = []
+
+    def embed(x, m):
+        calls.append(tuple(x.shape))
+        return pm(x, m)
+
+    with torch.no_grad():
+        got = extract_embedding_chunked(embed, torch.from_numpy(feats), 100, device="cpu")
+    n = 1 if t <= 100 else -(-t // 100) + (t % -(-t // 100) > 0)
+    assert calls == [(n, t if t <= 100 else t // -(-t // 100), 24)]
+    assert got.shape == (8,)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
+def test_batch_sizes_give_jax_batches():
+    """ExtractConfig.batch_sizes: a batch size for each bucket (the rest at
+    default_batch). The port's Extractor flushes the batches JAX's does:
+    the same embeddings in the same completion order and the same batch
+    count, each batch as large as its bucket's size allows."""
+    rng = np.random.default_rng(4)
+    lengths = [30, 90, 150, 60, 20, 170, 190, 80, 45, 120, 10, 200]
+    items = [(f"u{i}", rng.normal(size=(n, 3)).astype(np.float32)) for i, n in enumerate(lengths)]
+    cfg = dict(buckets=(50, 100, 200), default_batch=3, batch_sizes={50: 2, 200: 4})
+
+    def jax_embed(x, m):
+        m = m.astype(x.dtype)[..., None]
+        return jnp.sum(x * m, axis=1) / jnp.maximum(jnp.sum(m, axis=1), 1.0)
+
+    shapes = []
+
+    def port_embed(x, m):
+        shapes.append(tuple(x.shape[:2]))
+        mf = m.to(x.dtype)[..., None]
+        return (x * mf).sum(1) / torch.clamp_min(mf.sum(1), 1.0)
+
+    jex_ = jex.Extractor(jax_embed, jex.ExtractConfig(**cfg))
+    ref = list(jex_.extract_iter(iter(items)))
+    pex = tex.Extractor(port_embed, tex.ExtractConfig(**cfg), device="cpu")
+    got = list(pex.extract_iter(iter(items)))
+    assert [k for k, _ in got] == [k for k, _ in ref]
+    for (_, a), (_, b) in zip(got, ref):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-6)
+    assert pex._stats["batches"] == jex_._stats["batches"] == len(shapes)
+    full = {50: 2, 100: 3, 200: 4}
+    assert all(b <= full[bucket] for b, bucket in shapes) and (2, 50) in shapes and (4, 200) in shapes
+
+
 def _port_modules():
     pkg = REPO / "asv_subtools_tpu_torch"
     return sorted(

@@ -19,6 +19,8 @@ speakers, as in tests/test_launcher.py).
   the first step, under 7e-6 after it.
 * Options that are not ported raise NotImplementedError naming their
   ROADMAP item; without a card and without device="cpu" the Launcher raises.
+  The offline chunk egs, SAM, the multi-task and FD-AL models and find_lr
+  are held against JAX's Launcher in tests/test_torch_launcher_offline.py.
   Stage 3 (scoring) is tested in tests/test_torch_scoring.py.
 """
 
@@ -349,13 +351,9 @@ def test_roadmap_two_phase_run_with_transfer(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"data": {"egs_type": "offline"}}, 4),
     ({"data": {"feat_type": "mfcc", "compute_feat": True}}, 11),
     ({"data": {"feat_backend": "native"}}, 10),
     ({"train": {"fsdp": True}}, 5),
-    ({"train": {"sam": {"rho": 0.05}}}, 4),
-    ({"model": {"name": "fd_xvector", "params": {}}}, 4),
-    ({"model": {"name": "multi_task_xvector", "params": {}}}, 4),
 ])
 def test_unported_options_raise(corpus, tmp_path, change, item):
     params = _params(corpus, str(tmp_path / "exp"))
@@ -368,11 +366,15 @@ def test_unported_options_raise(corpus, tmp_path, change, item):
         launcher.train(egs)
 
 
-@pytest.mark.parametrize("method,item", [("find_lr", 4)])
-def test_unported_stages_raise(corpus, tmp_path, method, item):
-    launcher = Launcher(_params(corpus, str(tmp_path / "exp")), device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        getattr(launcher, method)(None)
+def test_sam_needs_feature_input(corpus, tmp_path):
+    """train.sam on wave-input egs raises, as in JAX (launcher.py:418-420);
+    the offline route's SAM run is tests/test_torch_launcher_offline.py's."""
+    params = _params(corpus, str(tmp_path / "exp"), sam={"rho": 0.05})
+    launcher = Launcher(params, device="cpu")
+    egs = launcher.build_egs()
+    launcher.build_model()
+    with pytest.raises(ValueError, match="feature-input"):
+        launcher.train(egs)
 
 
 def test_model_sharding_raises(corpus, tmp_path):

@@ -117,8 +117,7 @@ def test_reduce_on_plateau_and_cycle_ends_match_jax():
 
 
 @pytest.mark.parametrize("kw", [dict(name="ralamb"), dict(name="adamod"), dict(name="novograd"), dict(name="eve"),
-                                dict(name="adamW", gc=True), dict(name="sgd", lookahead=True),
-                                dict(name="adamW", sam=True)], ids=str)
+                                dict(name="adamW", gc=True), dict(name="sgd", lookahead=True)], ids=str)
 def test_optimizers_not_ported_raise(kw):
     with pytest.raises(NotImplementedError):
         get_optimizer(**kw)

@@ -360,9 +360,12 @@ def test_models_table_builds_the_family():
         model = MODELS[name](input_dim=F, device="cpu", **({"width": 0.0625} if "factored" in name else
                                                           {"num_frame_channels": 16}))
         assert type(model) is cls and model.embd_dim == 512
-    for name in ("multi_task_xvector", "fd_xvector"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            MODELS[name]()
+    from asv_subtools_tpu_torch.models import FDXvector, MultiTaskXvector
+
+    for name, cls in (("multi_task_xvector", MultiTaskXvector), ("fd_xvector", FDXvector)):
+        model = MODELS[name](input_dim=F, num_frame_channels=16, device="cpu")
+        assert type(model) is cls and model.embd_dim == 512
+        assert {"tdnn1", "tdnn4", "tdnn5", "tdnn7_bn"} <= set(dict(model.named_children()))
 
 
 def test_fused_pooling_flag_serves_through_the_fused_path(family_variables, monkeypatch):

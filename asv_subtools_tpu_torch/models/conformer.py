@@ -8,9 +8,13 @@ is 6L-256D-4H with conv2d (4x) or conv2d2 (2x) subsampling. Channels-last
 throughout; module and parameter names follow the flax modules, so
 weights.py maps a JAX variable tree onto this state_dict by rule.
 
-``transformer_type`` "conformer" only: "transformer" and "re_conformer"
-raise ``NotImplementedError``. Any pooling of the zoo (nn/pooling.py)
-may stand in for the attentive one.
+``transformer_type`` "conformer" or "re_conformer" (the ReConformer,
+JAX models/conformer.py:55-66: BasicNorm block norms, normalize_before
+False, balancers, double_swish and the re_layer blocks by default,
+``encoder_params`` over them; recipes/configs/reconformer.yaml pairs it
+with the "re_conv2d" subsampling). "transformer" raises
+``NotImplementedError`` (ROADMAP Queue 1 item 3). Any pooling of the zoo
+(nn/pooling.py) may stand in for the attentive one.
 """
 
 from __future__ import annotations
@@ -26,6 +30,11 @@ from ..nn.conformer import ConformerEncoder
 from ..nn.norm import LayerNorm
 from ..nn.pooling import build_pooling
 from .ecapa import EcapaAttentiveStatsPool
+
+
+# the ReConformer's encoder defaults (JAX models/conformer.py:57-66)
+RE_CONFORMER = {"norm_type": "basic_norm", "normalize_before": False, "use_balancer": True,
+                "activation_type": "double_swish", "positionwise_conv_kernel_size": 3, "re_layer": True}
 
 
 class ConformerXvector(nn.Module):
@@ -61,13 +70,15 @@ class ConformerXvector(nn.Module):
         device: Any = None,
     ):
         super().__init__()
-        if transformer_type != "conformer":
-            raise NotImplementedError(f"transformer_type {transformer_type!r} is not ported yet")
+        if transformer_type not in ("conformer", "re_conformer"):
+            raise NotImplementedError(f"transformer_type {transformer_type!r} is not ported yet "
+                                      "(ROADMAP Queue 1 item 3)")
         self.embd_dim = embd_dim
         self.transformer = ConformerEncoder(
             input_dim, attention_dim=attention_dim, attention_heads=attention_heads, linear_units=linear_units,
             num_blocks=num_blocks, dropout_rate=dropout_rate, input_layer=input_layer, pos_enc_type=pos_enc_type,
-            att_type=att_type, combiner_type=combiner_type, **(encoder_params or {}))
+            att_type=att_type, combiner_type=combiner_type,
+            **{**(RE_CONFORMER if transformer_type == "re_conformer" else {}), **(encoder_params or {})})
         self.transform_out_affine = nn.Linear(attention_dim, out_dim)
         self.transform_out_norm = LayerNorm(out_dim)
         pp = dict(pooling_params or {})

@@ -55,9 +55,9 @@ def _check_options(norm_method: str = "softmax", scale_adapt: bool = False, g_sa
     for name, value, off in (("scale_adapt", scale_adapt, False), ("g_sa", g_sa, False),
                              ("diag_mask", diag_mask, False), ("conv_out", conv_out, False)):
         if value != off:
-            raise NotImplementedError(f"attention option {name} is not ported yet")
+            raise NotImplementedError(f"attention option {name} is not ported yet (ROADMAP Queue 1 item 3)")
     if norm_method != "softmax":
-        raise NotImplementedError(f"attention norm_method {norm_method!r} is not ported yet")
+        raise NotImplementedError(f"attention norm_method {norm_method!r} is not ported yet (ROADMAP Queue 1 item 3)")
 
 
 class MultiHeadedAttention(nn.Module):
@@ -103,7 +103,7 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
                  **options):
         super().__init__(dim, num_heads, dropout_rate, **options)
         if rel_shift:
-            raise NotImplementedError("rel_shift=True is not ported yet")
+            raise NotImplementedError("rel_shift=True is not ported yet (ROADMAP Queue 1 item 3)")
         dh = dim // num_heads
         self.pos = nn.Linear(dim, dim, bias=False)
         limit = math.sqrt(6.0 / (num_heads + dh))  # flax xavier_uniform over [H, Dh]

@@ -23,7 +23,8 @@ def add_optional_chunk_mask(pad_mask: Optional[torch.Tensor], size: int, static_
     """Padding mask [B, T] -> attention mask [B, 1, T, T]: a query and a key
     attend each other when both are valid. None stays None."""
     if use_dynamic_chunk or static_chunk_size > 0:
-        raise NotImplementedError("chunk masks (static_chunk_size, use_dynamic_chunk) are not ported yet")
+        raise NotImplementedError("chunk masks (static_chunk_size, use_dynamic_chunk) are not ported yet "
+                                  "(ROADMAP Queue 1 item 3)")
     if pad_mask is None:
         return None
     return pad_mask[:, None, None, :] & pad_mask[:, None, :, None]

@@ -25,7 +25,7 @@ the device, so a margin schedule costs no host sync.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -372,6 +372,13 @@ class LambdaMAnneal:
     def step(self, cur_step: int) -> Tuple[float, float]:
         factor = max(self.lambda_0, self.lambda_b * (1.0 + self.gamma * cur_step) ** (-self.alpha))
         return 0.0, 1.0 / (1.0 + factor)
+
+
+def mixup_loss(loss_fn: Callable, logits_or_emb: torch.Tensor, targets: torch.Tensor, lam: Scalar,
+               index: torch.Tensor) -> torch.Tensor:
+    """``lam * loss_fn(x, targets) + (1 - lam) * loss_fn(x, targets[index])``
+    (JAX nn/loss.py:384-388)."""
+    return lam * loss_fn(logits_or_emb, targets) + (1.0 - lam) * loss_fn(logits_or_emb, targets[index])
 
 
 LOSSES = {

@@ -1,4 +1,4 @@
-"""TDNN building blocks (counterpart: asv_subtools_tpu/nn/tdnn.py:44-361).
+"""TDNN building blocks (counterpart: asv_subtools_tpu/nn/tdnn.py:44-503).
 
 Inside the port's model activations are ``[B, C, T]``, the layout of
 ``F.conv1d``, so a layer needs no transpose. ``TdnnAffine`` runs an evenly
@@ -8,6 +8,11 @@ a Dense over ``len(context) * in`` inputs, context-major), the JAX
 module's two parameter layouts. The layers hand a ``[B, T]`` mask to
 their BatchNorm, whose train mode leaves padded frames out of the batch
 statistics.
+
+The rest of JAX's library (AdaptivePCMN, SoftmaxAffineLayer, GruAffine,
+ImportantScale, MultiAffine, ChunkSeparationAffine and the batch
+:func:`mixup`) is at the end of the module; the train step's mixup goes
+through :func:`mixup_draw`.
 
 The F-TDNN's semi-orthogonal constraint is a function on weights
 (:func:`semi_orth_update`, :func:`apply_semi_orth_constraint`) that the
@@ -228,3 +233,152 @@ class SEBlock2D(nn.Module):
         s = torch.relu(self.fc1(s))
         s = torch.sigmoid(self.fc2(s))
         return x * s[..., None, None]
+
+
+# ---------------------------------------------------------------------------
+# The rest of the layer library (JAX nn/tdnn.py:384-503). AdaptivePCMN
+# takes the TDNNs' [B, D, T]; the Dense-based layers act on the last axis
+# of channels-last [..., T, D], as the JAX modules do.
+# ---------------------------------------------------------------------------
+
+
+class AdaptivePCMN(nn.Module):
+    """Adaptive parametric cepstral mean normalisation: x [B, D, T] ->
+    ``alpha(x) * x + beta(x) * m`` with ``m`` the mean over the context
+    window of each frame (zero-padded edges, always divided by the window's
+    length), ``alpha = 1 + tanh(TdnnAffine(x))`` and ``beta = -1 +
+    tanh(TdnnAffine(x))`` over the same context."""
+
+    def __init__(self, input_dim: int, left_context: int = -10, right_context: int = 10):
+        super().__init__()
+        self.left, self.right = -left_context, right_context
+        ctx = tuple(range(left_context, right_context + 1))
+        self.alpha = TdnnAffine(input_dim, input_dim, context=ctx)
+        self.beta = TdnnAffine(input_dim, input_dim, context=ctx)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, t = self.left + self.right + 1, x.shape[-1]
+        csum = F.pad(torch.cumsum(F.pad(x, (self.left, self.right)), dim=-1), (1, 0))
+        window_mean = (csum[..., n:n + t] - csum[..., :t]) / float(n)
+        alpha = 1.0 + torch.tanh(self.alpha(x))
+        beta = -1.0 + torch.tanh(self.beta(x))
+        return alpha * x + beta * window_mean
+
+
+class SoftmaxAffineLayer(nn.Module):
+    """Dense then log-softmax (``log=True``) or softmax over the last axis."""
+
+    def __init__(self, input_dim: int, output_dim: int, log: bool = True):
+        super().__init__()
+        self.log = log
+        self.affine = nn.Linear(input_dim, output_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.affine(x)
+        return torch.log_softmax(y, dim=-1) if self.log else torch.softmax(y, dim=-1)
+
+
+class _GruCell(nn.Module):
+    """flax GRUCell's parameters: input Dense ``ir``, ``iz``, ``in`` with
+    bias, hidden Dense ``hr``, ``hz`` without and ``hn`` with."""
+
+    def __init__(self, input_dim: int, hidden: int):
+        super().__init__()
+        for gate in ("ir", "iz", "in"):
+            self.add_module(gate, nn.Linear(input_dim, hidden))
+        self.hr = nn.Linear(hidden, hidden, bias=False)
+        self.hz = nn.Linear(hidden, hidden, bias=False)
+        self.hn = nn.Linear(hidden, hidden)
+
+
+class GruAffine(nn.Module):
+    """A GRU over the time axis of x [B, T, D] from a zero state -> [B, T, H]
+    (flax ``nn.RNN(nn.GRUCell)``): r = sigmoid(ir(x) + hr(h)), z =
+    sigmoid(iz(x) + hz(h)), n = tanh(in(x) + r * hn(h)), h' = (1 - z) * n +
+    z * h. It runs as ``torch.gru`` (cuDNN's on the card) on weights
+    stacked from the cell's Dense layers. torch's GRU adds a hidden bias to
+    the r and z gates, which flax has not: those two slices are constant
+    zeros, not parameters, so no step moves them."""
+
+    def __init__(self, input_dim: int, output_dim: int):
+        super().__init__()
+        self.output_dim = output_dim
+        self.cell = _GruCell(input_dim, output_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.cell
+        h = self.output_dim
+        zeros = torch.zeros(2 * h, dtype=x.dtype, device=x.device)
+        weights = [torch.cat([c.ir.weight, c.iz.weight, getattr(c, "in").weight]).to(x.dtype),
+                   torch.cat([c.hr.weight, c.hz.weight, c.hn.weight]).to(x.dtype),
+                   torch.cat([c.ir.bias, c.iz.bias, getattr(c, "in").bias]).to(x.dtype),
+                   torch.cat([zeros, c.hn.bias.to(x.dtype)])]
+        h0 = torch.zeros((1, x.shape[0], h), dtype=x.dtype, device=x.device)
+        out, _ = torch.gru(x, h0, weights, True, 1, 0.0, self.training, False, True)
+        return out
+
+
+class ImportantScale(nn.Module):
+    """x [..., D] times ``w**2 / max(max(w**2), 1e-12)``, a learned
+    per-feature gate (``scale``, ones at init)."""
+
+    def __init__(self, input_dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(input_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.scale * self.scale
+        return x * (s / torch.clamp_min(s.max(), 1e-12))
+
+
+class MultiAffine(nn.Module):
+    """The mean of ``num_affine`` Dense layers (``affine_i``), each after
+    ``activation`` (none for ``None``)."""
+
+    def __init__(self, input_dim: int, output_dim: int, num_affine: int = 2, activation: Optional[str] = "relu"):
+        super().__init__()
+        self.act = get_activation(activation)
+        self.num_affine = num_affine
+        for i in range(num_affine):
+            self.add_module(f"affine_{i}", nn.Linear(input_dim, output_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = [getattr(self, f"affine_{i}")(x) for i in range(self.num_affine)]
+        if self.act is not None:
+            outs = [self.act(y) for y in outs]
+        return sum(outs) / self.num_affine
+
+
+class ChunkSeparationAffine(nn.Module):
+    """x [..., T, D]: Dense ``first`` on frames [0, T // 2), ``second`` on
+    the rest, joined back along T."""
+
+    def __init__(self, input_dim: int, output_dim: int):
+        super().__init__()
+        self.first = nn.Linear(input_dim, output_dim)
+        self.second = nn.Linear(input_dim, output_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        half = x.shape[-2] // 2
+        return torch.cat([self.first(x[..., :half, :]), self.second(x[..., half:, :])], dim=-2)
+
+
+def mixup_draw(batch: int, alpha: float, generator: Optional[torch.Generator], device: torch.device,
+               dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lam ~ Beta(alpha, alpha) as a 0-dim ``dtype`` tensor, a random
+    permutation of the batch), drawn from ``generator`` on ``device``; no
+    value reaches the host. Beta is g1 / (g1 + g2) of two Gamma(alpha)
+    draws (``torch.distributions.Beta`` takes no generator)."""
+    g = torch._standard_gamma(torch.full((2,), float(alpha), dtype=dtype, device=device), generator=generator)
+    return g[0] / (g[0] + g[1]), torch.randperm(batch, generator=generator, device=device)
+
+
+def mixup(x: torch.Tensor, generator: Optional[torch.Generator], alpha: float = 1.0
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batch mixup -> (``lam * x + (1 - lam) * x[index]`` in x's type,
+    lam, index), lam and index from :func:`mixup_draw` (the train step's
+    draw goes through it). The mix is computed in at least float32."""
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    lam, index = mixup_draw(x.shape[0], alpha, generator, x.device, dtype)
+    xf = x.to(dtype)
+    return (lam * xf + (1.0 - lam) * xf[index]).to(x.dtype), lam, index

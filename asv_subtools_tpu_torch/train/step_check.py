@@ -6,8 +6,10 @@ The nets (shared by chip_smoke.py and tests/test_torch_cuda.py): ECAPA-TDNN
 Conformer x-vector (:func:`conformer_net`), the TDNN x-vectors
 (:func:`xvector_net`: SnowdarXvector 512/512 or FactoredXvector width 1.0,
 recipes/configs/{snowdar,factored}_xvector.yaml), the RepVGG x-vector
-(:func:`repvgg_net`, recipes/configs/repvgg.yaml) and the lawlict ECAPA
-(:func:`lawlict_net`, recipes/configs/ecapa_lawlict.yaml), each in a
+(:func:`repvgg_net`, recipes/configs/repvgg.yaml), the lawlict ECAPA
+(:func:`lawlict_net`, recipes/configs/ecapa_lawlict.yaml) and the
+ReConformer (:func:`reconformer_net`, recipes/configs/reconformer.yaml),
+each in a
 SpeakerNet with a margin head over 5994 classes and seeded random
 weights; full width by default, as ``bench.py:58-90`` trains them. The
 offline route's nets: :func:`multitask_net` and :func:`fd_net`, whose one
@@ -70,6 +72,9 @@ NARROW_CONFORMER = dict(num_blocks=2, attention_dim=64, attention_heads=2, linea
 NARROW_RESNET = dict(layers=(1, 1, 1, 1), base_planes=8)
 # recipes/configs/{snowdar,factored}_xvector.yaml: AM m=0.2
 AM = ("margin_softmax", {"method": "am", "m": 0.2})
+# recipes/configs/reconformer.yaml's backbone
+RECONFORMER = dict(transformer_type="re_conformer", attention_dim=256, attention_heads=4, num_blocks=6,
+                   input_layer="re_conv2d", pos_enc_type="rel_pos", embd_dim=256)
 NARROW_FTDNN = dict(width=0.125, embd_dim=128)
 # recipes/configs/repvgg.yaml: AAM m=0.2 through the sub-centre head's class
 REPVGG_AAM = ("margin_softmax_v1", {"method": "aam", "m": 0.2})
@@ -160,16 +165,26 @@ def lawlict_net(head=LAWLICT_AM, seed: int = 0, **backbone: Any) -> SpeakerNet:
     return init_weights_(net, seed)
 
 
+def reconformer_net(head=AM, seed: int = 0, **backbone: Any) -> SpeakerNet:
+    """SpeakerNet(ConformerXvector(80 bins, reconformer.yaml's
+    ``RECONFORMER``, ``backbone`` over it)) with ``head`` (the preset's AM
+    m=0.2 by default) over 5994 classes and seeded random weights, in f32
+    on the CPU."""
+    net = SpeakerNet(ConformerXvector(80, device="cpu", **{**RECONFORMER, **backbone}), *head,
+                     num_targets=NUM_TARGETS)
+    return init_weights_(net, seed)
+
+
 def narrow_net(family: str) -> Callable[..., SpeakerNet]:
     """``make_net`` of the card-against-CPU step for ``family`` ("ecapa",
-    "resnet", "conformer", "ftdnn" or "repvgg"): the narrow net of that
-    family."""
+    "resnet", "conformer", "reconformer", "ftdnn" or "repvgg"): the narrow
+    net of that family."""
     if family == "ecapa":
         return ecapa_net
     if family == "ftdnn":
         return lambda head=AAM, seed=0: xvector_net("ftdnn", head, seed, **NARROW_FTDNN)
     make, kw = {"resnet": (resnet_net, NARROW_RESNET), "conformer": (conformer_net, NARROW_CONFORMER),
-                "repvgg": (repvgg_net, NARROW_REPVGG)}[family]
+                "reconformer": (reconformer_net, NARROW_CONFORMER), "repvgg": (repvgg_net, NARROW_REPVGG)}[family]
     return lambda head=AAM, seed=0: make(head, seed, **kw)
 
 
@@ -182,16 +197,18 @@ class StepResult:
 
 def sgd_step(device: Any, dtype: torch.dtype, x: torch.Tensor, y: torch.Tensor, head=SUBCENTER_TOPK,
              seed: int = 0, wave_input: bool = False, make_net: Callable[..., Any] = ecapa_net,
-             use_semi_orth: bool = False) -> StepResult:
+             use_semi_orth: bool = False, **options: Any) -> StepResult:
     """One SGD step (lr 0.1) of ``make_net(head, seed)`` (the narrow ECAPA
     by default) on ``device`` in ``dtype``, on waves (``wave_input``: the
     front end runs in the step, the fbank kernel on a card) or on
     features. The step is step 0: with ``use_semi_orth`` it applies the
-    semi-orthogonal update (0 % 4 == 0)."""
+    semi-orthogonal update (0 % 4 == 0). ``options`` go to the step's
+    TrainStepConfig (``mixup_alpha``, ``remat``)."""
     net = make_net(head, seed).to(torch.float64 if dtype == torch.float64 else torch.float32)
     tx = sgd(0.1)
     state = init_train_state(net, tx, device)
-    config = TrainStepConfig(compute_dtype=dtype, wave_input=wave_input, fbank_opts=OPTS, use_semi_orth=use_semi_orth)
+    config = TrainStepConfig(compute_dtype=dtype, wave_input=wave_input, fbank_opts=OPTS, use_semi_orth=use_semi_orth,
+                             **options)
     step = make_train_step(net, tx, config=config)
     x = x.to(device) if wave_input else x.to(device, dtype)
     new, m = step(state, {"x": x, "y": y.to(device)}, torch.Generator(device=device).manual_seed(0))

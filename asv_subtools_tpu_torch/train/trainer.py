@@ -38,12 +38,14 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..features.config import FbankOptions
 from ..features.fused_fbank import wave_features
 from ..nn.loss import MarginWarm, cross_entropy
 from ..nn.loss import accuracy as compute_accuracy
+from ..nn import tdnn
 from ..nn.tdnn import is_semi_orth_weight, semi_orth_update
 from .optim import GradientTransformation
 
@@ -80,8 +82,16 @@ class TrainStepConfig:
     # masters, after the update, on the steps where step % 4 == 0 (JAX
     # trainer.py:340-347); chosen on the device, the step never waits
     use_semi_orth: bool = False
-    # the JAX step's options the port does not carry yet: setting one raises
+    # > 0: batch mixup of the (CMVN'd, SpecAugmented) features, lam ~
+    # Beta(alpha, alpha) and the partner permutation drawn from the step's
+    # generator; loss = lam * L(y) + (1 - lam) * L(y[perm]) (JAX
+    # trainer.py:209-229)
     mixup_alpha: float = 0.0
+    # recomputation of the forward in the backward: None (store every
+    # activation), "full" (store the net's inputs only), "dots" (store the
+    # outputs of products without batch dims, mm and addmm),
+    # "dots_batch" (store every product and convolution); JAX
+    # trainer.py:75-86, 246-258
     remat: Optional[str] = None
 
 
@@ -120,9 +130,12 @@ def init_train_state(net: nn.Module, tx: GradientTransformation, device: Any = N
 
 
 def _keep(finite: torch.Tensor, new: Any, old: Any) -> Any:
-    """new where finite, else old, over nested dicts of tensors."""
+    """new where finite, else old, over nested dicts and tuples of tensors
+    (a chained optimizer's state is a tuple)."""
     if isinstance(new, dict):
         return {k: _keep(finite, new[k], old[k]) for k in new}
+    if isinstance(new, tuple):
+        return tuple(_keep(finite, n, o) for n, o in zip(new, old))
     return torch.where(finite, new, old)
 
 
@@ -132,8 +145,30 @@ def speaker_targets(y: Any) -> torch.Tensor:
     return y["spk"] if isinstance(y, dict) else y
 
 
-def _rows(y: Any, part: slice) -> Any:
+def _rows(y: Any, part: Any) -> Any:
     return {k: v[part] for k, v in y.items()} if isinstance(y, dict) else y[part]
+
+
+_SAVED_OPS = {
+    # jax.checkpoint_policies.dots_with_no_batch_dims_saveable: products
+    # without batch dims; bmm, baddbmm and the convolutions are recomputed
+    "dots": ("mm", "addmm"),
+    # jax.checkpoint_policies.dots_saveable: every product and convolution
+    "dots_batch": ("mm", "addmm", "bmm", "baddbmm", "convolution", "_convolution"),
+}
+
+
+def _checkpoint_context(policy: str) -> Callable:
+    """``context_fn`` of torch.utils.checkpoint for a selective policy:
+    the listed aten ops' outputs are saved, everything else recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    saved = {getattr(torch.ops.aten, name).default for name in _SAVED_OPS[policy]}
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return lambda: create_selective_checkpoint_contexts(policy_fn)
 
 
 def make_loss_and_grads(net: nn.Module, config: TrainStepConfig) -> Callable:
@@ -142,10 +177,26 @@ def make_loss_and_grads(net: nn.Module, config: TrainStepConfig) -> Callable:
     one forward and backward of ``net`` in the compute type on the f32
     masters (in wave mode after the fused fbank, CMVN and SpecAugment);
     the grads in ``params``' order. The train step and the SAM step share
-    it."""
+    it.
+
+    With ``mixup_alpha`` the features are mixed (nn/tdnn.py ``mixup``) and
+    the net runs twice, on y and on y[perm], as JAX's step does: the same
+    dropout masks (the generator's state is restored before the second
+    pass), the batch statistics and logits of the first; accuracy against
+    the unpermuted targets. With ``remat`` the forward (the net and its
+    loss; the front end runs before it without gradients) runs under
+    torch.utils.checkpoint, and its recomputation in the backward replays
+    the generator from the state it had before the forward: the recompute
+    draws the dropout masks of the forward (checkpoint's own
+    ``preserve_rng_state`` restores only the global generators). The
+    running statistics the BatchNorms assign in the recompute go to a
+    dict of that call that is thrown away; the step keeps the forward's."""
     opts = config.fbank_opts or FbankOptions()
     dtype = config.compute_dtype
     net_takes_warmup = "warmup" in inspect.signature(type(net).forward).parameters
+    if config.remat not in (None, "full", *_SAVED_OPS):
+        raise ValueError(f"unknown remat policy {config.remat!r}")
+    context_fn = _checkpoint_context(config.remat) if config.remat in _SAVED_OPS else None
 
     def loss_and_grads(params: Tensors, batch_stats: Tensors, x, y, mask, generator, lambda_m, margin_offset,
                        warmup):
@@ -155,18 +206,44 @@ def make_loss_and_grads(net: nn.Module, config: TrainStepConfig) -> Callable:
                 x, mask = wave_features(x, mask, opts, dtype)
                 if config.spec_aug:
                     x = device_spec_augment(x, generator, **(config.spec_aug_params or {}))
-        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
-        tensors = {k: p.to(dtype) if p.dtype == torch.float32 else p for k, p in leaves.items()}
-        tensors.update(batch_stats)
+        x = x.to(dtype)
+        if config.mixup_alpha > 0:
+            # the mix stays in the compute type; JAX's multiplies bf16
+            # features by an f32 lam, which promotes its forward to f32
+            x, lam, perm = tdnn.mixup(x, generator, config.mixup_alpha)
+        replay = generator is not None and (config.mixup_alpha > 0 or config.remat is not None)
+        start = generator.get_state() if replay else None
+        names = list(params)
         kwargs = dict(mask=mask, lambda_m=lambda_m, margin_offset=margin_offset, generator=generator)
         if net_takes_warmup:
             kwargs["warmup"] = warmup
-        loss, logits, _ = torch.func.functional_call(net, tensors, (x.to(dtype), y), kwargs)
-        loss = loss.float()
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        # the buffers the BatchNorms assigned in train mode
-        new_stats = {k: tensors[k] for k in batch_stats}
-        return loss.detach(), compute_accuracy(logits.detach(), speaker_targets(y)), new_stats, list(grads)
+
+        def forward(*leaves):
+            tensors = {k: p.to(dtype) if p.dtype == torch.float32 else p for k, p in zip(names, leaves)}
+
+            def run(targets, stats):
+                if replay:
+                    generator.set_state(start)
+                call = {**tensors, **stats}
+                loss, logits, _ = torch.func.functional_call(net, call, (x, targets), kwargs)
+                # the buffers the BatchNorms assigned in train mode
+                return loss, logits, [call[k] for k in batch_stats]
+
+            loss, logits, new_stats = run(y, batch_stats)
+            if config.mixup_alpha > 0:
+                loss_b = run(_rows(y, perm), dict(batch_stats))[0]
+                loss = lam * loss + (1.0 - lam) * loss_b
+            return (loss.float(), logits, *new_stats)
+
+        leaves = [params[k].detach().requires_grad_() for k in names]
+        if config.remat is None:
+            loss, logits, *new_stats = forward(*leaves)
+        else:
+            loss, logits, *new_stats = checkpoint(forward, *leaves, use_reentrant=False, preserve_rng_state=False,
+                                                  **({"context_fn": context_fn} if context_fn else {}))
+        grads = torch.autograd.grad(loss, leaves)
+        return (loss.detach(), compute_accuracy(logits.detach(), speaker_targets(y)),
+                dict(zip(batch_stats, new_stats)), list(grads))
 
     return loss_and_grads
 
@@ -188,9 +265,6 @@ def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Opt
     skipped (1.0 on a kept state) and, given ``lr_schedule``, lr at the
     state's step times lr_scale; all 0-dim tensors on the device.
     """
-    for name, off in (("mixup_alpha", 0.0), ("remat", None)):
-        if getattr(config, name) != off:
-            raise NotImplementedError(f"TrainStepConfig.{name} is not ported yet (ROADMAP Queue 1 item 8)")
     loss_and_grads = make_loss_and_grads(net, config)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator,

@@ -23,7 +23,9 @@ port's modules carry the flax module names, so each leaf maps by rule:
   attention's ``pos_bias_u`` and ``pos_bias_v`` (``[H, Dh]``), the LDE
   pooling's ``mu`` (``[D, C]``) and ``s``, the xi-vector pooling's
   ``prior_mean`` and ``prior_logprec`` and the attention's learnable
-  temperatures ``t``. A grouped 1-D conv kernel ``[k, in/groups, out]``
+  temperatures ``t``, the ReConformer's 0-dim BasicNorm ``eps`` and the
+  branch scales ``scale_ff_macaron``, ``scale_mha``, ``scale_conv`` and
+  ``scale_ff``. A grouped 1-D conv kernel ``[k, in/groups, out]``
   and the Conformer's depthwise kernel ``[k, 1, D]`` take the 1-D conv
   rule (``[out, in/groups, k]``); the Dense of a TDNN layer with an
   irregular context (``affine/affine/kernel``, ``[len(ctx) * in, out]``)
@@ -32,11 +34,20 @@ port's modules carry the flax module names, so each leaf maps by rule:
   and RepVGG's deployed 5x5 ``reparam`` kernels take the 2-D conv rule.
   A non-affine BatchNorm has no params to map.
 
+The Dense layers of the rest of the TDNN library take the Dense rule:
+GruAffine's cell (``cell/{ir,iz,in,hn}`` with a bias, ``cell/{hr,hz}``
+without), MultiAffine's ``affine_i``, ChunkSeparationAffine's ``first``
+and ``second``; AdaptivePCMN's ``alpha`` and ``beta`` are TDNN convs;
+ImportantScale's ``scale`` maps one to one.
+
 A whole train state crosses too (:func:`train_state_from_variables` and
 :func:`train_state_to_variables`): the step, the net's params
 (``SpeakerNet``, ``MultiTaskNet`` or ``FDSpeakerNet``), the batch_stats
 and the optimizer state, whose moment trees (optax's ``mu``, ``nu`` or
-``trace``) map by the params' rules; FD's optimizer state is a pair.
+``trace``, adamod's ``eta``, lookahead's ``slow``) map by the params'
+rules, novograd's one scalar a leaf by its parameter's name; lookahead
+holds its base's state under ``inner``; a tuple is optax.chain's (gc's
+``({}, base)``) or FD's pair.
 
 Every leaf is consumed exactly once; a leaf no rule takes raises, and
 :func:`load_variables` raises on any port parameter left unset. The rules
@@ -50,7 +61,7 @@ from __future__ import annotations
 
 import math
 from collections.abc import Mapping
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,7 +73,7 @@ from .train.trainer import TrainState
 
 _SPLIT_CONV = "att1"
 _ONE_TO_ONE_PARAMS = ("bias", "scale", "ring_r", "pos_bias_u", "pos_bias_v", "mu", "s", "prior_mean",
-                      "prior_logprec", "t")
+                      "prior_logprec", "t", "eps", "scale_ff_macaron", "scale_mha", "scale_conv", "scale_ff")
 _STATS = ("mean", "var", "curricular_t")
 # the loss heads (SpeakerNet's ``loss``, MultiTaskNet's ``loss_spk``,
 # FDSpeakerNet's ``loss`` and ``loss2``): a head's "weight" is no Dense
@@ -133,29 +144,47 @@ def variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _to_jax(key: str, value: np.ndarray) -> Tuple[str, Tuple[str, ...], np.ndarray]:
+    """(collection, path, value in the JAX layout) of one state_dict entry."""
+    *mods, leaf = key.split(".")
+    if leaf in _STATS:
+        return "batch_stats", (*mods, leaf), value
+    if leaf in _ONE_TO_ONE_PARAMS + ("kernel",) or _is_loss_param(mods, leaf):
+        return "params", (*mods, leaf), value
+    if leaf == "weight" and value.ndim == 4:
+        return "params", (*mods, "kernel"), value.transpose(2, 3, 1, 0)
+    if leaf == "weight" and value.ndim == 3:
+        return "params", (*mods, "kernel"), value.transpose(2, 1, 0)
+    if leaf == "weight" and value.ndim == 2:
+        return "params", (*mods, "kernel"), value.T
+    raise ValueError(f"no rule maps state_dict key {key} {value.shape}")
+
+
+def _put(tree: dict, path: Tuple[str, ...], value: np.ndarray) -> None:
+    node = tree
+    for m in path[:-1]:
+        node = node.setdefault(m, {})
+    node[path[-1]] = np.array(value, order="C")
+
+
 def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
     """The inverse: port state_dict -> JAX ``{"params", "batch_stats"}`` tree of numpy arrays."""
     out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for key, tensor in state_dict.items():
-        *mods, leaf = key.split(".")
-        value = tensor.detach().cpu().numpy()
-        if leaf in _STATS:
-            collection, name = "batch_stats", leaf
-        elif leaf in _ONE_TO_ONE_PARAMS + ("kernel",) or _is_loss_param(mods, leaf):
-            collection, name = "params", leaf
-        elif leaf == "weight" and value.ndim == 4:
-            collection, name, value = "params", "kernel", value.transpose(2, 3, 1, 0)
-        elif leaf == "weight" and value.ndim == 3:
-            collection, name, value = "params", "kernel", value.transpose(2, 1, 0)
-        elif leaf == "weight" and value.ndim == 2:
-            collection, name, value = "params", "kernel", value.T
-        else:
-            raise ValueError(f"no rule maps state_dict key {key} {value.shape}")
-        node = out[collection]
-        for m in mods:
-            node = node.setdefault(m, {})
-        node[name] = np.array(value, order="C")
+        collection, path, value = _to_jax(key, tensor.detach().cpu().numpy())
+        _put(out[collection], path, value)
     return out
+
+
+def output_axis(key: str, value: torch.Tensor) -> int:
+    """The output axis of a parameter of the port's state_dict: 0 for the
+    conv and Dense weights, which the rules transpose from JAX's layout
+    (whose output axis is the last), -1 for a leaf that keeps JAX's layout
+    (the ``_SplitGlobalConv`` kernel, ``pos_bias_u/v``, the loss heads'
+    leaves). Gradient centralisation reads it (train/optim.py)."""
+    *mods, leaf = key.split(".")
+    transposed = leaf == "weight" and value.dim() in (2, 3, 4) and not _is_loss_param(mods, leaf)
+    return 0 if transposed else -1
 
 
 def load_variables(model: nn.Module, variables: Mapping) -> nn.Module:
@@ -226,15 +255,37 @@ def _check_keys(what: str, got: Mapping[str, torch.Tensor], expected: Mapping[st
             raise ValueError(f"{what} {key}: shape {tuple(value.shape)} != {tuple(expected[key].shape)}")
 
 
+def _at(tree: Mapping, path: Tuple[str, ...]) -> Tuple[np.ndarray, Mapping]:
+    """(the leaf at ``path``, the mapping that holds its module) of a tree."""
+    node, parent = tree, {}
+    for i, key in enumerate(path):
+        if not isinstance(node, Mapping) or key not in node:
+            raise ValueError(f"no parameter at {'/'.join(path)}")
+        if i == len(path) - 2:
+            parent = node
+        node = node[key]
+    return np.asarray(node), parent
+
+
+def _is_scalar_moment(moment_dims: Iterable[int], param_dims: Iterable[int]) -> bool:
+    """A moment tree of one scalar per leaf (novograd's ``nu``): every leaf
+    0-dim while some parameter is not."""
+    return all(d == 0 for d in moment_dims) and any(d > 0 for d in param_dims)
+
+
 def train_state_from_variables(net: nn.Module, tree: Mapping, device: Any = None) -> TrainState:
     """A JAX train state as numpy trees -> the port's ``TrainState`` for ``net``.
 
-    ``tree = {"step", "params", "batch_stats", "opt_state": {"count", and
-    moment trees such as "mu", "nu" (adam) or "trace" (sgd momentum)}}``;
-    FD's ``opt_state`` is the pair (main, adversary) of such dicts.
-    Leaves keep their types; tensors go to ``device`` (the CUDA card unless
-    ``device="cpu"``). Raises on a leaf no rule consumes and on a
-    parameter, buffer or moment left unset."""
+    ``tree = {"step", "params", "batch_stats", "opt_state"}``. An optimizer
+    state is a dict of ``"count"`` and moment trees (``"mu"``, ``"nu"``,
+    adamod's ``"eta"``, sgd's ``"trace"``, lookahead's ``"slow"``), each in
+    the params' layout or, for novograd's ``"nu"``, one scalar per leaf;
+    lookahead's holds its base's state under ``"inner"``. A tuple is a
+    sequence of such states: optax.chain's (gc: ``({}, base)``, gc's state
+    empty) or FD's pair (main, adversary). Leaves keep their types;
+    tensors go to ``device`` (the CUDA card unless ``device="cpu"``).
+    Raises on a leaf no rule consumes and on a parameter, buffer or moment
+    left unset."""
     dev = resolve_device(device)
     extra = set(tree) - {"step", "params", "batch_stats", "opt_state"}
     if extra:
@@ -245,21 +296,39 @@ def train_state_from_variables(net: nn.Module, tree: Mapping, device: Any = None
     stats = {k: v for k, v in state.items() if k not in named_params}
     _check_keys("params", params, named_params)
     _check_keys("batch_stats", stats, named_buffers)
-    def optimizer(tree_opt: Mapping) -> dict:
-        opt = {"count": torch.as_tensor(np.asarray(tree_opt["count"]), dtype=torch.int32).to(dev)}
-        for name, moments in tree_opt.items():
-            if name != "count":
-                moment = variables_to_state_dict({"params": moments})
-                _check_keys(f"optimizer {name}", moment, named_params)
-                opt[name] = to_dev(moment)
+    to_dev = lambda d: {k: v.to(dev) for k, v in d.items()}
+
+    def moment(name: str, moments: Mapping) -> Dict[str, torch.Tensor]:
+        leaves = list(_leaves(moments))
+        if not _is_scalar_moment([v.ndim for _, v, _ in leaves], [p.dim() for p in params.values()]):
+            out = variables_to_state_dict({"params": moments})
+            _check_keys(f"optimizer {name}", out, named_params)
+            return out
+        out = {}
+        for path, value, _ in leaves:
+            key, _ = _to_port("params", path, *_at(tree["params"], path))
+            if key in out:
+                raise ValueError(f"two leaves of optimizer {name} map to {key}")
+            out[key] = torch.from_numpy(np.array(value))
+        _check_keys(f"optimizer {name}", out, {k: torch.empty(()) for k in named_params})
+        return out
+
+    def optimizer(tree_opt: Any) -> Any:
+        if isinstance(tree_opt, (tuple, list)):
+            return tuple(optimizer(t) for t in tree_opt)
+        opt: Dict[str, Any] = {}
+        for name, value in tree_opt.items():
+            if name == "count":
+                opt[name] = torch.as_tensor(np.asarray(value), dtype=torch.int32).to(dev)
+            elif name == "inner":
+                opt[name] = optimizer(value)
+            else:
+                opt[name] = to_dev(moment(name, value))
         return opt
 
-    to_dev = lambda d: {k: v.to(dev) for k, v in d.items()}
-    tree_opt = tree["opt_state"]
     return TrainState(
         step=torch.as_tensor(np.asarray(tree["step"]), dtype=torch.int32).to(dev),
-        params=to_dev(params), batch_stats=to_dev(stats),
-        opt_state=tuple(map(optimizer, tree_opt)) if isinstance(tree_opt, (tuple, list)) else optimizer(tree_opt))
+        params=to_dev(params), batch_stats=to_dev(stats), opt_state=optimizer(tree["opt_state"]))
 
 
 def train_state_to_variables(state: TrainState) -> Dict[str, Any]:
@@ -267,15 +336,23 @@ def train_state_to_variables(state: TrainState) -> Dict[str, Any]:
     ``TrainState`` -> numpy trees in the JAX layout."""
     variables = state_dict_to_variables({**state.params, **state.batch_stats})
 
-    def optimizer(opt: Mapping) -> Dict[str, Any]:
-        out: Dict[str, Any] = {"count": opt["count"].cpu().numpy()}
-        out.update({name: state_dict_to_variables(m)["params"] for name, m in opt.items() if name != "count"})
+    def moment(m: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+        if not _is_scalar_moment([v.dim() for v in m.values()], [p.dim() for p in state.params.values()]):
+            return state_dict_to_variables(m)["params"]
+        out: Dict[str, Any] = {}
+        for key, value in m.items():
+            _, path, _ = _to_jax(key, state.params[key].detach().cpu().numpy())
+            _put(out, path, value.cpu().numpy())
         return out
 
-    opt_state = state.opt_state
+    def optimizer(opt: Any) -> Any:
+        if isinstance(opt, tuple):
+            return tuple(optimizer(o) for o in opt)
+        return {name: opt[name].cpu().numpy() if name == "count" else optimizer(v) if name == "inner" else moment(v)
+                for name, v in opt.items()}
+
     return {"step": state.step.cpu().numpy(), "params": variables["params"],
-            "batch_stats": variables["batch_stats"],
-            "opt_state": tuple(map(optimizer, opt_state)) if isinstance(opt_state, tuple) else optimizer(opt_state)}
+            "batch_stats": variables["batch_stats"], "opt_state": optimizer(state.opt_state)}
 
 
 ecapa_variables_to_state_dict = variables_to_state_dict

@@ -47,8 +47,8 @@ Phases (any failure raises and the script exits non-zero):
      statistics pooling on, held against the same model with the flag off
      fed by the plain front end and against an f32 model on the f32 plain
      front end; timed with the flag on and off; one batch profiled; then the Extractor run as in 6.
-     The launch counters are zeroed just before each of the seventeen
-     main paths (6 to 22) drives the port and read just after; every
+     The launch counters are zeroed just before each of the eighteen
+     main paths (6 to 23) drives the port and read just after; every
      kernel of a path must have been launched in it.
   8. the train step of ECAPA-TDNN C1024 (SpeakerNet with the sub-centre
      top-k AAM head over 5994 classes, seeded random weights, bf16
@@ -257,7 +257,29 @@ Phases (any failure raises and the script exits non-zero):
      models' pooling inputs, and extract_embedding_chunked on the
      utterances longer than 400 frames against their chunks embedded one
      at a time (cosine 0.99999).
- 23. a "kernels" JSON line, then the device JSON as the last line.
+ 23. the step options, the reference's own optimizers and the ReConformer
+     at full width (B=128 x 2 s of raw waves, bf16 on f32 masters, K1 in
+     the step, 5994 classes, every step under the sync check): ECAPA-TDNN
+     C1024 with mixup (alpha 1.0, the sub-centre head, adamW) for 30 steps
+     on one batch as in 8, and its ms/step beside the plain step in four
+     turns of five steps; the four remat policies (None, dots, dots_batch,
+     full) on ECAPA C1024: ms/step, peak memory and K1 launches a step, and
+     one SGD step of each from one state, batch and generator seed against
+     the no-remat step, on ECAPA and on the bench's Conformer with dropout
+     0.1 (loss and BN statistics to 1e-5, grad_norm to 1e-3, the whole
+     update to 1e-2; the no-remat step run twice printed beside them);
+     ralamb, adamod, novograd, eve, adamW with gc and sgd with lookahead
+     (k 5, alpha 0.5), 10 steps each beside adamW's, every loss finite and
+     the count at 10; the ReConformer of recipes/configs/reconformer.yaml
+     (6L-256D-4H, re_conv2d, embedding 256) served behind
+     make_wave_embed_fn on one [128, 160000] batch, held against the same
+     model on the plain front end, the f32 model on the plain bf16-DFT
+     front end and K1 through the f32 model (phase 10's bars), timed, one
+     batch profiled; trained on its AM head with adamW on noam and the
+     model warm-up (1000 steps) for 30 steps as in 8 (finite, no fall
+     required: noam's lr at step 30 is 4.7e-7); then a narrow
+     ReConformer's f32 and f64 steps, card against CPU, with 8's bounds.
+ 24. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
 line) is device time over many launches back to back: one CUDA event, N
@@ -289,6 +311,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -1124,7 +1147,8 @@ def _card_against_cpu(torch, family: str = "ecapa"):
     what = {"ecapa": "SpeakerNet ECAPA C256", "resnet": "SpeakerNet ResNet base8 1-1-1-1",
             "conformer": "SpeakerNet Conformer 2L-64D-2H, dropout 0",
             "ftdnn": "SpeakerNet F-TDNN width 0.125, use_semi_orth over step 0 (0 % 4 == 0)",
-            "repvgg": "SpeakerNet RepVGG RepSPK 1-1-1-1 base 8"}[family]
+            "repvgg": "SpeakerNet RepVGG RepSPK 1-1-1-1 base 8",
+            "reconformer": "SpeakerNet ReConformer 2L-64D-2H re_conv2d, dropout 0"}[family]
     semi = family == "ftdnn"
     wave, y = modulated_waves(8, SEED + 30)
     feats, seed = plain_features(wave), SEED + 32
@@ -1176,7 +1200,7 @@ def _card_against_cpu(torch, family: str = "ecapa"):
 
 
 def run_fixed_batch(torch, step, state, batch, gen, what: str, path: str, device_label: str,
-                    falls_to: float, opt: str = "adamW", watch=None) -> dict:
+                    falls_to: Optional[float], opt: str = "adamW", watch=None) -> dict:
     """30 steps of ``step`` on one fixed batch from ``state``, queued back to
     back, none of them allowed to wait on the card (no_host_sync: the host
     queues steps ahead of the card, as a training loop does). The first step
@@ -1184,7 +1208,8 @@ def run_fixed_batch(torch, step, state, batch, gen, what: str, path: str, device
     and read just after. Prints the median ms/step of 20 steps between CUDA
     events after 3 warm-up steps, audio-s/s, the host's time to queue a step
     and the peak memory; profiles one step; requires every loss finite,
-    none skipped and the last loss under ``falls_to`` times the first.
+    none skipped and the last loss under ``falls_to`` times the first
+    (``falls_to`` None: finite and none skipped only).
     ``watch(i, state)``, if given, runs after step i (0-based) outside the
     timed events and must not wait on the card either."""
     b, samples = batch["x"].shape
@@ -1227,7 +1252,8 @@ def run_fixed_batch(torch, step, state, batch, gen, what: str, path: str, device
     print(f"{what} 30 steps on one batch: loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f} "
           f"(min {float(losses.min()):.4f}), skipped {skipped:.0f}, last grad_norm {float(metrics[-1]['grad_norm']):.3f}",
           flush=True)
-    check(bool(torch.isfinite(losses).all()) and skipped == 0 and float(losses[-1]) < falls_to * float(losses[0]),
+    falls = falls_to is None or float(losses[-1]) < falls_to * float(losses[0])
+    check(bool(torch.isfinite(losses).all()) and skipped == 0 and falls,
           f"the 30 {what} steps did not run finite with the last loss under {falls_to} of the first")
     return counts
 
@@ -2869,6 +2895,254 @@ def phase_offline(torch, device_label):
     return counts
 
 
+# Phase 23: the step options, the reference's own optimizers and the ReConformer
+MIXUP_ALPHA = 1.0  # the alpha of JAX's mixup (nn/tdnn.py:489) when the step turns it on
+REMAT_POLICIES = (None, "dots", "dots_batch", "full")
+# One SGD step under each remat policy against the no-remat step, from one
+# state, batch and generator seed. The forward is the same computation, so
+# the loss and the BN statistics (f32 sums of the same bf16 activations)
+# hold at 1e-5 of their scale; the backward reads recomputed activations
+# equal to the stored ones, but cuDNN's and cuBLAS's backward kernels may
+# sum in another order from call to call, which moves bf16 gradients by
+# their rounding (2^-9): grad_norm at 1e-3 and the whole update at 1e-2 of
+# its norm. Dropout masks drawn anew in the recompute would move the
+# update by tens of percent.
+REMAT_LOSS_TOL, REMAT_GRAD_TOL, REMAT_UPDATE_TOL = 1e-5, 1e-3, 1e-2
+NEW_OPTIMIZERS = (("adamW", dict(name="adamW", learning_rate=1e-3)),
+                  ("ralamb", dict(name="ralamb", learning_rate=1e-3)),
+                  ("adamod", dict(name="adamod", learning_rate=1e-3)),
+                  ("novograd", dict(name="novograd", learning_rate=1e-3)),
+                  ("eve", dict(name="eve", learning_rate=1e-3)),
+                  ("adamW gc", dict(name="adamW", learning_rate=1e-3, gc=True)),
+                  ("sgd lookahead k5 a0.5", dict(name="sgd", learning_rate=1e-2, lookahead=True, lookahead_k=5,
+                                                 lookahead_alpha=0.5)))
+
+
+def _queued_ms(torch, step, state, batch, gen, n: int, warm: int = 2):
+    """(state, median ms/step of ``n`` steps between CUDA events after
+    ``warm`` steps, queued back to back under the sync check, the metrics
+    of every step, K1's launches per step)."""
+    from asv_subtools_tpu_torch.features import fused_fbank
+
+    metrics, events = [], []
+    before = fused_fbank.launches
+    for i in range(warm + n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with no_host_sync(torch):
+            start.record()
+            state, m = step(state, batch, gen)
+            end.record()
+        metrics.append(m)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    ms = float(np.median([s.elapsed_time(e) for s, e in events[warm:]]))
+    return state, ms, metrics, (fused_fbank.launches - before) / (warm + n)
+
+
+def _one_sgd_step(torch, net, config, batch, seed: int):
+    """(loss, grad_norm, the update of every leaf, the new BN statistics) of
+    one SGD step (lr 0.1) of ``net`` from its own weights, the generator
+    seeded with ``seed``; under the sync check."""
+    from asv_subtools_tpu_torch.train import init_train_state, make_train_step, sgd
+
+    tx = sgd(0.1)
+    state = init_train_state(net, tx, "cuda")
+    step = make_train_step(net, tx, config=config)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with no_host_sync(torch):
+        new, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    return (float(m["loss"]), float(m["grad_norm"]), {k: new.params[k] - state.params[k] for k in state.params},
+            new.batch_stats)
+
+
+def _remat_distance(torch, ref, got):
+    """(loss, grad_norm, BN statistics, whole update) relative distances."""
+    from asv_subtools_tpu_torch.train.step_check import rel
+
+    num = sum(float(((got[2][k] - u) ** 2).sum()) for k, u in ref[2].items())
+    den = sum(float((u ** 2).sum()) for u in ref[2].values())
+    stats = max((float((got[3][k] - v).abs().max()) / max(float(v.abs().max()), 1e-30) for k, v in ref[3].items()),
+                default=0.0)
+    return rel(got[0], ref[0]), rel(got[1], ref[1]), stats, (num / den) ** 0.5
+
+
+def phase_step_options(torch, device_label):
+    """The step options, the reference's own optimizers and the ReConformer
+    at full width (B=128 x 2 s of raw waves, bf16 on f32 masters, K1 in the
+    step, 5994 classes, every step under the sync check): ECAPA-TDNN C1024
+    with mixup (alpha 1.0) on the recipe's head and adamW, 30 steps, and
+    ms/step beside the plain step in turns; the four remat policies on
+    ECAPA C1024 (ms/step, peak memory, K1 per step) and one SGD step of each
+    against the no-remat step on ECAPA and on the bench's Conformer with
+    dropout 0.1; ralamb, adamod, novograd, eve, adamW with gc and sgd with
+    lookahead (k 5, alpha 0.5), 10 steps each beside adamW's; the
+    ReConformer of recipes/configs/reconformer.yaml served behind
+    make_wave_embed_fn on [128, 160000] and trained (its AM head, adamW on
+    noam, model warm-up 1000) for 30 steps; a narrow ReConformer's f32 and
+    f64 steps, card against CPU."""
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.features import fused_fbank
+    from asv_subtools_tpu_torch.train import TrainStepConfig, get_optimizer, init_train_state, make_train_step, noam
+    from asv_subtools_tpu_torch.train.step_check import (AM, OPTS, SUBCENTER_TOPK, conformer_net, ecapa_net,
+                                                         reconformer_net)
+
+    dev = torch.device("cuda")
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    opts, gen, wave, labels = _train_batch(torch, SEED + 230)
+    batch = {"x": wave, "y": labels}
+    config = dict(compute_dtype=torch.bfloat16, wave_input=True, fbank_opts=opts)
+    # K1's constants for these options, made once (a host-to-device copy),
+    # outside the counted windows and the sync check
+    fused_fbank(wave[:1], opts, dft_dtype=torch.bfloat16, with_energy=False)
+
+    # 1. mixup at full width, and its ms/step beside the plain step in turns
+    net = ecapa_net(SUBCENTER_TOPK, SEED + 231, channels=1024)
+    tx = get_optimizer("adamW", 1e-3)
+    mix_step = make_train_step(net, tx, config=TrainStepConfig(mixup_alpha=MIXUP_ALPHA, **config))
+    add(run_fixed_batch(torch, mix_step, init_train_state(net, tx, dev), batch, gen, "train C1024 bf16 mixup 1.0",
+                        "mixup train step", device_label, falls_to=1.0))
+    plain_step = make_train_step(net, tx, config=TrainStepConfig(**config))
+    states = {"plain": init_train_state(net, tx, dev), "mixup": init_train_state(net, tx, dev)}
+    steps = {"plain": plain_step, "mixup": mix_step}
+    turns = {"plain": [], "mixup": []}
+    for order in (("plain", "mixup"), ("mixup", "plain"), ("plain", "mixup"), ("mixup", "plain")):
+        for name in order:
+            states[name], ms, _, _ = _queued_ms(torch, steps[name], states[name], batch, gen, n=5, warm=1)
+            turns[name].append(ms)
+    ms_plain, ms_mix = (float(np.median(turns[k])) for k in ("plain", "mixup"))
+    print(f"train C1024 bf16 [{BATCH},{TRAIN_SAMPLES}] adamW in turns (4 turns of 5 steps, median): plain "
+          f"{ms_plain:.2f} ms/step, mixup {ms_mix:.2f} ms/step ({ms_mix / ms_plain:.2f}x: the net runs twice, on y "
+          f"and on y[perm], as JAX's step does) on {device_label}", flush=True)
+    del states, steps, mix_step, plain_step
+    torch.cuda.empty_cache()
+
+    # 2. remat: ms/step, peak memory and K1 per step under each policy
+    rows = []
+    for policy in REMAT_POLICIES:
+        step = make_train_step(net, tx, config=TrainStepConfig(remat=policy, **config))
+        state = init_train_state(net, tx, dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        state, ms, metrics, k1 = _queued_ms(torch, step, state, batch, gen, n=6)
+        add(read_launches(f"remat={policy} train step", ("fused_fbank",)))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finite = bool(torch.isfinite(torch.stack([m["loss"] for m in metrics])).all())
+        rows.append((policy, ms, peak, k1))
+        check(finite and k1 == 1, f"remat={policy}: a loss not finite or K1 launched {k1} times a step")
+        del state, step
+    print(f"train C1024 bf16 [{BATCH},{TRAIN_SAMPLES}] adamW by remat policy (median of 6 steps after 2, queued "
+          "back to back): " + "; ".join(f"{p} {ms:.2f} ms/step, peak {peak:.2f} GiB, K1 {k1:.0f}/step"
+                                        for p, ms, peak, k1 in rows) + f" on {device_label}", flush=True)
+    torch.cuda.empty_cache()
+
+    # one SGD step under each policy against the no-remat step: ECAPA, and
+    # the Conformer with dropout 0.1 (the generator's replay in the recompute)
+    conformer = conformer_net(AM, SEED + 232, dropout_rate=0.1)
+    for label, make in (("ECAPA C1024", lambda: copy.deepcopy(net)), ("Conformer 6L-256D-4H dropout 0.1",
+                                                                      lambda: copy.deepcopy(conformer))):
+        ref = _one_sgd_step(torch, make(), TrainStepConfig(**config), batch, SEED + 233)
+        again = _one_sgd_step(torch, make(), TrainStepConfig(**config), batch, SEED + 233)
+        floor = _remat_distance(torch, ref, again)
+        parts = [f"no remat twice: loss {floor[0]:.1e}, grad_norm {floor[1]:.1e}, BN {floor[2]:.1e}, update "
+                 f"{floor[3]:.1e}"]
+        ok = True
+        for policy in REMAT_POLICIES[1:]:
+            d = _remat_distance(torch, ref, _one_sgd_step(torch, make(), TrainStepConfig(remat=policy, **config),
+                                                          batch, SEED + 233))
+            parts.append(f"{policy}: loss {d[0]:.1e}, grad_norm {d[1]:.1e}, BN {d[2]:.1e}, update {d[3]:.1e}")
+            ok &= d[0] <= REMAT_LOSS_TOL and d[2] <= REMAT_LOSS_TOL and d[1] <= REMAT_GRAD_TOL \
+                and d[3] <= REMAT_UPDATE_TOL
+        print(f"remat against no remat, one SGD step of {label} bf16 (tol loss and BN {REMAT_LOSS_TOL}, grad_norm "
+              f"{REMAT_GRAD_TOL}, update {REMAT_UPDATE_TOL}): " + "; ".join(parts), flush=True)
+        check(ok, f"a remat step of {label} is off the no-remat step")
+        del ref, again
+        torch.cuda.empty_cache()
+    del conformer
+
+    # 3. the reference's own optimizers and the wrappers, 10 steps each
+    rows = []
+    for label, kw in NEW_OPTIMIZERS:
+        otx = get_optimizer(**kw)
+        step = make_train_step(net, otx, config=TrainStepConfig(**config))
+        zero_launches()
+        state, ms, metrics, k1 = _queued_ms(torch, step, init_train_state(net, otx, dev), batch, gen, n=8)
+        add(read_launches(f"{label} train step", ("fused_fbank",)))
+        opt = state.opt_state
+        count = int((opt[1] if isinstance(opt, tuple) else opt)["count"])
+        losses = torch.stack([m["loss"] for m in metrics]).float().cpu()
+        rows.append((label, ms, float(losses[0]), float(losses[-1])))
+        check(bool(torch.isfinite(losses).all()) and count == 10 and k1 == 1,
+              f"{label}: a loss not finite, the count at {count} after 10 steps, or K1 {k1} a step")
+        del state, step
+    print(f"train C1024 bf16 [{BATCH},{TRAIN_SAMPLES}] by optimizer, 10 steps (median ms/step of 8 after 2; loss "
+          "first -> last; count 10): " + "; ".join(f"{label} {ms:.2f} ms/step {a:.3f} -> {b:.3f}"
+                                                  for label, ms, a, b in rows) + f" on {device_label}", flush=True)
+    del net, tx
+    torch.cuda.empty_cache()
+
+    # 4. the ReConformer: served, then trained. This random-weight model
+    # moves with the front end's DFT precision: on the host's CPU the f32
+    # model on the bf16-DFT features of 8 such 10 s waves sits at cosine
+    # 0.9972 from itself on the f32-DFT features (the Conformer: 0.999998).
+    # So its references take the bf16 DFT, as K1 does here; the f32-DFT
+    # reading is printed, not held.
+    model32 = reconformer_net(seed=SEED + 234).backbone.to(dev).eval()
+    model16 = copy.deepcopy(model32).to(torch.bfloat16)
+    sgen = torch.Generator(device=dev).manual_seed(SEED + 235)
+    swave = torch.randn((BATCH, SAMPLES), generator=sgen, device=dev) * 1000.0
+    smask = torch.ones((BATCH, SAMPLES), dtype=torch.bool, device=dev)
+    embed = make_wave_embed_fn(lambda x, m: model16(x, m), OPTS, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        ref16 = _plain_embed(torch, model16, OPTS, torch.bfloat16, torch.bfloat16)(swave, smask)
+        ref32 = _plain_embed(torch, model32, OPTS, torch.bfloat16, torch.float32)(swave, smask)
+        ref32_f32dft = _plain_embed(torch, model32, OPTS, torch.float32, torch.float32)(swave, smask)
+        k1_32 = make_wave_embed_fn(lambda x, m: model32(x, m), OPTS, dtype=torch.float32)(swave, smask)
+        waves = [swave * (1.0 + 1e-4 * i) for i in range(4)]
+        torch.cuda.synchronize()
+        zero_launches()
+        emb = embed(waves[0], smask)
+        torch.cuda.synchronize()
+        add(read_launches("ReConformer served", ("fused_fbank",)))
+        check(tuple(emb.shape) == (BATCH, 256) and bool(torch.isfinite(emb.float()).all()),
+              "served ReConformer embeddings not finite or of the wrong shape")
+        c16, c32 = float(cosine(emb, ref16).min()), float(cosine(emb, ref32).min())
+        ck1, cdft = float(cosine(k1_32, ref32).min()), float(cosine(ref32, ref32_f32dft).min())
+        print(f"served ReConformer 6L-256D-4H re_conv2d bf16: min per-utterance cosine vs plain front end (bf16) "
+              f"{c16:.6f} (>= 0.999), vs f32 model + plain front end (bf16 DFT) {c32:.6f} (>= 0.999); the f32 model "
+              f"on K1's features vs on the plain bf16 front end's {ck1:.7f} (>= 0.9999; phase 10's bars); the f32 "
+              f"model on bf16-DFT vs f32-DFT plain features {cdft:.6f} (printed: the DFT's precision)", flush=True)
+        check(c16 >= 0.999 and c32 >= 0.999 and ck1 >= 0.9999,
+              "served ReConformer embeddings disagree with the references")
+        ms = timed_batches(torch, embed, waves, smask, iters=6)
+        print(f"served ReConformer bf16 [{BATCH},{SAMPLES}]: {ms:.2f} ms/batch, {BATCH * SAMPLES / 16.0 / ms:.0f} "
+              f"audio-s/s on {device_label}", flush=True)
+        profile_served_batch(torch, lambda: embed(waves[0], smask), what="one served ReConformer batch")
+    del model16, model32, ref16, ref32, ref32_f32dft, k1_32, waves, emb
+    torch.cuda.empty_cache()
+
+    rnet = reconformer_net(AM, SEED + 236)
+    schedule = noam(base_lr=1.0, model_dim=256, warmup_steps=25000)
+    rtx = get_optimizer("adamW", schedule)
+    rstep = make_train_step(rnet, rtx, lr_schedule=schedule, config=TrainStepConfig(model_warmup_steps=1000,
+                                                                                     **config))
+    # noam's lr at step 30 is 4.7e-7 (warm-up 25000): finite losses, no fall required
+    add(run_fixed_batch(torch, rstep, init_train_state(rnet, rtx, dev), batch, gen,
+                        "train ReConformer bf16 (AM m=0.2, adamW on noam, model warm-up 1000)",
+                        "ReConformer train step", device_label, falls_to=None, opt="adamW noam"))
+    del rnet, rstep
+    torch.cuda.empty_cache()
+    _card_against_cpu(torch, "reconformer")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2924,6 +3198,8 @@ def main() -> int:
     paths.append(phase_gates(torch, smi))
     torch.cuda.empty_cache()
     paths.append(phase_offline(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_step_options(torch, smi))
     for kernel_name, k in kernels.items():
         k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

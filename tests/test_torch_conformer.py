@@ -440,21 +440,43 @@ UNPORTED = {
 }
 
 
+# ported since they were listed: each builds and one f32 train step runs
+# finite (their parity with JAX: tests/test_torch_reconformer.py)
+PORTED = ("re_conformer", "re_layer", "re_scale", "basic_norm", "cnn_basic_norm", "use_balancer")
+
+
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_options_raise(name):
-    with pytest.raises(NotImplementedError):
+    if name in PORTED:
+        from asv_subtools_tpu_torch.models import SpeakerNet
+        from asv_subtools_tpu_torch.train import TrainStepConfig, get_optimizer, init_train_state, make_train_step
+
+        net = SpeakerNet(ConformerXvector(F, device="cpu", **{**SMALL, **UNPORTED[name]}), "margin_softmax",
+                         {"method": "am", "m": 0.2}, num_targets=5)
+        tx = get_optimizer("adamW", 1e-3)
+        step = make_train_step(net, tx, config=TrainStepConfig(compute_dtype=torch.float32))
+        g = torch.Generator().manual_seed(0)
+        batch = {"x": torch.randn(2, 40, F, generator=g), "y": torch.tensor([0, 4])}
+        new, m = step(init_train_state(net, tx, "cpu"), batch, g)
+        assert int(new.step) == 1 and np.isfinite(float(m["loss"])) and float(m["skipped"]) == 0.0
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
         ConformerXvector(F, device="cpu", **{**SMALL, **UNPORTED[name]})
 
 
 def test_unported_module_options_raise():
     for build in (lambda: pc.RelPositionMultiHeadedAttention(32, 2, rel_shift=True),
                   lambda: pc.ConvolutionModule(32, causal=True),
-                  lambda: pc.ConvolutionModule(32, use_balancer=True),
                   lambda: pc.TransformerEncoder(),
                   lambda: pc.add_optional_chunk_mask(None, 10, static_chunk_size=2),
                   lambda: pc.add_optional_chunk_mask(None, 10, use_dynamic_chunk=True)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
             build()
+    # the ReConformer's conv module options are ported: the balancers leave the forward as it is
+    x = torch.randn(2, 9, 32)
+    plain, balanced = pc.ConvolutionModule(32), pc.ConvolutionModule(32, use_balancer=True)
+    balanced.load_state_dict(plain.state_dict())
+    torch.testing.assert_close(balanced(x), plain(x), rtol=0, atol=0)
 
 
 CONFIG = dict(buckets=(16000, 32000), default_batch=2, max_chunk=24000)

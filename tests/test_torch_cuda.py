@@ -68,6 +68,18 @@ FD cycle on the card where an adversary step moves the ``dal`` leaves
 alone and a main step none of them; and Launcher.find_lr on wave egs
 (a narrow ECAPA): K1 once a step and one host wait a step.
 
+The step options, the reference's optimizers and the ReConformer: the
+float64 step with mixup (a pinned draw: the two devices' generators draw
+other values) and with each remat policy, card against CPU to
+F64_LEAF_TOL; on the card, a remat step of a Conformer with dropout 0.1
+and train-mode BatchNorm against the plain step at 1e-10 (the recompute
+replays the generator); bf16 steps with mixup, remat and each new
+optimizer and wrapper that never wait on the card; the balancer's
+backward card against CPU (f64 1e-12, f32 1e-6, bf16 2e-2); the narrow
+ReConformer's step card against CPU with the Conformer's bounds; and
+reconformer.yaml's model served on the card against the CPU (f32
+cosine 0.9999, bf16 0.999).
+
 The scoring back end's device functions (f32, TF32 off): asnorm_device at
 E=100, T=130 against a cohort of 600 (top 64) and at the scale of
 tests/test_backend_scale.py (600 x 970, cohort 5,994, top 300) against
@@ -1027,3 +1039,175 @@ def test_find_lr_on_wave_input_launches_k1_once_a_step(card, tmp_path):
     assert len(out["lrs"]) == 6 and fused_fbank.launches - before == 6
     assert len(waits) == 6, waits
     assert out["suggested_lr"] is not None and all(map(lambda v: v == v, out["losses"]))
+
+
+# -- the step options, the reference's own optimizers and the ReConformer ---------
+
+def _fixed_mixup(monkeypatch):
+    """mixup's draw pinned to lam 0.3 and a fixed permutation on whatever
+    device asks: the card's and the CPU's generators draw other values."""
+    from asv_subtools_tpu_torch.nn import tdnn
+
+    def draw(batch, alpha, generator, device, dtype):
+        return (torch.tensor(0.3, dtype=dtype, device=device),
+                torch.roll(torch.arange(batch, device=device), 3))
+
+    monkeypatch.setattr(tdnn, "mixup_draw", draw)
+
+
+@pytest.mark.parametrize("option", [dict(mixup_alpha=1.0), dict(remat="full"), dict(remat="dots"),
+                                    dict(remat="dots_batch"), dict(mixup_alpha=1.0, remat="dots")], ids=str)
+def test_step_options_on_the_card_match_the_cpu(card, monkeypatch, option):
+    """The float64 step of the narrow ECAPA on the same features with mixup
+    (a pinned draw) or remat: card against CPU, each leaf's update to
+    F64_LEAF_TOL, loss and grad_norm to 1e-10."""
+    from asv_subtools_tpu_torch.train.step_check import (AAM, modulated_waves, plain_features, rel, sgd_step,
+                                                         worst_leaf)
+
+    _fixed_mixup(monkeypatch)
+    wave, y = modulated_waves(8, 4)
+    feats = plain_features(wave)
+    cd, cpu = (sgd_step(d, torch.float64, feats, y, AAM, **option) for d in (card, torch.device("cpu")))
+    plain = sgd_step("cpu", torch.float64, feats, y, AAM)
+    assert worst_leaf(cd.updates, cpu.updates)[0] <= F64_LEAF_TOL
+    for key in ("loss", "grad_norm"):
+        assert rel(cd.metrics[key], cpu.metrics[key]) <= 1e-10, key
+    if "mixup_alpha" in option:  # the mix moved the step
+        assert rel(cpu.metrics["loss"], plain.metrics["loss"]) > 1e-3
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_batch"])
+def test_remat_replays_dropout_on_the_card(card, policy):
+    """A narrow Conformer with dropout 0.1 and train-mode BatchNorm in its
+    conv modules, float64 on the card: the remat step against the plain
+    one from the same generator seed, every leaf to 1e-10 of its norm and
+    the BN statistics to 1e-12 (the recompute draws the forward's masks)."""
+    from asv_subtools_tpu_torch.train.step_check import (AAM, NARROW_CONFORMER, conformer_net, modulated_waves,
+                                                         plain_features, sgd_step, worst_leaf)
+
+    make = lambda head=AAM, seed=0: conformer_net(head, seed, **{**NARROW_CONFORMER, "dropout_rate": 0.1},
+                                                  encoder_params={"cnn_norm_type": "batch_norm"})
+    wave, y = modulated_waves(8, 5)
+    feats = plain_features(wave)
+    ref = sgd_step(card, torch.float64, feats, y, AAM, make_net=make)
+    got = sgd_step(card, torch.float64, feats, y, AAM, make_net=make, remat=policy)
+    assert worst_leaf(got.updates, ref.updates)[0] <= 1e-10
+    assert ref.batch_stats and all(torch.allclose(got.batch_stats[k], v, rtol=1e-12, atol=1e-14)
+                                   for k, v in ref.batch_stats.items())
+
+
+NEVER_WAITS = {"mixup": ("adamW", {}, dict(mixup_alpha=1.0)), "remat dots": ("adamW", {}, dict(remat="dots")),
+               "remat full": ("adamW", {}, dict(remat="full")), "ralamb": ("ralamb", {}, {}),
+               "adamod": ("adamod", {}, {}), "novograd": ("novograd", {}, {}), "eve": ("eve", {}, {}),
+               "gc": ("adamW", {"gc": True}, {}), "lookahead": ("sgd", {"lookahead": True, "lookahead_k": 2}, {})}
+
+
+@pytest.mark.parametrize("case", list(NEVER_WAITS))
+def test_step_options_and_optimizers_never_wait_on_the_card(card, case):
+    """bf16 wave-input steps of ECAPA C256 at B=8 with each new option or
+    optimizer, after a first step, under set_sync_debug_mode("error"):
+    K1 once a step, losses finite (lookahead's sync step among them)."""
+    from asv_subtools_tpu_torch.train import TrainStepConfig, get_optimizer, init_train_state, make_train_step
+    from asv_subtools_tpu_torch.train.step_check import OPTS, ecapa_net, modulated_waves
+
+    name, opt, options = NEVER_WAITS[case]
+    wave, y = modulated_waves(8, 6)
+    batch = {"x": wave.to(card), "y": y.to(card)}
+    net = ecapa_net()
+    tx = get_optimizer(name, 1e-3, **opt)
+    step = make_train_step(net, tx, config=TrainStepConfig(compute_dtype=torch.bfloat16, wave_input=True,
+                                                           fbank_opts=OPTS, **options))
+    gen = torch.Generator(device=card).manual_seed(0)
+    state, _ = step(init_train_state(net, tx, card), batch, gen)
+    torch.cuda.synchronize()
+    before = fused_fbank.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m1 = step(state, batch, gen)
+        state, m2 = step(state, batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fused_fbank.launches == before + 2
+    assert all(bool(torch.isfinite(m["loss"])) and float(m["skipped"]) == 0.0 for m in (m1, m2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+def test_balancer_backward_on_the_card_matches_the_cpu(card, dtype):
+    """The balancer's backward on [B, C, T, F] maps with channels that
+    engage each branch: card against CPU, to 1e-12 (f64), 1e-6 (f32) or
+    one bf16 rounding (2e-2) of the gradient's scale."""
+    from asv_subtools_tpu_torch.nn.conformer.scaling import activation_balancer
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(4, 10, 30, 9, generator=gen, dtype=torch.float64)
+    x = x * torch.tensor([1.0, 1.0, 1e-2, 300.0, 1.0] * 2, dtype=torch.float64).view(1, 10, 1, 1) \
+        + torch.tensor([-3.0, 3.0, 0.0, 0.0, 0.0] * 2, dtype=torch.float64).view(1, 10, 1, 1)
+    g = torch.randn(x.shape, generator=gen, dtype=torch.float64)
+    grads = {}
+    for d in (card, torch.device("cpu")):
+        xd = x.to(d, dtype).requires_grad_()
+        (grads[d.type],) = torch.autograd.grad(activation_balancer(xd, 1), xd, g.to(d, dtype))
+    tol = {torch.float64: 1e-12, torch.float32: 1e-6, torch.bfloat16: 2e-2}[dtype]
+    a, b = grads["cuda"].double().cpu(), grads["cpu"].double()
+    assert not torch.allclose(b, g.to(dtype).double())
+    assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def test_reconformer_step_on_the_card_matches_the_cpu(card):
+    """The narrow ReConformer (2 blocks, d = 64, re_conv2d, dropout 0), as
+    the Conformer's family test: the f64 step card against CPU to
+    F64_LEAF_TOL; the f32 wave step (K1's f32 mode, TF32 off), loss and
+    grad_norm to 1e-4 of the CPU's and every leaf against the f64 step to
+    F32_LEAF_TOL. Its balancers' backward runs in every block."""
+    from asv_subtools_tpu_torch.train.step_check import (AAM, modulated_waves, narrow_net, plain_features, rel,
+                                                         sgd_step, worst_leaf)
+
+    torch.backends.cudnn.allow_tf32 = False
+    make = narrow_net("reconformer")
+    wave, y = modulated_waves(8, 3)
+    feats = plain_features(wave)
+    cd, cpu = (sgd_step(d, torch.float64, feats, y, AAM, make_net=make) for d in (card, torch.device("cpu")))
+    assert worst_leaf(cd.updates, cpu.updates)[0] <= F64_LEAF_TOL
+    for key in ("loss", "grad_norm"):
+        assert rel(cd.metrics[key], cpu.metrics[key]) <= 1e-10, key
+    cd32 = sgd_step(card, torch.float32, wave, y, AAM, wave_input=True, make_net=make)
+    cpu32 = sgd_step("cpu", torch.float32, wave, y, AAM, wave_input=True, make_net=make)
+    for key in ("loss", "grad_norm"):
+        assert rel(cd32.metrics[key], cpu32.metrics[key]) <= 1e-4, key
+    for r in (cd32, cpu32):
+        assert worst_leaf(r.updates, cpu.updates)[0] <= F32_LEAF_TOL
+
+
+def test_served_reconformer_on_the_card_against_the_cpu(card):
+    """reconformer.yaml's model (seeded random weights) on ragged 1-4 s
+    waves: the f32 model on the card against the f32 model on the CPU on
+    the same features at per-utterance cosine 0.99999 (TF32 off); behind
+    make_wave_embed_fn (K1, bf16 DFT) the f32 model at 0.9999 and the bf16
+    model at 0.999 against the CPU's f32 model on the plain bf16-DFT front
+    end (phase 10's bars). The references take the bf16 DFT: this model
+    moves by up to 3e-3 of cosine between bf16- and f32-DFT features."""
+    import copy
+
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.features import wave_features
+    from asv_subtools_tpu_torch.train.step_check import OPTS, reconformer_net
+
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_model = reconformer_net(seed=8).backbone.eval()
+    model32 = copy.deepcopy(cpu_model).to(card)
+    model16 = copy.deepcopy(model32).to(torch.bfloat16)
+    gen = torch.Generator().manual_seed(9)
+    wave = torch.randn((8, 64000), generator=gen) * 1000.0
+    mask = torch.arange(64000)[None, :] < torch.linspace(16000, 64000, 8).long()[:, None]
+    wave = wave * mask
+    with torch.inference_mode():
+        feats, fmask = wave_features(wave, mask, OPTS, torch.bfloat16)
+        ref = cpu_model(feats, fmask)
+        same = model32(feats.to(card), fmask.to(card))
+        e32 = make_wave_embed_fn(lambda x, m: model32(x, m), OPTS, dtype=torch.float32)(wave.to(card), mask.to(card))
+        e16 = make_wave_embed_fn(lambda x, m: model16(x, m), OPTS, dtype=torch.bfloat16)(wave.to(card), mask.to(card))
+    cos = lambda a: torch.nn.functional.cosine_similarity(a.float().cpu(), ref, dim=-1)
+    assert e32.shape == (8, 256) and bool(torch.isfinite(e16.float()).all())
+    assert float(cos(same).min()) >= 0.99999, cos(same)
+    assert float(cos(e32).min()) >= 0.9999, cos(e32)
+    assert float(cos(e16).min()) >= 0.999, cos(e16)

@@ -4,9 +4,10 @@ Optimizers: the same sequence of 10 float64 gradients goes through the
 port's get_optimizer and the JAX one (optax) from the same parameters;
 the parameters after every step agree to 1e-10 relative (both sides run
 optax's formulas in f64, in other orders). Schedules: float64 on both
-sides, 1e-12 relative at chosen steps. The names the port does not carry
-yet raise NotImplementedError; the loss heads that once did build and
-train.
+sides, 1e-12 relative at chosen steps. The optimizers, step options and
+loss heads that once raised NotImplementedError build and train (their
+parity with JAX: tests/test_torch_optimizers.py,
+test_torch_step_options.py, test_torch_loss.py).
 """
 
 import jax
@@ -116,32 +117,44 @@ def test_reduce_on_plateau_and_cycle_ends_match_jax():
         port_sched.get_lr_schedule("reduceP")
 
 
+def _small_net():
+    return SpeakerNet(EcapaTdnn(input_dim=8, channels=16, mfa_conv=32, embd_dim=8, device="cpu"),
+                      "margin_softmax_v1", {"sub_k": 2}, num_targets=5)
+
+
+def _one_step(net, tx, config):
+    step = make_train_step(net, tx, config=config)
+    state = init_train_state(net, tx, "cpu")
+    batch = {"x": torch.randn(2, 30, 8, generator=torch.Generator().manual_seed(1)), "y": torch.tensor([0, 3])}
+    return step(state, batch, torch.Generator().manual_seed(0))
+
+
 @pytest.mark.parametrize("kw", [dict(name="ralamb"), dict(name="adamod"), dict(name="novograd"), dict(name="eve"),
                                 dict(name="adamW", gc=True), dict(name="sgd", lookahead=True)], ids=str)
 def test_optimizers_not_ported_raise(kw):
-    with pytest.raises(NotImplementedError):
-        get_optimizer(**kw)
+    """These optimizers raised once, not ported; they build now, and one
+    f32 train step through each runs finite (their parity with JAX:
+    tests/test_torch_optimizers.py)."""
+    tx = get_optimizer(learning_rate=1e-3, **kw)
+    new, m = _one_step(_small_net(), tx, TrainStepConfig(compute_dtype=torch.float32))
+    assert int(new.step) == 1 and np.isfinite(float(m["loss"])) and float(m["skipped"]) == 0.0
 
 
 @pytest.mark.parametrize("kw", [dict(mixup_alpha=0.2), dict(use_semi_orth=True), dict(remat="full"),
                                 dict(model_warmup_steps=10)], ids=str)
 def test_step_options_not_ported_raise(kw):
-    """Each option raises, but model_warmup_steps and use_semi_orth, which
-    are ported now (the Conformer's warm-up, tests/test_torch_train_conformer.py;
-    the F-TDNN's semi-orthogonal step, tests/test_torch_xvector.py): their
-    steps build and run on a backbone that takes no warmup and holds no
-    factor1 weight."""
-    net = SpeakerNet(EcapaTdnn(input_dim=8, channels=16, mfa_conv=32, embd_dim=8, device="cpu"),
-                     "margin_softmax_v1", {"sub_k": 2}, num_targets=5)
-    if "model_warmup_steps" in kw or "use_semi_orth" in kw:
-        step = make_train_step(net, get_optimizer("sgd", 0.1), config=TrainStepConfig(**kw))
-        state = init_train_state(net, get_optimizer("sgd", 0.1), "cpu")
-        batch = {"x": torch.randn(2, 30, 8, generator=torch.Generator().manual_seed(1)), "y": torch.tensor([0, 3])}
-        new, m = step(state, batch, torch.Generator().manual_seed(0))
-        assert int(new.step) == 1 and bool(torch.isfinite(m["loss"]))
-        return
-    with pytest.raises(NotImplementedError):
-        make_train_step(net, get_optimizer("sgd", 0.1), config=TrainStepConfig(**kw))
+    """Each option raised once; each is ported now (mixup and remat:
+    tests/test_torch_step_options.py; the Conformer's warm-up,
+    tests/test_torch_train_conformer.py; the F-TDNN's semi-orthogonal
+    step, tests/test_torch_xvector.py): their steps build and run on a
+    backbone that takes no warmup and holds no factor1 weight."""
+    new, m = _one_step(_small_net(), get_optimizer("sgd", 0.1), TrainStepConfig(**kw))
+    assert int(new.step) == 1 and bool(torch.isfinite(m["loss"]))
+
+
+def test_unknown_remat_policy_raises():
+    with pytest.raises(ValueError):
+        make_train_step(_small_net(), get_optimizer("sgd", 0.1), config=TrainStepConfig(remat="offload"))
 
 
 @pytest.mark.parametrize("loss", ["focal", "logistic_affinity", "ocsoftmax"])

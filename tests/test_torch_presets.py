@@ -1,6 +1,5 @@
 """Every preset in recipes/configs/ through the port's Launcher (ROADMAP
-Queue 1 item 4's "done when"), but reconformer.yaml, whose ReConformer
-is Queue 1 item 3 and raises.
+Queue 1 item 4's "done when"), reconformer.yaml's ReConformer included.
 
 Each preset builds at its own width (the backbone class and embedding
 width checked), then a narrow copy of it (the preset's head, optimizer,
@@ -45,7 +44,7 @@ NARROW = {
     "factored_xvector": ("FactoredXvector", {"width": 0.0625, "embd_dim": 16}),
     "multi_task_xvector": ("MultiTaskXvector", {"num_frame_channels": 16, "embd_dim": 16}),
 }
-PRESETS = sorted(f[:-len(".yaml")] for f in os.listdir(CONFIGS) if f.endswith(".yaml") and f != "reconformer.yaml")
+PRESETS = sorted(f[:-len(".yaml")] for f in os.listdir(CONFIGS) if f.endswith(".yaml"))
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +75,7 @@ def _params(corpora, exp, name):
 
 
 def test_every_preset_is_swept():
-    assert len(PRESETS) == 15 and "multitask" in PRESETS and "reconformer" not in PRESETS
+    assert len(PRESETS) == 16 and "multitask" in PRESETS and "reconformer" in PRESETS
 
 
 @pytest.mark.parametrize("name", PRESETS)

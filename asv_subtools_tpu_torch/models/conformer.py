@@ -8,13 +8,17 @@ is 6L-256D-4H with conv2d (4x) or conv2d2 (2x) subsampling. Channels-last
 throughout; module and parameter names follow the flax modules, so
 weights.py maps a JAX variable tree onto this state_dict by rule.
 
-``transformer_type`` "conformer" or "re_conformer" (the ReConformer,
-JAX models/conformer.py:55-66: BasicNorm block norms, normalize_before
+``transformer_type`` "conformer", "transformer" (the TransformerEncoder,
+JAX models/conformer.py:67-70: no macaron, no conv module, relu; the
+model's own ``pos_enc_type`` overrides the encoder's "abs_pos" default,
+as JAX's model passes it) or "re_conformer" (the ReConformer, JAX
+models/conformer.py:55-66: BasicNorm block norms, normalize_before
 False, balancers, double_swish and the re_layer blocks by default,
 ``encoder_params`` over them; recipes/configs/reconformer.yaml pairs it
-with the "re_conv2d" subsampling). "transformer" raises
-``NotImplementedError`` (ROADMAP Queue 1 item 3). Any pooling of the zoo
-(nn/pooling.py) may stand in for the attentive one.
+with the "re_conv2d" subsampling). Every encoder option (nn/conformer)
+goes through ``encoder_params``; an "mfa" combiner widens
+``transform_out_affine``'s input to the taps' width. Any pooling of the
+zoo (nn/pooling.py) may stand in for the attentive one.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..nn.conformer import ConformerEncoder
+from ..nn.conformer import ConformerEncoder, TransformerEncoder
 from ..nn.norm import LayerNorm
 from ..nn.pooling import build_pooling
 from .ecapa import EcapaAttentiveStatsPool
@@ -70,16 +74,16 @@ class ConformerXvector(nn.Module):
         device: Any = None,
     ):
         super().__init__()
-        if transformer_type not in ("conformer", "re_conformer"):
-            raise NotImplementedError(f"transformer_type {transformer_type!r} is not ported yet "
-                                      "(ROADMAP Queue 1 item 3)")
+        if transformer_type not in ("conformer", "transformer", "re_conformer"):
+            raise ValueError(f"unknown transformer_type {transformer_type!r}")
         self.embd_dim = embd_dim
-        self.transformer = ConformerEncoder(
+        encoder = TransformerEncoder if transformer_type == "transformer" else ConformerEncoder
+        self.transformer = encoder(
             input_dim, attention_dim=attention_dim, attention_heads=attention_heads, linear_units=linear_units,
             num_blocks=num_blocks, dropout_rate=dropout_rate, input_layer=input_layer, pos_enc_type=pos_enc_type,
             att_type=att_type, combiner_type=combiner_type,
             **{**(RE_CONFORMER if transformer_type == "re_conformer" else {}), **(encoder_params or {})})
-        self.transform_out_affine = nn.Linear(attention_dim, out_dim)
+        self.transform_out_affine = nn.Linear(self.transformer.output_dim, out_dim)
         self.transform_out_norm = LayerNorm(out_dim)
         pp = dict(pooling_params or {})
         if pooling == "ecpa-attentive":

@@ -11,7 +11,9 @@ conv runs over the transposed ``[B, D, T]`` view. ``norm_type``
 "basic_norm". The ReConformer's options: ``use_balancer`` (a balancer
 after the first pointwise conv and after the norm), ``re_module`` (no
 norm at all) and the "double_swish" activation (any other name is
-swish, as in JAX). ``causal`` raises (ROADMAP Queue 1 item 3).
+swish, as in JAX). ``causal`` pads the depthwise conv on the left only
+(k - 1 frames, JAX convolution.py:48-51), for the chunk masks of
+streaming training.
 """
 
 from __future__ import annotations
@@ -37,9 +39,7 @@ class ConvolutionModule(nn.Module):
                  momentum: float = 0.1, use_balancer: bool = False, re_module: bool = False,
                  activation: str = "swish"):
         super().__init__()
-        if causal:
-            raise NotImplementedError("ConvolutionModule option causal=True is not ported yet (ROADMAP Queue 1 item 3)")
-        self.kernel_size, self.norm_type = kernel_size, norm_type
+        self.kernel_size, self.norm_type, self.causal = kernel_size, norm_type, causal
         self.use_balancer, self.re_module = use_balancer, re_module
         self.act = double_swish if activation == "double_swish" else swish
         self.pointwise1 = nn.Conv1d(channels, 2 * channels, 1)
@@ -65,7 +65,7 @@ class ConvolutionModule(nn.Module):
             h = activation_balancer(h, -1, 0.05, 1.0, 0.01, 0.2, 10.0)
         h = F.glu(h, dim=-1)
         k = self.kernel_size
-        h = F.pad(h.transpose(1, 2), ((k - 1) // 2, k // 2))  # flax "SAME"
+        h = F.pad(h.transpose(1, 2), (k - 1, 0) if self.causal else ((k - 1) // 2, k // 2))  # or flax "SAME"
         h = F.conv1d(h, self.depthwise.weight, self.depthwise.bias, groups=self.depthwise.groups)
         if self.norm is None:
             h = h.transpose(1, 2)

@@ -8,8 +8,9 @@ Conformer x-vector (:func:`conformer_net`), the TDNN x-vectors
 recipes/configs/{snowdar,factored}_xvector.yaml), the RepVGG x-vector
 (:func:`repvgg_net`, recipes/configs/repvgg.yaml), the lawlict ECAPA
 (:func:`lawlict_net`, recipes/configs/ecapa_lawlict.yaml) and the
-ReConformer (:func:`reconformer_net`, recipes/configs/reconformer.yaml),
-each in a
+ReConformer (:func:`reconformer_net`, recipes/configs/reconformer.yaml)
+(phase 24's Transformer x-vector and GAU Conformer are
+:func:`conformer_net` over :data:`TRANSFORMER` and :data:`GAU_CONFORMER`), each in a
 SpeakerNet with a margin head over 5994 classes and seeded random
 weights; full width by default, as ``bench.py:58-90`` trains them. The
 offline route's nets: :func:`multitask_net` and :func:`fd_net`, whose one
@@ -76,6 +77,24 @@ AM = ("margin_softmax", {"method": "am", "m": 0.2})
 RECONFORMER = dict(transformer_type="re_conformer", attention_dim=256, attention_heads=4, num_blocks=6,
                    input_layer="re_conv2d", pos_enc_type="rel_pos", embd_dim=256)
 NARROW_FTDNN = dict(width=0.125, embd_dim=128)
+# chip_smoke's phase 24: (a) the Transformer x-vector at the bench
+# Conformer's widths; (b) a Conformer that runs the new attention modules,
+# a union of options (GAU with RoPE, softmax_plus, the T5 bias, layer drop,
+# dynamic chunks with left chunks, conv2d2), not a published configuration
+# (both over conformer_net's 6L-256D-4H, linear units 2048, embedding 256)
+TRANSFORMER = dict(transformer_type="transformer")
+GAU_CONFORMER = dict(input_layer="conv2d2", att_type="gau", pos_enc_type="rot_pos", encoder_params={
+    "gau_units": 512, "gau_key": 64, "attention_norm_args": {"norm_method": "softmax_plus"}, "add_t5rel_bias": True,
+    "layer_dropout": 0.1, "use_dynamic_chunk": True, "use_dynamic_left_chunk": True})
+# their narrow copies for the card-against-CPU step. (b) goes without the
+# draws (layer drop, the dynamic chunk), which the card's generator makes
+# otherwise than the CPU's, as dropout's; and without softmax_plus, whose
+# train_len leaf (log 512) takes an f32 update under its own spacing at
+# this init (1.4e-8 in f64 against 4.8e-7), so that the f32 step leaves it
+# as it was (softmax_plus: the option sweep and the card tests)
+NARROW_TRANSFORMER = dict(NARROW_CONFORMER, transformer_type="transformer")
+NARROW_GAU_CONFORMER = dict(NARROW_CONFORMER, input_layer="conv2d2", att_type="gau", pos_enc_type="rot_pos",
+                            encoder_params={"gau_units": 128, "gau_key": 32, "add_t5rel_bias": True})
 # recipes/configs/repvgg.yaml: AAM m=0.2 through the sub-centre head's class
 REPVGG_AAM = ("margin_softmax_v1", {"method": "aam", "m": 0.2})
 NARROW_REPVGG = dict(num_blocks=(1, 1, 1, 1), base_channels=8)
@@ -92,6 +111,43 @@ LAWLICT_AM = ("margin_softmax", {"method": "am", "m": 0.2, "s": 30.0})
 NARROW_OFFLINE = dict(num_frame_channels=128, embd_dim=128)
 PHONES, AUX_CLASSES = 128, 9
 FD_CYCLE = dict(cycle=4, adv_steps=2)
+
+# every other option of the Conformer family (phase 24's sweep and the
+# card tests), each over the narrow Conformer (2 blocks, d = 64, 2 heads,
+# linear units 128, embedding 256)
+OPTION_SWEEP = {
+    "relu_plus": dict(encoder_params={"attention_norm_args": {"norm_method": "relu_plus"}}),
+    "softmax_plus": dict(encoder_params={"attention_norm_args": {"norm_method": "softmax_plus"}}),
+    "scale_adapt": dict(encoder_params={"attention_norm_args": {"scale_adapt": True}}),
+    "g_sa": dict(encoder_params={"attention_norm_args": {"g_sa": True}}),
+    "diag_mask": dict(encoder_params={"attention_norm_args": {"diag_mask": True}}),
+    "conv_out": dict(encoder_params={"attention_conv_out": True}),
+    "abs_pos": dict(pos_enc_type="abs_pos"),
+    "no_pos": dict(pos_enc_type="no_pos"),
+    "rope_abs_plus": dict(pos_enc_type="rot_pos", encoder_params={"rope_abs_plus": True}),
+    "rotary_value=False": dict(pos_enc_type="rot_pos", encoder_params={"rotary_value": False}),
+    "mfa with aux taps": dict(combiner_type="mfa", encoder_params={"aux_layer_start": 3, "aux_layer_period": 1}),
+    "random_frame": dict(combiner_type="random_frame", encoder_params={"aux_layer_start": 3, "aux_layer_period": 1}),
+    "convfnn": dict(encoder_params={"convfnn_blocks": 1, "positionwise_conv_kernel_size": 3}),
+    "concat_after": dict(encoder_params={"concat_after": True}),
+    "post-norm": dict(encoder_params={"normalize_before": False}),
+    "conv1d feed-forward": dict(encoder_params={"positionwise_layer_type": "conv1d",
+                                                "positionwise_conv_kernel_size": 3}),
+    "conv1d-linear feed-forward": dict(encoder_params={"positionwise_layer_type": "conv1d-linear",
+                                                       "positionwise_conv_kernel_size": 3}),
+    "static chunk, causal conv": dict(encoder_params={"static_chunk_size": 8, "left_chunk_size": 2}),
+    "linear": dict(input_layer="linear"),
+    "conv2d6": dict(input_layer="conv2d6"),
+    "conv2d8": dict(input_layer="conv2d8"),
+}
+
+
+def sweep_net(name: str, seed: int = 0) -> ConformerXvector:
+    """The narrow Conformer x-vector (80 bins) with the option ``name`` of
+    :data:`OPTION_SWEEP`, seeded random weights, f32 on the CPU, eval."""
+    return init_weights_(ConformerXvector(80, num_blocks=2, attention_dim=64, attention_heads=2, linear_units=128,
+                                          device="cpu", **OPTION_SWEEP[name]), seed)
+
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -177,14 +233,16 @@ def reconformer_net(head=AM, seed: int = 0, **backbone: Any) -> SpeakerNet:
 
 def narrow_net(family: str) -> Callable[..., SpeakerNet]:
     """``make_net`` of the card-against-CPU step for ``family`` ("ecapa",
-    "resnet", "conformer", "reconformer", "ftdnn" or "repvgg"): the narrow
-    net of that family."""
+    "resnet", "conformer", "reconformer", "transformer", "gau_conformer",
+    "ftdnn" or "repvgg"): the narrow net of that family."""
     if family == "ecapa":
         return ecapa_net
     if family == "ftdnn":
         return lambda head=AAM, seed=0: xvector_net("ftdnn", head, seed, **NARROW_FTDNN)
     make, kw = {"resnet": (resnet_net, NARROW_RESNET), "conformer": (conformer_net, NARROW_CONFORMER),
-                "reconformer": (reconformer_net, NARROW_CONFORMER), "repvgg": (repvgg_net, NARROW_REPVGG)}[family]
+                "reconformer": (reconformer_net, NARROW_CONFORMER), "repvgg": (repvgg_net, NARROW_REPVGG),
+                "transformer": (conformer_net, NARROW_TRANSFORMER),
+                "gau_conformer": (conformer_net, NARROW_GAU_CONFORMER)}[family]
     return lambda head=AAM, seed=0: make(head, seed, **kw)
 
 

@@ -25,8 +25,13 @@ port's modules carry the flax module names, so each leaf maps by rule:
   ``prior_mean`` and ``prior_logprec`` and the attention's learnable
   temperatures ``t``, the ReConformer's 0-dim BasicNorm ``eps`` and the
   branch scales ``scale_ff_macaron``, ``scale_mha``, ``scale_conv`` and
-  ``scale_ff``. A grouped 1-D conv kernel ``[k, in/groups, out]``
-  and the Conformer's depthwise kernel ``[k, 1, D]`` take the 1-D conv
+  ``scale_ff``, and the Conformer family's leaves that keep their
+  layout: the T5 bias ``rel_bias`` ``[32, 1]``, GAU's ``gamma`` and
+  ``beta`` ``[2, S]`` (beside GAU's ``uv``), and the attention normalisation's ``att_scale``,
+  ``g_sa_omiga``, ``g_sa_bias`` and ``train_len``. The attention's
+  kernel-3 ``out`` conv and the conv feed-forwards' ``w1``/``w2`` take
+  the 1-D conv rule, ``concat_linear`` the Dense rule. A grouped 1-D
+  conv kernel ``[k, in/groups, out]`` and the Conformer's depthwise kernel ``[k, 1, D]`` take the 1-D conv
   rule (``[out, in/groups, k]``); the Dense of a TDNN layer with an
   irregular context (``affine/affine/kernel``, ``[len(ctx) * in, out]``)
   takes the Dense rule; so do the softmax and focal heads'
@@ -73,7 +78,11 @@ from .train.trainer import TrainState
 
 _SPLIT_CONV = "att1"
 _ONE_TO_ONE_PARAMS = ("bias", "scale", "ring_r", "pos_bias_u", "pos_bias_v", "mu", "s", "prior_mean",
-                      "prior_logprec", "t", "eps", "scale_ff_macaron", "scale_mha", "scale_conv", "scale_ff")
+                      "prior_logprec", "t", "eps", "scale_ff_macaron", "scale_mha", "scale_conv", "scale_ff",
+                      "rel_bias", "att_scale", "g_sa_omiga", "g_sa_bias", "train_len")
+# GAU's query/key scale and offset: one to one only in a module with GAU's
+# ``uv`` Dense (a BatchNorm's "gamma" or "beta" is no flax leaf)
+_GAU_PARAMS = ("gamma", "beta")
 _STATS = ("mean", "var", "curricular_t")
 # the loss heads (SpeakerNet's ``loss``, MultiTaskNet's ``loss_spk``,
 # FDSpeakerNet's ``loss`` and ``loss2``): a head's "weight" is no Dense
@@ -97,6 +106,10 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = (),
             yield prefix + (key,), np.asarray(value), parent or {}
 
 
+def _is_gau_param(path: Tuple[str, ...], siblings: Mapping) -> bool:
+    return path[-1] in _GAU_PARAMS and len(path) > 1 and "uv" in siblings.get(path[-2], {})
+
+
 def _is_split_conv(path: Tuple[str, ...], value: np.ndarray, siblings: Mapping) -> bool:
     """An ``att1`` kernel is ``_SplitGlobalConv``'s ``[1, 3C, K]`` when its
     pooling's ``att2`` (``[1, K, C]``) says its input is 3C wide; with C
@@ -116,7 +129,7 @@ def _to_port(collection: str, path: Tuple[str, ...], value: np.ndarray, siblings
     if collection == "batch_stats" and leaf in _STATS:
         return key(leaf), value
     if collection == "params":
-        if leaf in _ONE_TO_ONE_PARAMS or _is_loss_param(mods, leaf):
+        if leaf in _ONE_TO_ONE_PARAMS or _is_loss_param(mods, leaf) or _is_gau_param(path, siblings):
             return key(leaf), value
         if _is_split_conv(path, value, siblings):
             return key("kernel"), value
@@ -149,7 +162,7 @@ def _to_jax(key: str, value: np.ndarray) -> Tuple[str, Tuple[str, ...], np.ndarr
     *mods, leaf = key.split(".")
     if leaf in _STATS:
         return "batch_stats", (*mods, leaf), value
-    if leaf in _ONE_TO_ONE_PARAMS + ("kernel",) or _is_loss_param(mods, leaf):
+    if leaf in _ONE_TO_ONE_PARAMS + _GAU_PARAMS + ("kernel",) or _is_loss_param(mods, leaf):
         return "params", (*mods, leaf), value
     if leaf == "weight" and value.ndim == 4:
         return "params", (*mods, "kernel"), value.transpose(2, 3, 1, 0)
@@ -181,7 +194,8 @@ def output_axis(key: str, value: torch.Tensor) -> int:
     conv and Dense weights, which the rules transpose from JAX's layout
     (whose output axis is the last), -1 for a leaf that keeps JAX's layout
     (the ``_SplitGlobalConv`` kernel, ``pos_bias_u/v``, the loss heads'
-    leaves). Gradient centralisation reads it (train/optim.py)."""
+    leaves, ``rel_bias``, GAU's ``gamma`` and ``beta``). Gradient
+    centralisation reads it (train/optim.py)."""
     *mods, leaf = key.split(".")
     transposed = leaf == "weight" and value.dim() in (2, 3, 4) and not _is_loss_param(mods, leaf)
     return 0 if transposed else -1
@@ -214,8 +228,13 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
     ``center`` uniform in +-sqrt(0.75) (flax's variance_scaling(0.25,
     "fan_in", "uniform") of a ``[1, D]`` kernel), the margin heads'
     classifier ``weight`` normal with std 0.01 (flax's normal(0.01), JAX
-    nn/loss.py:133, 250). The logistic affinity head's ``w`` and ``b``
-    keep their constructor's constants."""
+    nn/loss.py:133, 250), the T5 bias ``rel_bias`` and GAU's ``gamma``
+    normal with std 0.02 and GAU's ``beta`` 0 (JAX attention.py:323,
+    363-364). The logistic affinity head's ``w`` and ``b`` and the
+    attention normalisation's ``att_scale`` (log(d_k^-0.5)),
+    ``g_sa_omiga`` (0.001), ``g_sa_bias`` (-0.001) and ``train_len``
+    (log 512) keep their constructor's constants, flax's constant
+    initialisers."""
     margin_heads = tuple(LOSSES[name] for name in MARGIN_LOSSES)
     classifiers = {id(m.weight) for m in model.modules() if isinstance(m, margin_heads)}
     gen = torch.Generator().manual_seed(seed)
@@ -234,8 +253,10 @@ def init_weights_(model: nn.Module, seed: int) -> nn.Module:
                 p.fill_(1.0)
             elif leaf == "mu":
                 p.copy_(torch.randn(p.shape, generator=gen).to(device=p.device, dtype=p.dtype))
-            elif leaf in ("prior_mean", "prior_logprec", "t"):
+            elif leaf in ("prior_mean", "prior_logprec", "t", "beta"):
                 p.zero_()
+            elif leaf in ("rel_bias", "gamma"):
+                p.copy_((torch.randn(p.shape, generator=gen) * 0.02).to(device=p.device, dtype=p.dtype))
             elif leaf == "center":
                 limit = math.sqrt(0.75)
                 p.copy_(((torch.rand(p.shape, generator=gen) * 2 - 1) * limit).to(device=p.device, dtype=p.dtype))

@@ -47,8 +47,8 @@ Phases (any failure raises and the script exits non-zero):
      statistics pooling on, held against the same model with the flag off
      fed by the plain front end and against an f32 model on the f32 plain
      front end; timed with the flag on and off; one batch profiled; then the Extractor run as in 6.
-     The launch counters are zeroed just before each of the eighteen
-     main paths (6 to 23) drives the port and read just after; every
+     The launch counters are zeroed just before each of the nineteen
+     main paths (6 to 24) drives the port and read just after; every
      kernel of a path must have been launched in it.
   8. the train step of ECAPA-TDNN C1024 (SpeakerNet with the sub-centre
      top-k AAM head over 5994 classes, seeded random weights, bf16
@@ -279,7 +279,25 @@ Phases (any failure raises and the script exits non-zero):
      model warm-up (1000 steps) for 30 steps as in 8 (finite, no fall
      required: noam's lr at step 30 is 4.7e-7); then a narrow
      ReConformer's f32 and f64 steps, card against CPU, with 8's bounds.
- 24. a "kernels" JSON line, then the device JSON as the last line.
+ 24. the rest of the Conformer family at full width (B=128, bf16 on f32
+     masters, K1 in every served batch and train step, AM m=0.2 over 5994
+     classes, adamW 1e-3, seeded random weights): (a) the Transformer
+     x-vector (transformer_type "transformer", 6L-256D-4H, linear units
+     2048, conv2d, embedding 256) and (b) a Conformer that runs the new
+     attention modules (6L-256D-4H, conv2d2, GAU with 512 units and key 64,
+     RoPE, softmax_plus, the T5 bias, layer drop 0.1 and dynamic chunks
+     with left chunks in training; a union of options, not a published
+     configuration). Each is served behind make_wave_embed_fn on one
+     [128, 160000] batch and held against the same model on the plain
+     front end, the f32 model on the f32 plain front end and K1 through
+     the f32 model (phase 10's bars), timed, one batch profiled, and run
+     through the Extractor as in 6; trained for 30 steps on one batch as in
+     8 (the last loss under the first); and a narrow copy of each takes
+     one f32 and one f64 step, card against CPU, with 8's bounds. Then
+     every other option of the family, narrow (2 blocks, d = 64), one f32
+     eval forward each on features, card against CPU at 1e-5 of the
+     output's scale.
+ 25. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
 line) is device time over many launches back to back: one CUDA event, N
@@ -1148,7 +1166,9 @@ def _card_against_cpu(torch, family: str = "ecapa"):
             "conformer": "SpeakerNet Conformer 2L-64D-2H, dropout 0",
             "ftdnn": "SpeakerNet F-TDNN width 0.125, use_semi_orth over step 0 (0 % 4 == 0)",
             "repvgg": "SpeakerNet RepVGG RepSPK 1-1-1-1 base 8",
-            "reconformer": "SpeakerNet ReConformer 2L-64D-2H re_conv2d, dropout 0"}[family]
+            "reconformer": "SpeakerNet ReConformer 2L-64D-2H re_conv2d, dropout 0",
+            "transformer": "SpeakerNet Transformer x-vector 2L-64D-2H, dropout 0",
+            "gau_conformer": "SpeakerNet GAU Conformer 2L-64D-2H conv2d2 (GAU 128/32, RoPE, T5), dropout 0"}[family]
     semi = family == "ftdnn"
     wave, y = modulated_waves(8, SEED + 30)
     feats, seed = plain_features(wave), SEED + 32
@@ -1376,26 +1396,31 @@ def phase_served_conformer(torch, device_label):
     against the same model fed by the plain front end and against an f32
     model on the f32 plain front end; timed; one batch profiled; then the
     Extractor run as in 6."""
-    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
     from asv_subtools_tpu_torch.models import ConformerXvector
-    from asv_subtools_tpu_torch.train.step_check import OPTS
     from asv_subtools_tpu_torch.weights import init_weights_
 
-    dev = torch.device("cuda")
     model32 = init_weights_(ConformerXvector(80, num_blocks=6, attention_dim=256, attention_heads=4,
                                              input_layer="conv2d"), SEED + 60)
+    return _serve_family(torch, model32, "Conformer 6L-256D-4H", "Conformer served", device_label, SEED + 61)
+
+
+def _serve_family(torch, model32, label: str, path: str, device_label: str, seed: int) -> dict:
+    """The served run of a Conformer-family ``model32`` (f32 on the card) and
+    its bf16 copy (phases 10 and 24): one [128, 160000] batch behind
+    make_wave_embed_fn, K1 once in the counted window; the references; the
+    time; a profile; the Extractor."""
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.train.step_check import OPTS
+
+    dev = torch.device("cuda")
     model16 = copy.deepcopy(model32).to(torch.bfloat16)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     wave = torch.randn((BATCH, SAMPLES), generator=gen, device=dev) * 1000.0
     mask = torch.ones((BATCH, SAMPLES), dtype=torch.bool, device=dev)
     embed = make_wave_embed_fn(lambda x, m: model16(x, m), OPTS, dtype=torch.bfloat16)
-
     with torch.inference_mode():
         ref16 = _plain_embed(torch, model16, OPTS, torch.bfloat16, torch.bfloat16)(wave, mask)
         ref32 = _plain_embed(torch, model32, OPTS, torch.float32, torch.float32)(wave, mask)
-        # K1 on this path, apart from the bf16 model's own rounding: the f32
-        # model fed by K1 (bf16 DFT) against the f32 model fed by the plain
-        # bf16 front end
         k1_32 = make_wave_embed_fn(lambda x, m: model32(x, m), OPTS, dtype=torch.float32)(wave, mask)
         plain_32 = _plain_embed(torch, model32, OPTS, torch.bfloat16, torch.float32)(wave, mask)
         waves = [wave * (1.0 + 1e-4 * i) for i in range(4)]
@@ -1405,8 +1430,10 @@ def phase_served_conformer(torch, device_label):
         zero_launches()
         emb = embed(waves[0], mask)
         torch.cuda.synchronize()
+        counts = read_launches(path, ("fused_fbank",))
+        check(counts["fused_fbank"] == 1, f"K1 launched {counts['fused_fbank']} times in one served batch")
         check(tuple(emb.shape) == (BATCH, 256) and bool(torch.isfinite(emb.float()).all()),
-              "served Conformer embeddings not finite or of the wrong shape")
+              f"served {label} embeddings not finite or of the wrong shape")
         c16, c32 = float(cosine(emb, ref16).min()), float(cosine(emb, ref32).min())
         ck1 = float(cosine(k1_32, plain_32).min())
         # tolerance: the bf16 Conformer's embedding moves by about 4e-4 of
@@ -1414,18 +1441,17 @@ def phase_served_conformer(torch, device_label):
         # two bf16 runs on front ends that differ by K1's rounding are held
         # at the bar of bf16 against f32, 0.999; K1 itself through the f32
         # model at 0.9999
-        print(f"served Conformer 6L-256D-4H bf16: min per-utterance cosine vs plain front end (bf16) {c16:.6f} "
-              f"(>= 0.999), vs f32 model + f32 plain front end {c32:.6f} (>= 0.999); the f32 model on K1's bf16 "
-              f"features vs on the plain bf16 front end {ck1:.7f} (>= 0.9999)", flush=True)
+        print(f"served {label} bf16: min per-utterance cosine vs plain front end (bf16) {c16:.6f} (>= 0.999), vs f32 "
+              f"model + f32 plain front end {c32:.6f} (>= 0.999); the f32 model on K1's bf16 features vs on the plain "
+              f"bf16 front end {ck1:.7f} (>= 0.9999)", flush=True)
         check(c16 >= 0.999 and c32 >= 0.999 and ck1 >= 0.9999,
-              "served Conformer embeddings disagree with the references")
+              f"served {label} embeddings disagree with the references")
         ms = timed_batches(torch, embed, waves, mask, iters=6)
-        print(f"served Conformer bf16 [{BATCH},{SAMPLES}]: {ms:.2f} ms/batch, "
-              f"{BATCH * SAMPLES / 16.0 / ms:.0f} audio-s/s on {device_label}", flush=True)
-        profile_served_batch(torch, lambda: embed(waves[0], mask), what="one served Conformer batch")
-
-    server_run(torch, embed, "Conformer")
-    return read_launches("Conformer served", ("fused_fbank",))
+        print(f"served {label} bf16 [{BATCH},{SAMPLES}]: {ms:.2f} ms/batch, {BATCH * SAMPLES / 16.0 / ms:.0f} "
+              f"audio-s/s on {device_label}", flush=True)
+        profile_served_batch(torch, lambda: embed(waves[0], mask), what=f"one served {label} batch")
+    server_run(torch, embed, label)
+    return counts
 
 
 def phase_train_conformer(torch, device_label):
@@ -3143,6 +3169,75 @@ def phase_step_options(torch, device_label):
     return counts
 
 
+FAMILY = (("transformer", "Transformer x-vector 6L-256D-4H conv2d"),
+          ("gau_conformer", "GAU Conformer 6L-256D-4H conv2d2 (GAU 512/64, RoPE, softmax_plus, T5, layer drop 0.1, "
+                            "dynamic chunks)"))
+SWEEP_TOL = 1e-5  # one f32 eval forward, card against CPU, of the output's scale (TF32 off)
+
+
+def _sweep_options(torch) -> None:
+    """One f32 eval forward of each option of train/step_check.py's
+    OPTION_SWEEP over the narrow Conformer on features [4, 200, 80], card
+    against CPU."""
+    from asv_subtools_tpu_torch.train.step_check import OPTION_SWEEP, sweep_net
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    g = torch.Generator().manual_seed(SEED + 245)
+    x = torch.randn(4, 200, 80, generator=g)
+    mask = torch.arange(200)[None, :] < torch.tensor([200, 160, 90, 41])[:, None]
+    rows, worst = [], 0.0
+    for name in OPTION_SWEEP:
+        cpu = sweep_net(name, SEED + 246)
+        card = copy.deepcopy(cpu).to("cuda")
+        with torch.inference_mode():
+            ref = cpu(x, mask)
+            got = card(x.cuda(), mask.cuda()).cpu()
+        err = float((got - ref).abs().max() / ref.abs().max())
+        check(tuple(got.shape) == (4, 256) and bool(torch.isfinite(got).all()), f"option {name}: not finite")
+        rows.append(f"{name} {err:.1e}")
+        worst = max(worst, err)
+    print(f"option sweep (narrow Conformer 2L-64D-2H, one f32 eval forward on [4, 200, 80] features, card against "
+          f"CPU, max abs err over the output's scale, tol {SWEEP_TOL}): " + ", ".join(rows), flush=True)
+    check(worst <= SWEEP_TOL, "an option's forward on the card disagrees with the CPU")
+
+
+def phase_conformer_family(torch, device_label):
+    """Phase 24: (a) and (b) served, trained and narrow card against CPU;
+    then the option sweep."""
+    from asv_subtools_tpu_torch.features import fused_fbank
+    from asv_subtools_tpu_torch.train import TrainStepConfig, get_optimizer, init_train_state, make_train_step
+    from asv_subtools_tpu_torch.train.step_check import AM, GAU_CONFORMER, TRANSFORMER, conformer_net
+
+    dev = torch.device("cuda")
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    opts, gen, wave, labels = _train_batch(torch, SEED + 240)
+    # K1's constants, made once (a host-to-device copy), outside the
+    # counted windows and the sync check
+    fused_fbank(wave[:1], opts, dft_dtype=torch.bfloat16, with_energy=False)
+    configs = {"transformer": TRANSFORMER, "gau_conformer": GAU_CONFORMER}
+    for i, (family, label) in enumerate(FAMILY):
+        model32 = conformer_net(seed=SEED + 241 + i, **configs[family]).backbone.to(dev).eval()
+        add(_serve_family(torch, model32, label, f"{label} served", device_label, SEED + 243 + i))
+        del model32
+        torch.cuda.empty_cache()
+        net = conformer_net(AM, SEED + 247 + i, **configs[family])
+        tx = get_optimizer("adamW", 1e-3)
+        step = make_train_step(net, tx, config=TrainStepConfig(compute_dtype=torch.bfloat16, wave_input=True,
+                                                               fbank_opts=opts))
+        add(run_fixed_batch(torch, step, init_train_state(net, tx, dev), {"x": wave, "y": labels}, gen,
+                            f"train {label} bf16 (AM m=0.2)", f"{label} train step", device_label, falls_to=1.0))
+        del net, step
+        torch.cuda.empty_cache()
+        _card_against_cpu(torch, family)
+    _sweep_options(torch)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -3200,6 +3295,8 @@ def main() -> int:
     paths.append(phase_offline(torch, smi))
     torch.cuda.empty_cache()
     paths.append(phase_step_options(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_conformer_family(torch, smi))
     for kernel_name, k in kernels.items():
         k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

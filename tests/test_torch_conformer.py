@@ -440,40 +440,54 @@ UNPORTED = {
 }
 
 
-# ported since they were listed: each builds and one f32 train step runs
-# finite (their parity with JAX: tests/test_torch_reconformer.py)
-PORTED = ("re_conformer", "re_layer", "re_scale", "basic_norm", "cnn_basic_norm", "use_balancer")
+# every option listed here raised NotImplementedError before it was ported;
+# each now builds and one f32 train step runs finite (their parity with JAX:
+# tests/test_torch_reconformer.py, test_torch_conformer_options.py and
+# test_torch_transformer.py). The random combiners and the aux taps need
+# more than one tap: they run with aux_layer_start 3, period 1 (taps 0 and 1).
+AUX = {"aux_layer_start": 3, "aux_layer_period": 1}
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_options_raise(name):
-    if name in PORTED:
-        from asv_subtools_tpu_torch.models import SpeakerNet
-        from asv_subtools_tpu_torch.train import TrainStepConfig, get_optimizer, init_train_state, make_train_step
+    from asv_subtools_tpu_torch.models import SpeakerNet
+    from asv_subtools_tpu_torch.train import TrainStepConfig, get_optimizer, init_train_state, make_train_step
 
-        net = SpeakerNet(ConformerXvector(F, device="cpu", **{**SMALL, **UNPORTED[name]}), "margin_softmax",
-                         {"method": "am", "m": 0.2}, num_targets=5)
-        tx = get_optimizer("adamW", 1e-3)
-        step = make_train_step(net, tx, config=TrainStepConfig(compute_dtype=torch.float32))
-        g = torch.Generator().manual_seed(0)
-        batch = {"x": torch.randn(2, 40, F, generator=g), "y": torch.tensor([0, 4])}
-        new, m = step(init_train_state(net, tx, "cpu"), batch, g)
-        assert int(new.step) == 1 and np.isfinite(float(m["loss"])) and float(m["skipped"]) == 0.0
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        ConformerXvector(F, device="cpu", **{**SMALL, **UNPORTED[name]})
+    kw = {**SMALL, **UNPORTED[name]}
+    if name in ("mfa", "random_layer"):
+        kw["encoder_params"] = AUX
+    net = SpeakerNet(ConformerXvector(F, device="cpu", **kw), "margin_softmax", {"method": "am", "m": 0.2},
+                     num_targets=5)
+    tx = get_optimizer("adamW", 1e-3)
+    step = make_train_step(net, tx, config=TrainStepConfig(compute_dtype=torch.float32))
+    g = torch.Generator().manual_seed(0)
+    batch = {"x": torch.randn(2, 40, F, generator=g), "y": torch.tensor([0, 4])}
+    new, m = step(init_train_state(net, tx, "cpu"), batch, g)
+    assert int(new.step) == 1 and np.isfinite(float(m["loss"])) and float(m["skipped"]) == 0.0
 
 
 def test_unported_module_options_raise():
-    for build in (lambda: pc.RelPositionMultiHeadedAttention(32, 2, rel_shift=True),
-                  lambda: pc.ConvolutionModule(32, causal=True),
-                  lambda: pc.TransformerEncoder(),
-                  lambda: pc.add_optional_chunk_mask(None, 10, static_chunk_size=2),
-                  lambda: pc.add_optional_chunk_mask(None, 10, use_dynamic_chunk=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-            build()
-    # the ReConformer's conv module options are ported: the balancers leave the forward as it is
+    """The five module options that raised build and run: the shifted
+    relative attention, the causal conv module (no frame sees a later
+    one), the TransformerEncoder and the two chunk masks."""
     x = torch.randn(2, 9, 32)
+    with torch.no_grad():
+        out = pc.RelPositionMultiHeadedAttention(32, 2, rel_shift=True)(x)
+        assert out.shape == (2, 9, 32) and bool(torch.isfinite(out).all())
+        causal = pc.ConvolutionModule(32, causal=True).eval()
+        later = x.clone()
+        later[:, 5:] += 1.0
+        torch.testing.assert_close(causal(later)[:, :5], causal(x)[:, :5], rtol=0, atol=0)
+        enc = pc.TransformerEncoder(F, attention_dim=32, attention_heads=2, linear_units=64, num_blocks=1).eval()
+        h, _ = enc(torch.randn(2, 40, F))
+        assert h.shape == (2, 9, 32) and not hasattr(enc.block_0, "conv_module")
+    static = pc.add_optional_chunk_mask(None, 10, static_chunk_size=2)
+    assert static.shape == (1, 1, 10, 10) and bool(static[0, 0, 3, 3]) and not bool(static[0, 0, 3, 4])
+    g = torch.Generator().manual_seed(0)
+    dynamic = pc.add_optional_chunk_mask(None, 10, use_dynamic_chunk=True, draw=True, generator=g)
+    assert dynamic.shape == (1, 1, 10, 10) and bool(torch.diagonal(dynamic[0, 0]).all())
+    assert pc.add_optional_chunk_mask(None, 10, use_dynamic_chunk=True) is None  # eval: full context
+    # the ReConformer's conv module options are ported: the balancers leave the forward as it is
     plain, balanced = pc.ConvolutionModule(32), pc.ConvolutionModule(32, use_balancer=True)
     balanced.load_state_dict(plain.state_dict())
     torch.testing.assert_close(balanced(x), plain(x), rtol=0, atol=0)

@@ -80,6 +80,17 @@ ReConformer's step card against CPU with the Conformer's bounds; and
 reconformer.yaml's model served on the card against the CPU (f32
 cosine 0.9999, bf16 0.999).
 
+The rest of the Conformer family (chip_smoke's phase 24 nets, narrow):
+the Transformer x-vector's and the GAU Conformer's steps card against
+CPU with the ReConformer's bounds; the GAU Conformer's f64 step with
+softmax_plus, layer drop and the dynamic chunk, the draws pinned on both
+devices, to F64_LEAF_TOL, and its bf16 step with the draws on the card's
+generator under the sync check; each option of step_check.OPTION_SWEEP,
+one f32 eval forward card against CPU at 1e-5; RoPE, T5 and GAU modules
+card against CPU in f32 (1e-5) and bf16 (3e-2), the T5 buckets equal;
+both nets served at full width on ragged waves against the CPU (f32
+cosine 0.99999, K1 f32 0.9999, bf16 0.999).
+
 The scoring back end's device functions (f32, TF32 off): asnorm_device at
 E=100, T=130 against a cohort of 600 (top 64) and at the scale of
 tests/test_backend_scale.py (600 x 970, cohort 5,994, top 300) against
@@ -1194,6 +1205,195 @@ def test_served_reconformer_on_the_card_against_the_cpu(card):
 
     torch.backends.cudnn.allow_tf32 = False
     cpu_model = reconformer_net(seed=8).backbone.eval()
+    model32 = copy.deepcopy(cpu_model).to(card)
+    model16 = copy.deepcopy(model32).to(torch.bfloat16)
+    gen = torch.Generator().manual_seed(9)
+    wave = torch.randn((8, 64000), generator=gen) * 1000.0
+    mask = torch.arange(64000)[None, :] < torch.linspace(16000, 64000, 8).long()[:, None]
+    wave = wave * mask
+    with torch.inference_mode():
+        feats, fmask = wave_features(wave, mask, OPTS, torch.bfloat16)
+        ref = cpu_model(feats, fmask)
+        same = model32(feats.to(card), fmask.to(card))
+        e32 = make_wave_embed_fn(lambda x, m: model32(x, m), OPTS, dtype=torch.float32)(wave.to(card), mask.to(card))
+        e16 = make_wave_embed_fn(lambda x, m: model16(x, m), OPTS, dtype=torch.bfloat16)(wave.to(card), mask.to(card))
+    cos = lambda a: torch.nn.functional.cosine_similarity(a.float().cpu(), ref, dim=-1)
+    assert e32.shape == (8, 256) and bool(torch.isfinite(e16.float()).all())
+    assert float(cos(same).min()) >= 0.99999, cos(same)
+    assert float(cos(e32).min()) >= 0.9999, cos(e32)
+    assert float(cos(e16).min()) >= 0.999, cos(e16)
+
+
+# -- the rest of the Conformer family (phase 24's nets) ----------------------------
+
+
+@pytest.mark.parametrize("family", ["transformer", "gau_conformer"])
+def test_conformer_family_step_on_the_card_matches_the_cpu(card, family):
+    """The narrow Transformer x-vector and GAU Conformer (step_check's
+    NARROW_TRANSFORMER and NARROW_GAU_CONFORMER, dropout 0), as the
+    ReConformer's test: the f64 step card against CPU to F64_LEAF_TOL,
+    loss and grad_norm to 1e-10; the f32 wave step (K1's f32 mode, TF32
+    off), loss and grad_norm to 1e-4 of the CPU's and every leaf against
+    the f64 step to F32_LEAF_TOL."""
+    from asv_subtools_tpu_torch.train.step_check import (AAM, modulated_waves, narrow_net, plain_features, rel,
+                                                         sgd_step, worst_leaf)
+
+    torch.backends.cudnn.allow_tf32 = False
+    make = narrow_net(family)
+    wave, y = modulated_waves(8, 3)
+    feats = plain_features(wave)
+    cd, cpu = (sgd_step(d, torch.float64, feats, y, AAM, make_net=make) for d in (card, torch.device("cpu")))
+    assert worst_leaf(cd.updates, cpu.updates)[0] <= F64_LEAF_TOL
+    for key in ("loss", "grad_norm"):
+        assert rel(cd.metrics[key], cpu.metrics[key]) <= 1e-10, key
+    cd32 = sgd_step(card, torch.float32, wave, y, AAM, wave_input=True, make_net=make)
+    cpu32 = sgd_step("cpu", torch.float32, wave, y, AAM, wave_input=True, make_net=make)
+    for key in ("loss", "grad_norm"):
+        assert rel(cd32.metrics[key], cpu32.metrics[key]) <= 1e-4, key
+    for r in (cd32, cpu32):
+        assert worst_leaf(r.updates, cpu.updates)[0] <= F32_LEAF_TOL
+
+
+def _drawing_gau_net(head, seed=0):
+    """The narrow GAU Conformer with softmax_plus, layer drop 0.5 and the
+    dynamic chunk with left chunks."""
+    from asv_subtools_tpu_torch.train.step_check import NARROW_GAU_CONFORMER, conformer_net
+
+    enc = {**NARROW_GAU_CONFORMER["encoder_params"], "attention_norm_args": {"norm_method": "softmax_plus"},
+           "layer_dropout": 0.5, "use_dynamic_chunk": True, "use_dynamic_left_chunk": True}
+    return conformer_net(head, seed, **{**NARROW_GAU_CONFORMER, "encoder_params": enc})
+
+
+def test_gau_conformer_draws_f64_step_on_the_card_matches_the_cpu(card, monkeypatch):
+    """softmax_plus, layer drop and the dynamic chunk in the f64 step, the
+    draws pinned on both devices (the card's generator draws other values
+    than the CPU's): block 0 kept and block 1 dropped, chunk 4 with one
+    left chunk; card against CPU to F64_LEAF_TOL."""
+    import itertools
+
+    from asv_subtools_tpu_torch.nn.conformer import encoder as penc
+    from asv_subtools_tpu_torch.nn.conformer import mask as pmask
+    from asv_subtools_tpu_torch.train.step_check import AAM, modulated_waves, plain_features, sgd_step, worst_leaf
+
+    keeps = itertools.cycle((True, False))
+    monkeypatch.setattr(penc, "layer_drop_keep", lambda g, rate, device: torch.tensor(next(keeps), device=device))
+    monkeypatch.setattr(pmask, "dynamic_chunk_draw", lambda g, size, use_left=False, device=None: (
+        torch.tensor(4, device=device), torch.tensor(1, device=device)))
+    wave, y = modulated_waves(8, 4)
+    feats = plain_features(wave)
+    cd, cpu = (sgd_step(d, torch.float64, feats, y, AAM, make_net=_drawing_gau_net)
+               for d in (card, torch.device("cpu")))
+    assert worst_leaf(cd.updates, cpu.updates)[0] <= F64_LEAF_TOL
+    train_len = [k for k in cpu.updates if k.endswith("train_len")]
+    assert train_len and all(float(cpu.updates[k].abs().max()) > 0 for k in train_len)
+
+
+def test_gau_conformer_bf16_step_with_its_draws_never_waits_on_the_card(card):
+    """The narrow GAU Conformer with softmax_plus, layer drop and dynamic
+    chunks: a bf16 wave step after a first one under
+    torch.cuda.set_sync_debug_mode("error"), the draws on the card's
+    generator; K1 once; the loss finite."""
+    from asv_subtools_tpu_torch.train import TrainStepConfig, get_optimizer, init_train_state, make_train_step
+    from asv_subtools_tpu_torch.train.step_check import AM, OPTS, modulated_waves
+
+    wave, y = modulated_waves(8, 5)
+    net = _drawing_gau_net(AM)
+    tx = get_optimizer("adamW", 1e-3)
+    state = init_train_state(net, tx, card)
+    step = make_train_step(net, tx, config=TrainStepConfig(compute_dtype=torch.bfloat16, wave_input=True,
+                                                           fbank_opts=OPTS))
+    batch, gen = {"x": wave.to(card), "y": y.to(card)}, torch.Generator(device=card).manual_seed(0)
+    state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    before = fused_fbank.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state, m = step(state, batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fused_fbank.launches == before + 3
+    assert bool(torch.isfinite(m["loss"])) and float(m["skipped"]) == 0.0
+
+
+def _option_names():
+    from asv_subtools_tpu_torch.train.step_check import OPTION_SWEEP
+
+    return list(OPTION_SWEEP)
+
+
+@pytest.mark.parametrize("name", _option_names())
+def test_conformer_option_forward_card_against_cpu(card, name):
+    """chip_smoke's option sweep: one f32 eval forward of the narrow
+    Conformer with the option on ragged features, card against CPU at
+    1e-5 of the output's scale (TF32 off)."""
+    import copy
+
+    from asv_subtools_tpu_torch.train.step_check import sweep_net
+
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = sweep_net(name, 1)
+    model = copy.deepcopy(cpu).to(card)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(4, 200, 80, generator=g)
+    mask = torch.arange(200)[None, :] < torch.tensor([200, 160, 90, 41])[:, None]
+    with torch.inference_mode():
+        ref = cpu(x, mask)
+        got = model(x.to(card), mask.to(card)).cpu()
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("module", ["rope", "t5", "gau"])
+def test_rope_t5_gau_on_the_card_match_the_cpu(card, module, dtype, tol):
+    """RoPE self-attention, the T5 bias (inside a plain attention) and GAU
+    on a masked batch, card against CPU in the same type (bf16: both sides
+    round q, k, v and the weights to bf16, at 3e-2 of the output's scale);
+    the T5 buckets equal on both up to T = 1000."""
+    import copy
+
+    from asv_subtools_tpu_torch.nn import conformer as pc
+
+    torch.manual_seed(0)
+    t5 = pc.T5RelPositionBias()
+    if module == "t5":
+        cpu_buckets, card_buckets = t5.buckets(1000, torch.device("cpu")), t5.buckets(1000, card)
+        assert torch.equal(card_buckets.cpu(), cpu_buckets)
+    att = {"rope": lambda: pc.RoPESelfAttention(64, 4), "t5": lambda: pc.MultiHeadedAttention(64, 4),
+           "gau": lambda: pc.GAU(64, 128, 32)}[module]()
+    init_weights_(att, 3)
+    att, t5 = att.to(dtype).eval(), init_weights_(t5, 4).to(dtype)
+    x = torch.randn(3, 120, 64, generator=torch.Generator().manual_seed(5)).to(dtype)
+    pad = torch.arange(120)[None, :] < torch.tensor([120, 77, 30])[:, None]
+    mask = pad[:, None, None, :] & pad[:, None, :, None]
+
+    def run(mod, bias, dev):
+        with torch.inference_mode():
+            extra = bias(120, dev) if module != "rope" else None
+            return mod(x.to(dev), mask.to(dev), None, extra).float().cpu()
+
+    ref = run(att, t5, torch.device("cpu"))
+    got = run(copy.deepcopy(att).to(card), copy.deepcopy(t5).to(card), card)
+    assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("family", ["transformer", "gau_conformer"])
+def test_served_conformer_family_on_the_card_against_the_cpu(card, family):
+    """Phase 24's (a) and (b) at full width (seeded random weights) on
+    ragged 1-4 s waves: the f32 model on the card against the f32 model on
+    the CPU on the same features at per-utterance cosine 0.99999 (TF32
+    off); behind make_wave_embed_fn (K1, bf16 DFT) the f32 model at 0.9999
+    and the bf16 model at 0.999 against the CPU's f32 model on the plain
+    bf16-DFT front end (phase 10's bars)."""
+    import copy
+
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.features import wave_features
+    from asv_subtools_tpu_torch.train.step_check import GAU_CONFORMER, OPTS, TRANSFORMER, conformer_net
+
+    torch.backends.cudnn.allow_tf32 = False
+    config = TRANSFORMER if family == "transformer" else GAU_CONFORMER
+    cpu_model = conformer_net(seed=8, **config).backbone.eval()
     model32 = copy.deepcopy(cpu_model).to(card)
     model16 = copy.deepcopy(model32).to(torch.bfloat16)
     gen = torch.Generator().manual_seed(9)

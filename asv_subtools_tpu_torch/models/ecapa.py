@@ -129,13 +129,14 @@ class SEConnect(nn.Module):
 
 class SERes2Block(nn.Module):
     """1x1 conv -> Res2Net -> 1x1 conv -> SE, with residual (in = out
-    channels, as in every ECAPA block)."""
+    channels, as in every ECAPA block). ``int8_inference`` runs the two
+    1x1 convs as dynamic int8 products in eval mode."""
 
-    def __init__(self, channels: int, dilation: int = 1, momentum: float = 0.5):
+    def __init__(self, channels: int, dilation: int = 1, momentum: float = 0.5, int8_inference: bool = False):
         super().__init__()
-        self.conv1 = ReluBatchNormTdnnLayer(channels, channels, momentum=momentum)
+        self.conv1 = ReluBatchNormTdnnLayer(channels, channels, momentum=momentum, int8_compute=int8_inference)
         self.res2net = Res2NetBlock(channels, dilation=dilation, momentum=momentum)
-        self.conv2 = ReluBatchNormTdnnLayer(channels, channels, momentum=momentum)
+        self.conv2 = ReluBatchNormTdnnLayer(channels, channels, momentum=momentum, int8_compute=int8_inference)
         self.se = SEConnect(channels)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -251,6 +252,11 @@ class EcapaTdnn(nn.Module):
     and its BatchNorm keeps momentum 0.1 whatever the model's; another
     name builds that pooling of the zoo (nn/pooling.py) with the params.
 
+    ``int8_inference=True`` runs the channel-mixing products (the SE-Res2
+    blocks' 1x1 convs and the MFA) as dynamic int8 products
+    (nn/int8.py) in eval mode; train mode takes the float path, whose
+    gradients they do not give. It works with the fused chains on.
+
     Built on ``device`` (the CUDA card unless ``device="cpu"``; raises
     without a card), in eval mode. Cast with ``.to(torch.bfloat16)`` for
     serving; training runs it in train mode with a cast copy of f32 master
@@ -269,16 +275,18 @@ class EcapaTdnn(nn.Module):
         momentum: float = 0.5,
         aug_dropout: float = 0.0,
         tail_dropout: float = 0.0,
+        int8_inference: bool = False,
         device: Any = None,
     ):
         super().__init__()
         c = channels
         self.embd_dim, self.aug_dropout, self.tail_dropout = embd_dim, aug_dropout, tail_dropout
         self.layer1 = ReluBatchNormTdnnLayer(input_dim, c, context=(-2, -1, 0, 1, 2), momentum=momentum)
-        self.layer2 = SERes2Block(c, dilation=2, momentum=momentum)
-        self.layer3 = SERes2Block(c, dilation=3, momentum=momentum)
-        self.layer4 = SERes2Block(c, dilation=4, momentum=momentum)
-        self.mfa = ReluBatchNormTdnnLayer(3 * c, mfa_conv, momentum=momentum)
+        i8 = dict(momentum=momentum, int8_inference=int8_inference)
+        self.layer2 = SERes2Block(c, dilation=2, **i8)
+        self.layer3 = SERes2Block(c, dilation=3, **i8)
+        self.layer4 = SERes2Block(c, dilation=4, **i8)
+        self.mfa = ReluBatchNormTdnnLayer(3 * c, mfa_conv, momentum=momentum, int8_compute=int8_inference)
         pp = dict(pooling_params or {})
         if pooling == "ecpa-attentive":
             self.stats = EcapaAttentiveStatsPool(mfa_conv, bottleneck=pp.get("hidden_size", 128),

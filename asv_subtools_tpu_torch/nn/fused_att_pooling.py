@@ -156,8 +156,31 @@ def fused_attentive_stats_pool(
         return fused_attentive_stats_pool_plain(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask)
     if x.device.type != "cuda":
         raise ValueError(f"fused_attentive_stats_pool runs on cpu or cuda tensors, got {x.device}")
-    return _launch_kernel(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask)
+    return fused_attentive_stats_pool_op(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask)
 
 
 fused_attentive_stats_pool.launches = 0
 fused_attentive_stats_pool.last_route = None
+
+
+# The kernel as a custom op, so that torch.export keeps it as one node of
+# an exported program (the ctypes launch reads data pointers, which a
+# tracer's fake tensors do not have): its CUDA implementation launches the
+# kernel, its CPU implementation is the plain version.
+@torch.library.custom_op("asv_subtools_tpu_torch::fused_attentive_stats_pool", mutates_args=(),
+                         device_types="cuda")
+def fused_attentive_stats_pool_op(x: torch.Tensor, wx: torch.Tensor, wm: torch.Tensor, ws: torch.Tensor,
+                                  b1: torch.Tensor, bn_scale: torch.Tensor, bn_shift: torch.Tensor,
+                                  w2: torch.Tensor, b2: torch.Tensor,
+                                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _launch_kernel(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask)
+
+
+@fused_attentive_stats_pool_op.register_kernel("cpu")
+def _(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask=None):
+    return fused_attentive_stats_pool_plain(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask)
+
+
+@fused_attentive_stats_pool_op.register_fake
+def _(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask=None):
+    return x.new_empty((x.shape[0], 2 * x.shape[2]), dtype=torch.float32)

@@ -180,7 +180,30 @@ def fused_res2_chain(
         return fused_res2_chain_plain(x, w, b, bn_scale, bn_shift, dilation)
     if x.device.type != "cuda":
         raise ValueError(f"fused_res2_chain runs on cpu or cuda tensors, got {x.device}")
+    return fused_res2_chain_op(x, w, b, bn_scale, bn_shift, dilation)
+
+
+# The kernel as a custom op, so that torch.export keeps it as one node of
+# an exported program (the ctypes launch reads data pointers, which a
+# tracer's fake tensors do not have): its CUDA implementation launches the
+# kernel, its CPU implementation is the plain version.
+@torch.library.custom_op("asv_subtools_tpu_torch::fused_res2_chain", mutates_args=(), device_types="cuda")
+def fused_res2_chain_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, bn_scale: torch.Tensor,
+                        bn_shift: torch.Tensor, dilation: int) -> torch.Tensor:
     return _launch_kernel(x, w, b, bn_scale, bn_shift, dilation)
+
+
+@fused_res2_chain_op.register_kernel("cpu")
+def _(x, w, b, bn_scale, bn_shift, dilation):
+    return fused_res2_chain_plain(x, w, b, bn_scale, bn_shift, dilation)
+
+
+@fused_res2_chain_op.register_fake
+def _(x, w, b, bn_scale, bn_shift, dilation):
+    if x.device.type != "cuda":
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+    bsz, t, c = x.shape
+    return x.new_empty((bsz, c, t)).transpose(1, 2)  # the kernel's: a [B, T, C] view of [B, C, T] memory
 
 
 fused_res2_chain.launches = 0

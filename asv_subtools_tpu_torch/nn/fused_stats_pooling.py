@@ -158,8 +158,27 @@ def fused_stats_pooling(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
         return fused_stats_pooling_plain(x, mask, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_stats_pooling runs on cpu or cuda tensors, got {x.device}")
-    return _launch_kernel(x, mask, eps)
+    return fused_stats_pooling_op(x, mask, eps)
 
 
 fused_stats_pooling.launches = 0
 fused_stats_pooling.last_route = None
+
+
+# The kernel as a custom op, so that torch.export keeps it as one node of
+# an exported program (the ctypes launch reads data pointers, which a
+# tracer's fake tensors do not have): its CUDA implementation launches the
+# kernel, its CPU implementation is the plain version.
+@torch.library.custom_op("asv_subtools_tpu_torch::fused_stats_pooling", mutates_args=(), device_types="cuda")
+def fused_stats_pooling_op(x: torch.Tensor, mask: Optional[torch.Tensor] = None, eps: float = _EPS) -> torch.Tensor:
+    return _launch_kernel(x, mask, eps)
+
+
+@fused_stats_pooling_op.register_kernel("cpu")
+def _(x, mask=None, eps=_EPS):
+    return fused_stats_pooling_plain(x, mask, eps)
+
+
+@fused_stats_pooling_op.register_fake
+def _(x, mask=None, eps=_EPS):
+    return x.new_empty((x.shape[0], 2 * x.shape[2]), dtype=torch.float32)

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .activations import get_activation
+from .int8 import dynamic_int8_dot
 from .norm import BatchNorm
 
 
@@ -54,11 +55,17 @@ class TdnnAffine(nn.Module):
     spaced context is ``conv`` (``weight [out, in/groups, k]``); an
     irregular one is ``affine`` (``weight [out, len(ctx)*in]``), which, as
     the JAX module's Dense, takes no groups.
+
+    ``int8_compute=True`` runs a 1x1 conv (context (0,), stride 1, one
+    group) as a dynamic int8 product (nn/int8.py) in eval mode, cast back
+    to x's type; in train mode, and for any other context, the float path
+    runs.
     """
 
     def __init__(self, input_dim: int, output_dim: int, context: Sequence[int] = (0,), pad: bool = True,
-                 stride: int = 1, groups: int = 1, use_bias: bool = True):
+                 stride: int = 1, groups: int = 1, use_bias: bool = True, int8_compute: bool = False):
         super().__init__()
+        self.int8_compute = int8_compute
         if input_dim % groups or output_dim % groups:
             raise ValueError("groups must divide input and output dims")
         self.context = tuple(context)
@@ -74,6 +81,10 @@ class TdnnAffine(nn.Module):
             self.affine = nn.Linear(input_dim * len(self.context), output_dim, bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (self.int8_compute and not self.training and self.even and self.conv.kernel_size == (1,)
+                and self.stride == 1 and self.conv.groups == 1):
+            y = dynamic_int8_dot(x.transpose(1, 2), self.conv.weight[:, :, 0], self.conv.bias)
+            return y.to(x.dtype).transpose(1, 2)
         if self.even:
             return self.conv(F.pad(x, self.pad) if self._explicit_pad else x)
         left = -self.context[0]
@@ -107,14 +118,16 @@ class ActivationBatchNorm(nn.Module):
 
 
 class ReluBatchNormTdnnLayer(nn.Module):
-    """TdnnAffine + ReLU + BN, the standard x-vector layer."""
+    """TdnnAffine + ReLU + BN, the standard x-vector layer. ``int8_compute``
+    goes to the TdnnAffine (eval mode only)."""
 
     def __init__(self, input_dim: int, output_dim: int, context: Sequence[int] = (0,), momentum: float = 0.1, *,
                  activation: Optional[str] = "relu", bn: bool = True, bn_relu: bool = False, pad: bool = True,
-                 stride: int = 1, groups: int = 1, use_bias: bool = True, bn_affine: bool = True):
+                 stride: int = 1, groups: int = 1, use_bias: bool = True, bn_affine: bool = True,
+                 int8_compute: bool = False):
         super().__init__()
         self.affine = TdnnAffine(input_dim, output_dim, context, pad=pad, stride=stride, groups=groups,
-                                 use_bias=use_bias)
+                                 use_bias=use_bias, int8_compute=int8_compute)
         self.act_bn = ActivationBatchNorm(output_dim, momentum, activation=activation, bn=bn, bn_relu=bn_relu,
                                           affine=bn_affine)
 

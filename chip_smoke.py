@@ -297,7 +297,31 @@ Phases (any failure raises and the script exits non-zero):
      every other option of the family, narrow (2 blocks, d = 64), one f32
      eval forward each on features, card against CPU at 1e-5 of the
      output's scale.
- 25. a "kernels" JSON line, then the device JSON as the last line.
+ 25. ASV-Subtools checkpoints and the serving path. Built here from a
+     seed: an ASV-Subtools ECAPA-TDNN C1024 state_dict (the reference's
+     keys and shapes, 80 bins, MFA 1536, embedding 192, masked full-width
+     Res2 kernels, num_batches_tracked, a [5994, 192, 1] loss.weight) and
+     a ResNet34 (base 32). (a) Each converted on the host (timed), loaded
+     onto the card and served behind make_wave_embed_fn on one
+     [128, 160000] bf16 batch, ECAPA with every flag on (K1, K2, K3) at
+     cosine 0.999 against the same model with the flags off on the plain
+     front end and 0.999 against the f32 model on the f32 plain front
+     end, ResNet34 with K4 at 0.9999 and 0.999; timed. (b) The served
+     ECAPA's weights exported back (reverse_convert): equal to the input
+     bit for bit at every covered position, the uncovered ones exactly
+     the masked taps and the num_batches_tracked. (c) The converted ECAPA
+     with int8_inference (7 int8 GEMMs a batch) at cosine 0.999 against
+     the bf16 batch, ms/batch beside bf16; the int8 product at the MFA's
+     shape card against CPU, int32 exact; quantize_params of the weights
+     (error < 1%, size < 1/3.5, the dequantized model at cosine 0.999).
+     (d) export_embed_fn at b1_t400 and b32_t1600 (K2 and K3 on), saved,
+     loaded and run on the card at cosine 0.99999 against eager, one K2
+     and three K3 launches a call (counters and profiler), ms a call.
+     (e) EmbeddingServer on the card: 4 client threads x 32 requests of
+     200-2000 frames through embed_request, each reply within 0.99999 of
+     server.embed, a bad magic answered with E = 0; requests/s, p50/p99
+     latency and launches a request.
+ 26. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
 line) is device time over many launches back to back: one CUDA event, N
@@ -325,6 +349,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -3238,6 +3263,427 @@ def phase_conformer_family(torch, device_label):
     return counts
 
 
+# --- phase 25: ASV-Subtools checkpoints and the serving path --------------------------------------------------------
+
+CONVERT_COSINE = 0.999  # the converted model's bf16 batch, every flag on, against its unfused bf16 model (phase 6)
+INT8_COSINE = 0.999  # JAX tests/test_int8.py:41-53: int8 products against the bf16 model
+EXPORT_COSINE = 0.99999  # a loaded exported program against the same model eager
+SERVER_COSINE = 0.99999  # a socket reply against server.embed on the same features
+SERVER_THREADS, SERVER_REQUESTS = 4, 32  # client threads, requests each
+SERVER_ALONE = 16  # requests from one client thread before them
+REF_TARGETS = 5994  # VoxCeleb2's speakers: the reference's margin head
+
+
+class _RefState:
+    """An ASV-Subtools (reference) state_dict drawn from a numpy seed: the
+    reference's own keys and shapes, BatchNorms with num_batches_tracked."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.sd = {}
+
+    def weight(self, key, shape, bias: bool = True):
+        fan_in = int(np.prod(shape[1:]))
+        self.sd[f"{key}.weight"] = (self.rng.standard_normal(shape, np.float32) / np.float32(np.sqrt(fan_in)))
+        if bias:
+            self.sd[f"{key}.bias"] = self.rng.standard_normal(shape[0], np.float32) * np.float32(0.1)
+
+    def bn(self, key, n: int):
+        r = self.rng
+        self.sd[f"{key}.weight"] = r.uniform(0.8, 1.2, n).astype(np.float32)
+        self.sd[f"{key}.bias"] = r.standard_normal(n, np.float32) * np.float32(0.1)
+        self.sd[f"{key}.running_mean"] = r.standard_normal(n, np.float32) * np.float32(0.1)
+        self.sd[f"{key}.running_var"] = r.uniform(0.5, 2.0, n).astype(np.float32)
+        self.sd[f"{key}.num_batches_tracked"] = np.asarray(1000, np.int64)
+
+    def tdnn(self, key, out: int, inp: int, k: int):
+        """A reference ReluBatchNormTdnnLayer: TdnnAffine [out, in, k] + BN."""
+        self.weight(f"{key}.affine", (out, inp, k))
+        self.bn(f"{key}.batchnorm", out)
+
+    def tensors(self, torch):
+        return {k: torch.from_numpy(v) for k, v in self.sd.items()}
+
+
+def reference_ecapa(torch, seed: int, feat: int = 80, c: int = 1024, mfa: int = 1536, embd: int = 192):
+    """ASV-Subtools ECAPA_TDNN (ecapa_tdnn_xvector.py) C1024: the SE-Res2
+    blocks' dilated convs as masked full-width kernels [h, h, 2d+1], the
+    attention over [x; mean; std], the margin head's loss.weight."""
+    r, h = _RefState(seed), c // 8
+    r.tdnn("layer1", c, feat, 5)
+    for li in (2, 3, 4):
+        r.tdnn(f"layer{li}.conv_relu_bn1", c, c, 1)
+        for b in range(7):
+            r.tdnn(f"layer{li}.res2net_block.blocks.{b}", h, h, 2 * li + 1)
+        r.tdnn(f"layer{li}.conv_relu_bn2", c, c, 1)
+        r.weight(f"layer{li}.se.se.1", (128, c, 1))
+        r.weight(f"layer{li}.se.se.3", (c, 128, 1))
+    r.tdnn("mfa", mfa, 3 * c, 1)
+    r.weight("stats.attention.0", (128, 3 * mfa, 1))
+    r.bn("stats.attention.2", 128)
+    r.weight("stats.attention.4", (mfa, 128, 1))
+    r.bn("bn_stats", 2 * mfa)
+    r.tdnn("fc2", embd, 2 * mfa, 1)
+    r.weight("loss", (REF_TARGETS, embd, 1), bias=False)
+    return r.tensors(torch)
+
+
+def reference_resnet34(torch, seed: int, feat: int = 80, base: int = 32, embd: int = 512):
+    """ASV-Subtools ResNetXvector (resnet_xvector.py), ResNet34 base 32, full
+    pre-activation: 2-D kernels [out, in, kF, kT], the fc head over the
+    channel-major [C, F'] flatten of the statistics."""
+    r = _RefState(seed)
+    r.weight("resnet.conv1", (base, 1, 3, 3), bias=False)
+    r.bn("resnet.bn1", base)
+    inp = base
+    for stage, (blocks, stride) in enumerate(zip((3, 4, 6, 3), (1, 2, 2, 2)), start=1):
+        planes = base * 2 ** (stage - 1)
+        for b in range(blocks):
+            pre = f"resnet.layer{stage}.{b}"
+            r.bn(f"{pre}.bn1", inp)
+            r.weight(f"{pre}.conv1", (planes, inp, 3, 3), bias=False)
+            r.bn(f"{pre}.bn2", planes)
+            r.weight(f"{pre}.conv2", (planes, planes, 3, 3), bias=False)
+            if b == 0 and (stride != 1 or inp != planes):
+                r.weight(f"{pre}.downsample.0", (planes, inp, 1, 1), bias=False)
+                r.bn(f"{pre}.downsample.1", planes)
+            inp = planes
+    r.tdnn("fc2", embd, 2 * inp * -(-feat // 8), 1)
+    r.weight("loss", (REF_TARGETS, embd, 1), bias=False)
+    return r.tensors(torch)
+
+
+def _all_flags(model, on: bool = True):
+    """ECAPA's fused Res2 chains (K3) and attentive pooling (K2)."""
+    for block in (model.layer2, model.layer3, model.layer4):
+        block.res2net.fused_inference = on
+    model.stats.fused_inference = on
+    return model
+
+
+def _feature_batch(torch, b: int, t: int, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, t, 80), generator=gen)
+    lengths = torch.linspace(t // 2, t, b).long() if b > 1 else torch.tensor([t])
+    return x, torch.arange(t)[None, :] < lengths[:, None]
+
+
+def _kernel_events(torch, fn) -> dict:
+    """{name: count} of the port's kernels in one profiled call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for own in ("attend_mma_kernel", "attend_kernel", "res2_mma_kernel", "res2_kernel"):
+                if re.search(rf"\b{own}\b", e.name):
+                    counts[own] = counts.get(own, 0) + 1
+    return counts
+
+
+def phase_checkpoints_and_serving(torch, device_label):
+    """Phase 25: (a) ASV-Subtools ECAPA C1024 and ResNet34 converted and
+    served, (b) exported back, (c) int8, (d) torch.export, (e) the socket
+    server."""
+    import socket
+    import struct
+    import threading
+
+    from asv_subtools_tpu_torch import convert, quantize
+    from asv_subtools_tpu_torch.export import export_embed_fn, load_embed_fn
+    from asv_subtools_tpu_torch.extract import make_wave_embed_fn
+    from asv_subtools_tpu_torch.features import FbankOptions, MelOptions
+    from asv_subtools_tpu_torch.models import EcapaTdnn, ResNetXvector
+    from asv_subtools_tpu_torch.nn.int8 import int8_matmul, quantize_rows
+    from asv_subtools_tpu_torch.reverse_convert import ReverseConverter, margin_loss_reverse
+    from asv_subtools_tpu_torch.serving import MAGIC, EmbeddingServer, embed_request
+
+    dev = torch.device("cuda")
+    opts = FbankOptions(mel_opts=MelOptions(num_bins=80))
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    # (a) convert on the host, load onto the card, serve
+    sd = reference_ecapa(torch, SEED + 250)
+    t0 = time.perf_counter()
+    converted = convert.convert_ecapa_state_dict(sd)
+    convert_s = time.perf_counter() - t0
+    model32 = EcapaTdnn(80, channels=1024, embd_dim=192, mfa_conv=1536)
+    model32.load_state_dict(converted)
+    off16 = copy.deepcopy(model32).to(torch.bfloat16)
+    on16 = _all_flags(copy.deepcopy(off16))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 251)
+    wave = torch.randn((BATCH, SAMPLES), generator=gen, device=dev) * 1000.0
+    mask = torch.ones((BATCH, SAMPLES), dtype=torch.bool, device=dev)
+    embed = make_wave_embed_fn(lambda x, m: on16(x, m), opts, dtype=torch.bfloat16)
+    n_ref = sum(v.numel() for k, v in sd.items() if v.is_floating_point())
+    print(f"phase 25 (a): ASV-Subtools ECAPA C1024 state_dict ({len(sd)} tensors, {n_ref} floats) converted on the "
+          f"host in {convert_s:.3f} s", flush=True)
+    with torch.inference_mode():
+        ref16 = _plain_embed(torch, off16, opts, torch.bfloat16, torch.bfloat16)(wave, mask)
+        ref32 = _plain_embed(torch, model32, opts, torch.float32, torch.float32)(wave, mask)
+        waves = [wave * (1.0 + 1e-4 * i) for i in range(4)]
+        torch.cuda.synchronize()
+        zero_launches()
+        emb16 = embed(waves[0], mask)
+        torch.cuda.synchronize()
+        c = read_launches("converted ECAPA C1024 served", ("fused_fbank", "fused_attentive_stats_pool",
+                                                           "fused_res2_chain"))
+        add(c)
+        check(c["fused_res2_chain"] == 3 and c["fused_attentive_stats_pool"] == 1,
+              f"the converted ECAPA's batch launched K3 {c['fused_res2_chain']} and K2 "
+              f"{c['fused_attentive_stats_pool']} times")
+        check(tuple(emb16.shape) == (BATCH, 192) and bool(torch.isfinite(emb16.float()).all()),
+              "converted ECAPA embeddings not finite or of the wrong shape")
+        c16, c32 = float(cosine(emb16, ref16).min()), float(cosine(emb16, ref32).min())
+        print(f"converted ECAPA C1024 bf16, every flag on: min per-utterance cosine vs flags off + plain front end "
+              f"(bf16) {c16:.6f} (>= {CONVERT_COSINE}), vs f32 model + f32 plain front end {c32:.6f} (>= 0.999)",
+              flush=True)
+        check(c16 >= CONVERT_COSINE and c32 >= 0.999, "converted ECAPA embeddings disagree with the references")
+        ms_bf16 = timed_batches(torch, embed, waves, mask, iters=3)
+        print(f"converted ECAPA C1024 bf16 [{BATCH},{SAMPLES}], every flag on: {ms_bf16:.2f} ms/batch on "
+              f"{device_label}", flush=True)
+
+    rsd = reference_resnet34(torch, SEED + 252)
+    t0 = time.perf_counter()
+    rconv = convert.convert_resnet_state_dict(rsd, freq_out=10)
+    rconvert_s = time.perf_counter() - t0
+    res32 = ResNetXvector(80)
+    res32.load_state_dict(rconv)
+    res_off = copy.deepcopy(res32).to(torch.bfloat16)
+    res_on = copy.deepcopy(res_off)
+    res_on.head.stats.fused_inference = True
+    r_embed = make_wave_embed_fn(lambda x, m: res_on(x, m), opts, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        rref16 = _plain_embed(torch, res_off, opts, torch.bfloat16, torch.bfloat16)(wave, mask)
+        rref32 = _plain_embed(torch, res32, opts, torch.float32, torch.float32)(wave, mask)
+        torch.cuda.synchronize()
+        zero_launches()
+        remb = r_embed(waves[0], mask)
+        torch.cuda.synchronize()
+        c = read_launches("converted ResNet34 served", ("fused_fbank", "fused_stats_pooling"))
+        add(c)
+        check(tuple(remb.shape) == (BATCH, 512) and bool(torch.isfinite(remb.float()).all()),
+              "converted ResNet34 embeddings not finite or of the wrong shape")
+        c16, c32 = float(cosine(remb, rref16).min()), float(cosine(remb, rref32).min())
+        print(f"converted ResNet34 bf16, fused pooling: min per-utterance cosine vs flag off + plain front end "
+              f"(bf16) {c16:.6f} (>= 0.9999), vs f32 model + f32 plain front end {c32:.6f} (>= 0.999)", flush=True)
+        check(c16 >= 0.9999 and c32 >= 0.999, "converted ResNet34 embeddings disagree with the references")
+        rms = timed_batches(torch, r_embed, waves, mask, iters=3)
+        print(f"converted ResNet34 ({len(rsd)} tensors, host conversion {rconvert_s:.3f} s) bf16 "
+              f"[{BATCH},{SAMPLES}], fused pooling: {rms:.2f} ms/batch on {device_label}", flush=True)
+    del res32, res_off, res_on, r_embed
+    torch.cuda.empty_cache()
+
+    # (b) the served ECAPA's weights back to the reference's layout
+    t0 = time.perf_counter()
+    template = {k: v for k, v in sd.items() if not k.startswith("loss.")}
+    rc = ReverseConverter(convert.convert_ecapa_state_dict, template)
+    back = rc({k: v.cpu() for k, v in model32.state_dict().items()})
+    back.update(margin_loss_reverse({"loss.weight": sd["loss.weight"][:, :, 0]}))
+    reverse_s = time.perf_counter() - t0
+    masked = {f"layer{li}.res2net_block.blocks.{b}.affine.weight": 128 * 128 * (2 * li - 2)
+              for li in (2, 3, 4) for b in range(7)}
+    counters = {k: 1 for k in sd if k.endswith("num_batches_tracked")}
+    check(rc.uncovered == {**masked, **counters},
+          f"uncovered positions {sum(rc.uncovered.values())} are not the masked taps and the batch counters")
+    check(sorted(back) == sorted(sd), "the export's keys are not the reference's")
+    differ = []
+    for key, want in sd.items():
+        got = back[key].reshape(want.shape)
+        if key in masked:
+            d = int(key[len("layer")])  # layer l's dilation is l: taps 0, d, 2d kept
+            want = want.clone()
+            keep = torch.zeros(want.shape[2], dtype=torch.bool)
+            keep[[0, d, 2 * d]] = True
+            want[:, :, ~keep] = 0
+        elif key in counters:
+            want = torch.zeros_like(want)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            differ.append(key)
+    check(not differ, f"the export differs from the input state_dict at {differ[:4]}")
+    print(f"phase 25 (b): export_to_reference of the served ECAPA's weights in {reverse_s:.2f} s on the host: "
+          f"{len(back)} tensors equal to the input bit for bit at every covered position; uncovered "
+          f"{sum(rc.uncovered.values())} values (the masked taps and {len(counters)} num_batches_tracked)", flush=True)
+
+    # (c) int8: the channel-mixing products as dynamic int8 GEMMs, chains and pooling fused
+    q16 = _all_flags(EcapaTdnn(80, channels=1024, embd_dim=192, mfa_conv=1536, int8_inference=True))
+    q16.load_state_dict(model32.state_dict())
+    q16 = q16.to(torch.bfloat16)
+    q_embed = make_wave_embed_fn(lambda x, m: q16(x, m), opts, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        zero_launches()
+        int8_matmul.launches = 0
+        emb_q = q_embed(waves[0], mask)
+        torch.cuda.synchronize()
+        c = read_launches("converted ECAPA C1024 int8", ("fused_fbank", "fused_attentive_stats_pool",
+                                                         "fused_res2_chain"))
+        add(c)
+        check(int8_matmul.launches == 7, f"{int8_matmul.launches} int8 GEMMs in one batch, expected 7")
+        cq = float(cosine(emb_q, emb16).min())
+        print(f"converted ECAPA C1024 int8 (7 int8 GEMMs a batch): min per-utterance cosine vs the bf16 batch "
+              f"{cq:.6f} (>= {INT8_COSINE})", flush=True)
+        check(bool(torch.isfinite(emb_q.float()).all()) and cq >= INT8_COSINE, "int8 embeddings disagree with bf16")
+        turns = [timed_batches(torch, e, waves, mask, iters=3) for e in (embed, q_embed, q_embed, embed)]
+        print(f"converted ECAPA C1024 [{BATCH},{SAMPLES}] ms/batch: bf16 {min(turns[0], turns[3]):.2f}, int8 "
+              f"{min(turns[1], turns[2]):.2f} on {device_label} (turns bf16 {turns[0]:.2f} int8 {turns[1]:.2f} "
+              f"int8 {turns[2]:.2f} bf16 {turns[3]:.2f})", flush=True)
+        profile_served_batch(torch, lambda: q_embed(waves[0], mask), what="one int8 batch")
+        # the MFA's product: one utterance's 998 frames x 3072 channels into 1536, card against CPU
+        seen = {}
+        hook = q16.mfa.register_forward_hook(lambda mod, args, out: seen.update(x=args[0]))
+        q16(torch.randn((1, 998, 80), device=dev, dtype=torch.bfloat16), None)
+        hook.remove()
+        xq, _ = quantize_rows(seen["x"][0].t(), 1e-8)
+        wq, _ = quantize_rows(q16.mfa.affine.conv.weight[:, :, 0], 1e-12)
+        card_i32 = int8_matmul(xq, wq).cpu()
+        cpu_i32 = int8_matmul(xq.cpu(), wq.cpu())
+        check(card_i32.dtype == torch.int32 and torch.equal(card_i32, cpu_i32),
+              "the card's int8 product differs from the CPU's")
+        full_x = torch.randint(-127, 128, (BATCH * 998, 3072), device=dev, dtype=torch.int8)
+        full_xb = full_x.to(torch.bfloat16)
+        wb = wq.to(torch.bfloat16)
+        gemm_i8 = device_ms(torch, lambda: int8_matmul(full_x, wq), 10)
+        gemm_bf16 = device_ms(torch, lambda: full_xb @ wb.t(), 10)
+        print(f"int8 product at the MFA's shape [998, 3072] x [3072, 1536]: card equals CPU (int32, exact); at "
+              f"the batch's [{BATCH * 998}, 3072] x [3072, 1536]: int8 {gemm_i8:.3f} ms, bf16 {gemm_bf16:.3f} ms "
+              f"(device time)", flush=True)
+        del full_x, full_xb
+    del q16, q_embed
+    qstate = quantize.quantize_params({k: v.cpu() for k, v in model32.state_dict().items()})
+    qerr = quantize.quantization_error({k: v.cpu() for k, v in model32.state_dict().items()}, qstate)
+    qbytes = sum(sum(t.numel() * t.element_size() for t in v.values()) if isinstance(v, dict)
+                 else v.numel() * v.element_size() for v in qstate.values())
+    fbytes = sum(v.numel() * v.element_size() for v in model32.state_dict().values())
+    deq16 = _all_flags(EcapaTdnn(80, channels=1024, embd_dim=192, mfa_conv=1536))
+    deq16.load_state_dict(quantize.dequantize_params(qstate))
+    deq16 = deq16.to(torch.bfloat16)
+    with torch.inference_mode():
+        emb_deq = make_wave_embed_fn(lambda x, m: deq16(x, m), opts, dtype=torch.bfloat16)(waves[0], mask)
+    cdq = float(cosine(emb_deq, emb16).min())
+    print(f"quantize_params of the converted weights: max relative error {qerr:.5f} (< 0.01), {qbytes} bytes "
+          f"against {fbytes} f32 ({fbytes / qbytes:.2f}x, > 3.5x); the dequantized model's min cosine vs the bf16 "
+          f"batch {cdq:.6f} (> 0.999)", flush=True)
+    check(qerr < 0.01 and qbytes < fbytes / 3.5 and cdq > 0.999, "weight quantization out of its bounds")
+    del deq16, emb_deq
+    torch.cuda.empty_cache()
+
+    # (d) torch.export at two shapes, K2 and K3 inside the program
+    feats_fn = lambda x, m: on16(x.to(torch.bfloat16), m).float()
+    with tempfile.TemporaryDirectory() as tmp:
+        for b, t in ((1, 400), (32, 1600)):
+            t0 = time.perf_counter()
+            path = export_embed_fn(feats_fn, 80, tmp, bucket_lengths=(t,), batch_sizes=(b,))[f"b{b}_t{t}"]
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = load_embed_fn(path)
+            load_s = time.perf_counter() - t0
+            x, m = _feature_batch(torch, b, t, SEED + 253 + b)
+            x, m = x.to(dev), m.to(dev)
+            with torch.inference_mode():
+                eager = feats_fn(x, m)
+                zero_launches()
+                got = loaded(x, m)
+                torch.cuda.synchronize()
+                c = read_launches(f"exported ECAPA b{b}_t{t}", ("fused_attentive_stats_pool", "fused_res2_chain"))
+                add(c)
+                check(c["fused_res2_chain"] == 3 and c["fused_attentive_stats_pool"] == 1,
+                      f"the loaded program launched K3 {c['fused_res2_chain']} and K2 "
+                      f"{c['fused_attentive_stats_pool']} times")
+                ce, err = float(cosine(got, eager).min()), max_abs(got, eager)
+                events = _kernel_events(torch, lambda: loaded(x, m))
+                k2 = events.get("attend_mma_kernel", 0) + events.get("attend_kernel", 0)
+                k3 = events.get("res2_mma_kernel", 0) + events.get("res2_kernel", 0)
+                ms_loaded = median_ms(torch, lambda: loaded(x, m), warmup=2, iters=10)
+                ms_eager = median_ms(torch, lambda: feats_fn(x, m), warmup=2, iters=10)
+                launched = {what: _profile(torch, fn, 1)[2] for what, fn in
+                            (("loaded", lambda: loaded(x, m)), ("eager", lambda: feats_fn(x, m)))}
+            print(f"exported ECAPA C1024 b{b}_t{t} (bf16, K2 and K3 on): export {export_s:.1f} s, save+load "
+                  f"{load_s:.1f} s; loaded vs eager min cosine {ce:.7f} (>= {EXPORT_COSINE}), max abs diff "
+                  f"{err:.3e}; the profiler counts {k2} K2 and {k3} K3 launches a call; {ms_loaded:.2f} ms a call "
+                  f"loaded, {ms_eager:.2f} eager; kernel launches a call loaded {launched['loaded']}, eager "
+                  f"{launched['eager']}", flush=True)
+            check(tuple(got.shape) == (b, 192) and ce >= EXPORT_COSINE, "the loaded program disagrees with eager")
+            if not events:
+                print("the profiler recorded no device kernels (the launch counts above stand)", flush=True)
+            check((k2, k3) == (1, 3) or not events, f"the profiler saw {k2} K2 and {k3} K3 launches, expected 1 and 3")
+
+    # (e) the socket server: four client threads, one utterance a request
+    server = EmbeddingServer(feats_fn)
+    server.start()
+    try:
+        rng = np.random.default_rng(SEED + 254)
+        batches = [[rng.standard_normal((int(n), 80)).astype(np.float32)
+                    for n in rng.integers(200, 2001, size=SERVER_REQUESTS)] for _ in range(SERVER_THREADS)]
+        for feats in batches[0][:4]:  # warm-up: the first calls of each bucket
+            embed_request("127.0.0.1", server.port, feats)
+        replies = [[None] * SERVER_REQUESTS for _ in range(SERVER_THREADS)]
+        latency = []
+        errors = []
+
+        def client(i):
+            try:
+                for j, feats in enumerate(batches[i]):
+                    t0 = time.perf_counter()
+                    replies[i][j] = embed_request("127.0.0.1", server.port, feats)
+                    latency.append((time.perf_counter() - t0) * 1e3)
+            except Exception as e:  # noqa: BLE001 - a failed request fails the phase below
+                errors.append(repr(e))
+
+        # one client alone first: the server's pace without contention for the GIL
+        t0 = time.perf_counter()
+        alone = []
+        for feats in batches[0][:SERVER_ALONE]:
+            t1 = time.perf_counter()
+            embed_request("127.0.0.1", server.port, feats)
+            alone.append((time.perf_counter() - t1) * 1e3)
+        alone_wall = time.perf_counter() - t0
+        zero_launches()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVER_THREADS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        c = read_launches("socket server", ("fused_attentive_stats_pool", "fused_res2_chain"))
+        add(c)
+        n = SERVER_THREADS * SERVER_REQUESTS
+        check(not errors and all(r is not None and r.shape == (192,) for rs in replies for r in rs),
+              f"empty or failed server replies: {errors[:2]}")
+        worst = min(float(cosine(torch.from_numpy(replies[i][j]), torch.from_numpy(server.embed(batches[i][j]))))
+                    for i in range(SERVER_THREADS) for j in range(SERVER_REQUESTS))
+        with socket.create_connection(("127.0.0.1", server.port)) as sock:
+            sock.sendall(struct.pack("<III", 0xDEADBEEF, 10, 80))
+            bad = struct.unpack("<II", sock.recv(8))
+        profile_served_batch(torch, lambda: server.embed(batches[0][0]),
+                             what=f"one server request of {len(batches[0][0])} frames")
+    finally:
+        server.stop()
+    print(f"socket server, ECAPA C1024 bf16 (K2, K3), one client thread alone: {SERVER_ALONE} requests in "
+          f"{alone_wall:.2f} s, {SERVER_ALONE / alone_wall:.1f} requests/s, latency p50 {np.percentile(alone, 50):.2f} "
+          f"ms", flush=True)
+    print(f"socket server, ECAPA C1024 bf16 (K2, K3): {n} requests of 200-2000 frames from {SERVER_THREADS} "
+          f"threads in {wall:.2f} s, {n / wall:.1f} requests/s, latency p50 {np.percentile(latency, 50):.2f} ms p99 "
+          f"{np.percentile(latency, 99):.2f} ms; K2 {c['fused_attentive_stats_pool'] / n:.2f} and K3 "
+          f"{c['fused_res2_chain'] / n:.2f} launches a request; replies vs server.embed min cosine {worst:.7f} "
+          f"(>= {SERVER_COSINE}); a bad magic got (magic, E) = ({bad[0]:#x}, {bad[1]})", flush=True)
+    check(worst >= SERVER_COSINE, "server replies disagree with server.embed")
+    check(c["fused_attentive_stats_pool"] == n and c["fused_res2_chain"] == 3 * n,
+          "the server's launches are not 1 K2 and 3 K3 a request")
+    check(bad == (MAGIC, 0), f"a bad magic got {bad}, not the error reply")
+    del model32, off16, on16
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -3297,6 +3743,8 @@ def main() -> int:
     paths.append(phase_step_options(torch, smi))
     torch.cuda.empty_cache()
     paths.append(phase_conformer_family(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_checkpoints_and_serving(torch, smi))
     for kernel_name, k in kernels.items():
         k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

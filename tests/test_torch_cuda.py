@@ -1411,3 +1411,164 @@ def test_served_conformer_family_on_the_card_against_the_cpu(card, family):
     assert float(cos(same).min()) >= 0.99999, cos(same)
     assert float(cos(e32).min()) >= 0.9999, cos(e32)
     assert float(cos(e16).min()) >= 0.999, cos(e16)
+
+
+# --- checkpoint conversion and the serving path ---------------------------------------------------------------------
+
+def _narrow_served_ecapa(card, seed=0, **kw):
+    """A narrow ECAPA on the card (h = 16: K3's tensor-core width), bf16,
+    the fused chains and pooling on, random running statistics."""
+    from asv_subtools_tpu_torch.models import EcapaTdnn
+
+    model = init_weights_(EcapaTdnn(input_dim=80, channels=128, mfa_conv=192, embd_dim=32, device="cpu", **kw), seed)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith(".mean"):
+                buf.copy_(torch.randn(buf.shape, generator=gen) * 0.1)
+            elif name.endswith(".var"):
+                buf.copy_(torch.rand(buf.shape, generator=gen) + 0.5)
+    model16 = model.to(card).to(torch.bfloat16)
+    for block in (model16.layer2, model16.layer3, model16.layer4):
+        block.res2net.fused_inference = True
+    model16.stats.fused_inference = True
+    return model16
+
+
+@pytest.mark.parametrize("op", ["fused_res2_chain", "fused_attentive_stats_pool", "fused_stats_pooling"])
+def test_kernel_custom_ops_on_the_card_match_their_plain_versions(card, op):
+    """The ops' CUDA implementations (the kernels) against their plain
+    versions, and the launch counters counting them."""
+    import importlib
+
+    fused_att_pooling = importlib.import_module("asv_subtools_tpu_torch.nn.fused_att_pooling")
+    fused_res2 = importlib.import_module("asv_subtools_tpu_torch.nn.fused_res2")
+    fsp = importlib.import_module("asv_subtools_tpu_torch.nn.fused_stats_pooling")
+
+    gen = torch.Generator().manual_seed(3)
+    b, t, c, k, h = 3, 197, 256, 128, 32
+    x = (torch.randn((b, t, c), generator=gen)).to(card, torch.bfloat16)
+    mask = (torch.arange(t)[None, :] < torch.tensor([t, 120, 33])[:, None]).to(card)
+    if op == "fused_res2_chain":
+        args = (x[..., : 8 * h], *(torch.randn(s, generator=gen).mul(0.2).to(card) for s in ((7, 3, h, h), (7, h),
+                                                                                              (7, h), (7, h))))
+        args = (args[0], args[1].bfloat16(), *args[2:], 2)
+        fn, plain, counter, tol = fused_res2.fused_res2_chain_op, fused_res2.fused_res2_chain_plain, \
+            fused_res2.fused_res2_chain, 2e-2
+    elif op == "fused_attentive_stats_pool":
+        w = [torch.randn(s, generator=gen).mul(0.1).to(card) for s in ((c, k), (c, k), (c, k), (k,), (k,), (k,),
+                                                                        (k, c), (c,))]
+        for i in (0, 1, 2, 6):
+            w[i] = w[i].bfloat16()
+        args = (x, *w, mask)
+        fn, plain, counter, tol = fused_att_pooling.fused_attentive_stats_pool_op, \
+            fused_att_pooling.fused_attentive_stats_pool_plain, fused_att_pooling.fused_attentive_stats_pool, 2e-2
+    else:
+        args = (x, mask, 1e-10)
+        fn, plain, counter, tol = fsp.fused_stats_pooling_op, fsp.fused_stats_pooling_plain, \
+            fsp.fused_stats_pooling, 1e-4
+    before = counter.launches
+    got = fn(*args)
+    assert counter.launches == before + 1
+    torch.testing.assert_close(got.float(), plain(*args).float(), atol=tol, rtol=tol)
+
+
+def test_dynamic_int8_dot_on_the_card_equals_the_cpu(card):
+    from asv_subtools_tpu_torch.nn.int8 import dynamic_int8_dot, int8_matmul, quantize_rows
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((2, 50, 96), generator=gen)
+    w = torch.randn((64, 96), generator=gen) * 0.1
+    xq, _ = quantize_rows(x.reshape(-1, 96), 1e-8)
+    wq, _ = quantize_rows(w, 1e-12)
+    before = int8_matmul.launches
+    on_card = int8_matmul(xq.to(card), wq.to(card))
+    assert int8_matmul.launches == before + 1 and on_card.dtype == torch.int32
+    assert torch.equal(on_card.cpu(), int8_matmul(xq, wq))
+    torch.testing.assert_close(dynamic_int8_dot(x.to(card), w.to(card)).cpu(), dynamic_int8_dot(x, w),
+                               atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="m > 16"):
+        int8_matmul(xq[:16].to(card), wq.to(card))
+
+
+def test_int8_ecapa_on_the_card_against_bf16(card):
+    from asv_subtools_tpu_torch.nn.int8 import int8_matmul
+
+    model16 = _narrow_served_ecapa(card, seed=5)
+    q16 = _narrow_served_ecapa(card, seed=5, int8_inference=True)
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((4, 300, 80), generator=gen).to(card)
+    mask = (torch.arange(300)[None, :] < torch.tensor([300, 260, 180, 90])[:, None]).to(card)
+    before = int8_matmul.launches
+    with torch.inference_mode():
+        ref, got = model16(x.bfloat16(), mask).float(), q16(x.bfloat16(), mask).float()
+    assert int8_matmul.launches == before + 7
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
+    assert float(cos.min()) >= 0.999, cos
+
+
+def test_exported_program_on_the_card_launches_k2_and_k3(card, tmp_path):
+    from asv_subtools_tpu_torch.export import export_embed_fn, load_embed_fn
+    from asv_subtools_tpu_torch.nn import fused_attentive_stats_pool as k2
+    from asv_subtools_tpu_torch.nn import fused_res2_chain as k3
+
+    model16 = _narrow_served_ecapa(card, seed=7)
+    fn = lambda x, m: model16(x.to(torch.bfloat16), m).float()
+    paths = export_embed_fn(fn, 80, str(tmp_path), bucket_lengths=(200,), batch_sizes=(4,))
+    program = torch.export.load(paths["b4_t200"])
+    ops = {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
+    assert {"asv_subtools_tpu_torch.fused_res2_chain.default",
+            "asv_subtools_tpu_torch.fused_attentive_stats_pool.default"} <= ops
+    loaded = load_embed_fn(paths["b4_t200"])
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((4, 200, 80), generator=gen).to(card)
+    mask = (torch.arange(200)[None, :] < torch.tensor([200, 170, 120, 60])[:, None]).to(card)
+    k2_0, k3_0 = k2.launches, k3.launches
+    with torch.inference_mode():
+        got = loaded(x, mask)
+        assert (k2.launches - k2_0, k3.launches - k3_0) == (1, 3)
+        want = fn(x, mask)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    assert float(cos.min()) >= 0.99999, cos
+    with pytest.raises(ValueError, match="cannot run"):
+        load_embed_fn(paths["b4_t200"], device="cpu")
+
+
+def test_server_on_the_card_answers_as_embed(card):
+    import numpy as np
+
+    from asv_subtools_tpu_torch.nn import fused_res2_chain as k3
+    from asv_subtools_tpu_torch.serving import EmbeddingServer, embed_request
+
+    model16 = _narrow_served_ecapa(card, seed=9)
+    server = EmbeddingServer(lambda x, m: model16(x.to(torch.bfloat16), m).float(), buckets=(200, 400))
+    server.start()
+    try:
+        rng = np.random.default_rng(10)
+        for frames in (150, 400, 700):  # the last is cut to the last bucket
+            feats = rng.standard_normal((frames, 80)).astype(np.float32)
+            before = k3.launches
+            got = embed_request("127.0.0.1", server.port, feats)
+            assert k3.launches == before + 3
+            want = server.embed(feats)
+            assert got.shape == (32,) and np.all(np.isfinite(got))
+            assert float(got @ want / (np.linalg.norm(got) * np.linalg.norm(want))) >= 0.99999
+    finally:
+        server.stop()
+
+
+def test_chip_smoke_phase_25_runs(card):
+    """chip_smoke's phase 25 (ASV-Subtools ECAPA C1024 and ResNet34
+    converted and served, exported back, int8, torch.export, the socket
+    server) at full width."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    torch.backends.cudnn.allow_tf32 = False
+    counts = chip_smoke.phase_checkpoints_and_serving(torch, "card test")
+    assert all(counts[k] > 0 for k in ("fused_fbank", "fused_attentive_stats_pool", "fused_res2_chain",
+                                       "fused_stats_pooling"))

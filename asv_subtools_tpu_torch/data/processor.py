@@ -282,36 +282,50 @@ def speech_aug_stage(aug: SpeechAug, seed: int = 1024,
 def compute_feats(opts=None, feat_type: str = "fbank", cmvn: bool = True,
                   backend: str = "numpy"):
     """Kaldi-compatible features on the HOST, per sample (KaldiFeature
-    processor.py:387-466): the port's ``features.compute_fbank`` (its FFT
-    in float64, as the JAX package's numpy path computes it) and
-    ``cmvn_utterance`` on CPU tensors, returned as float32 numpy. torch is
-    imported when the stage runs, and nothing in it touches CUDA.
+    processor.py:387-466): the port's ``features.compute_fbank`` or
+    ``compute_mfcc`` (their FFT in float64, as the JAX package's numpy
+    path computes it) and ``cmvn_utterance`` on CPU tensors, returned as
+    float32 numpy. torch is imported when the stage runs, and nothing in
+    it touches CUDA.
 
-    feat_type "fbank" only: mfcc and the *_pitch variants are ROADMAP
-    item 11, and ``backend="native"`` (the C++ front end) is ROADMAP
-    item 10; both raise NotImplementedError. ``backend="numpy"`` names the
-    JAX package's host path, which this stage matches.
+    feat_type: fbank | mfcc | fbank_pitch | mfcc_pitch. The *_pitch
+    variants append the 3-dim Kaldi pitch feature of the float64 wave
+    (features/pitch.py; reference makeFeatures.sh:36-45 ->
+    make_fbank_pitch.sh: paste-feats of the base matrix with
+    process-pitch-feats output), both cut to the shorter; CMVN runs over
+    the concatenated matrix like apply-cmvn on the full dim (JAX
+    data/processor.py:280-340). ``backend="native"`` (the C++ front end)
+    is ROADMAP item 10 and raises NotImplementedError; ``backend="numpy"``
+    names the JAX package's host path, which this stage matches.
     """
-    from ..features.config import FbankOptions
+    from ..features.config import FbankOptions, MfccOptions
 
-    if feat_type != "fbank":
-        raise NotImplementedError(
-            f"feat_type={feat_type!r}: host mfcc and pitch features are not ported yet (ROADMAP item 11)")
+    base_type = feat_type.replace("_pitch", "")
+    with_pitch = feat_type.endswith("_pitch")
+    if base_type not in ("fbank", "mfcc"):
+        raise ValueError(f"unknown feat_type {feat_type!r}")
     if backend != "numpy":
         raise NotImplementedError(
             f"feat_backend={backend!r}: the native C++ front end is not ported yet (ROADMAP item 10)")
     if opts is None:
-        opts = FbankOptions()
+        opts = FbankOptions() if base_type == "fbank" else MfccOptions()
 
     def stage(samples):
         import torch
 
-        from ..features.functional import cmvn_utterance, compute_fbank
+        from ..features.functional import cmvn_utterance, compute_fbank, compute_mfcc
+        from ..features.pitch import PitchOptions, compute_and_process_pitch
 
+        compute = compute_fbank if base_type == "fbank" else compute_mfcc
         for s in samples:
             wav = torch.from_numpy(np.asarray(s["wav"], np.float32))
             with torch.no_grad():
-                f = compute_fbank(wav, opts, fft_mode="rfft")
+                f = compute(wav, opts, fft_mode="rfft")
+                if with_pitch:
+                    popts = PitchOptions(samp_freq=float(s.get("sample_rate", 16000)))
+                    p = compute_and_process_pitch(np.asarray(s["wav"], np.float64), popts)
+                    n = min(len(f), len(p))
+                    f = torch.cat([f[:n], torch.from_numpy(p[:n].astype(np.float32))], dim=1)
                 if cmvn:
                     f = cmvn_utterance(f)
             s["feat"] = f.numpy().astype(np.float32, copy=False)

@@ -26,9 +26,14 @@ two optimizers in turn, ``train.fd``) or, with ``train.sam`` or the
 optimizer's ``sam`` flag, by the two-pass SAM step; ``find_lr`` sweeps
 the learning rate on the same egs.
 
+``data.feat_type`` picks the host features: fbank, mfcc, fbank_pitch or
+mfcc_pitch (the *_pitch types append the 3-dim Kaldi pitch); with
+``data.num_bins`` the mfcc types take ``MfccOptions(mel_opts=...)`` (13
+cepstra). The wave-input path computes fbank only.
+
 Not ported yet; each raises NotImplementedError naming its ROADMAP item:
-``fsdp`` and ``num_model > 1`` (Queue 1 item 5), the native host front
-end (item 10) and host mfcc/pitch features (item 11).
+``fsdp`` and ``num_model > 1`` (Queue 1 item 5) and the native host front
+end (item 10).
 
 Two choices differ from the JAX Launcher: the held-out validation egs
 keep their last, partial batch (the JAX egs drop it, so a hold-out
@@ -48,7 +53,7 @@ import torch
 from .data import Prefetcher, WavEgs, WavEgsXvector, build_spk2int
 from .device import resolve_device
 from .extract import ExtractConfig, Extractor
-from .features.config import FbankOptions, MelOptions
+from .features.config import FbankOptions, MelOptions, MfccOptions
 from .models import MODELS, SpeakerNet
 from .nn.loss import LambdaMAnneal, MarginWarm
 from .train import (ReduceOnPlateau, Reporter, Trainer, TrainStepConfig, get_lr_schedule, get_optimizer,
@@ -70,15 +75,18 @@ DEFAULT_PARAMS: Dict[str, Any] = {
         "speed_perturb": False,
         "shuffle_buffer": 1000,
         "compute_feat": True,
-        # fbank only (mfcc and the _pitch variants: ROADMAP item 11)
+        # fbank | mfcc | fbank_pitch | mfcc_pitch (host features; the
+        # wave-input path computes fbank only)
         "feat_type": "fbank",
-        # host feature backend: "numpy" (the port's torch CPU fbank, which
-        # matches the JAX package's numpy path); "native" is ROADMAP item 10
+        # host feature backend: "numpy" (the port's torch CPU features,
+        # which match the JAX package's numpy path); "native" is ROADMAP
+        # item 10
         "feat_backend": "numpy",
         "spec_aug": False,
         "valid_utts": 0,  # hold out N utts for validation (plateau/reporting)
-        # fbank bins for BOTH training egs and extraction (None = library
-        # default 23; the reference's voxceleb recipes use 80/81-fbank)
+        # mel bins for BOTH training egs and extraction (None = library
+        # default 23; the reference's voxceleb recipes use 80/81-fbank);
+        # the mfcc types keep 13 cepstra
         "num_bins": None,
         # host pipeline threads for the per-sample stages (decode/aug/feats)
         # - ordered fan-out, so results are identical to workers=1
@@ -190,16 +198,20 @@ class Launcher:
                 f"data.feat_type={p['feat_type']!r} requires host feature "
                 "computation (data.compute_feat=True); the wave-input path "
                 "computes fbank on the device only")
-        if p.get("feat_type", "fbank") != "fbank":
-            raise _not_ported(f"data.feat_type={p['feat_type']!r} (host mfcc and pitch features)", 11)
         if p.get("feat_backend", "numpy") != "numpy":
             raise _not_ported(f"data.feat_backend={p['feat_backend']!r} (the native host front end)", 10)
-        self.feat_opts = FbankOptions(mel_opts=MelOptions(num_bins=int(p["num_bins"]))) if p.get("num_bins") else None
+        feat_type = p.get("feat_type", "fbank")
+        self.feat_opts = None
+        if p.get("num_bins"):
+            mel = MelOptions(num_bins=int(p["num_bins"]))
+            self.feat_opts = MfccOptions(mel_opts=mel) if feat_type.startswith("mfcc") else FbankOptions(mel_opts=mel)
         if p.get("egs_type", "online") == "offline":
             return self._build_offline_egs(p)
-        opts = self.feat_opts or FbankOptions()
-        # the width the net sees: the in-step fbank has no energy column
-        self.feat_dim = opts.dim if p.get("compute_feat", True) else opts.mel_opts.num_bins
+        opts = self.feat_opts or (MfccOptions() if feat_type.startswith("mfcc") else FbankOptions())
+        # the width the net sees: the in-step fbank has no energy column;
+        # the *_pitch types append 3 pitch columns
+        self.feat_dim = (opts.dim + 3 * feat_type.endswith("_pitch") if p.get("compute_feat", True)
+                         else opts.mel_opts.num_bins)
         self.spk2int = build_spk2int(p["train_utt2spk"])
         num_spks = len(self.spk2int)
         if p.get("speed_perturb"):
@@ -232,6 +244,8 @@ class Launcher:
                 # wave path, so wave-trained models validate consistently)
                 compute_feat=True,
                 feat_opts=self.feat_opts,
+                # the same features as training
+                feat_type=feat_type,
                 shuffle_buffer=1,
                 seed=self.params["seed"],
                 drop_last=False,

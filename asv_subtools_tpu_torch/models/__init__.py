@@ -2,7 +2,7 @@ from .conformer import ConformerXvector
 from .ecapa import EcapaAttentiveStatsPool, EcapaTdnn, Res2NetBlock, SEConnect, SERes2Block
 from .ecapa_lawlict import (EcapaLawlict, LawlictAttentiveStatsPool, LawlictRes2Block, LawlictSERes2Block,
                             SEConnectLinear)
-from .framework import SpeakerNet, chunk_utterance, extract_embedding_chunked, l2_norm
+from .framework import SpeakerNet, chunk_utterance, count_params, extract_embedding_chunked, l2_norm
 from .multitask import DALRegularizer, FDXvector, MultiTaskNet, MultiTaskXvector, fd_adversarial_loss, phone_frame_loss
 from .resnet_xvector import RepVggXvector, ResNetXvector, deploy_repvgg_xvector
 from .xvector import ExtendedXvector, FactoredXvector, SnowdarXvector, Xvector
@@ -48,6 +48,7 @@ __all__ = [
     "SpeakerNet",
     "Xvector",
     "chunk_utterance",
+    "count_params",
     "deploy_repvgg_xvector",
     "extract_embedding_chunked",
     "fd_adversarial_loss",

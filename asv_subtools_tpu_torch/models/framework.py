@@ -91,3 +91,9 @@ def extract_embedding_chunked(embed_fn: Callable, feats: Any, max_chunk: int = 1
 
 def l2_norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.clamp_min(torch.linalg.norm(x, dim=dim, keepdim=True), eps)
+
+
+def count_params(params: Any) -> int:
+    """The number of parameters of a module, or of a {name: tensor} dict."""
+    tensors = params.parameters() if isinstance(params, nn.Module) else params.values()
+    return sum(p.numel() for p in tensors)

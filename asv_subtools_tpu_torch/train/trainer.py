@@ -392,11 +392,16 @@ class Trainer:
     of the train step (train/sam.py's, with the same signature; a step_fn
     that takes ``step_index``, as train/fd.py's does, gets the host step
     count there). A batch with ``phone_y`` trains and validates a
-    multi-task net on the targets ``{"spk": y, "phone": phone_y}``."""
+    multi-task net on the targets ``{"spk": y, "phone": phone_y}``.
+    ``nan_debug_dir`` set: each skipped step's batch, weights and metrics
+    are dumped there (train/debug.py), which reads each step's ``skipped``
+    back from the device: one wait on the card a step. Unset (the
+    default), no step waits."""
 
     def __init__(self, net: nn.Module, tx: GradientTransformation, lr_schedule: Optional[Callable] = None,
                  config: TrainStepConfig = TrainStepConfig(), margin_warm=None, plateau=None,
-                 report_interval: int = 100, reporter=None, device: Any = None, step_fn: Optional[Callable] = None):
+                 report_interval: int = 100, reporter=None, device: Any = None, step_fn: Optional[Callable] = None,
+                 nan_debug_dir: Optional[str] = None):
         self.net = net
         self.tx = tx
         self.lr_schedule = lr_schedule
@@ -406,6 +411,7 @@ class Trainer:
         self.report_interval = report_interval
         self.reporter = reporter
         self.device = resolve_device(device)
+        self.nan_debug_dir = nan_debug_dir
         self.epoch_stats: Dict[str, Any] = {}
         self._train_step = step_fn if step_fn is not None else make_train_step(net, tx, lr_schedule, config)
         self._takes_step_index = "step_index" in inspect.signature(self._train_step).parameters
@@ -464,6 +470,12 @@ class Trainer:
             n += 1
             for k in ("loss", "accuracy", "skipped"):
                 sums[k] = metrics[k] if k not in sums else sums[k] + metrics[k]
+            if self.nan_debug_dir is not None and float(metrics["skipped"]) > 0:
+                # the forensic dump (JAX trainer.py:623-630): reading
+                # "skipped" waits on the card, so only when asked for
+                from .debug import dump_nan_batch
+
+                dump_nan_batch(self.nan_debug_dir, state, batch, metrics, step=host_step + n)
             if n % self.report_interval == 0:
                 m = _fetch(metrics)
                 rate = self.report_interval / (time.perf_counter() - t0)

@@ -3,6 +3,7 @@ of asv_subtools_tpu/utils/__init__.py)."""
 
 import logging
 import random
+import time
 
 import numpy as np
 
@@ -34,4 +35,26 @@ def init_logger(name: str = "asv_subtools_tpu_torch", level: int = logging.INFO)
     return logger
 
 
-__all__ = ["assign_params_dict", "init_logger", "load_yaml", "save_yaml", "set_all_seed", "split_params"]
+class Timer:
+    """Context or manual wall-clock timer (parity: utils.Timer
+    utils.py:606-613): ``elapse()`` since the last ``reset()``; as a
+    context, ``elapsed`` holds the block's seconds."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self._start = time.perf_counter()
+
+    def elapse(self) -> float:
+        return time.perf_counter() - self._start
+
+    def __enter__(self):
+        self.reset()
+        return self
+
+    def __exit__(self, *a):
+        self.elapsed = self.elapse()
+
+
+__all__ = ["Timer", "assign_params_dict", "init_logger", "load_yaml", "save_yaml", "set_all_seed", "split_params"]

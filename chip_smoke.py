@@ -47,8 +47,8 @@ Phases (any failure raises and the script exits non-zero):
      statistics pooling on, held against the same model with the flag off
      fed by the plain front end and against an f32 model on the f32 plain
      front end; timed with the flag on and off; one batch profiled; then the Extractor run as in 6.
-     The launch counters are zeroed just before each of the nineteen
-     main paths (6 to 24) drives the port and read just after; every
+     The launch counters are zeroed just before each main path (6 to
+     26) drives the port and read just after; every
      kernel of a path must have been launched in it.
   8. the train step of ECAPA-TDNN C1024 (SpeakerNet with the sub-centre
      top-k AAM head over 5994 classes, seeded random weights, bf16
@@ -321,7 +321,31 @@ Phases (any failure raises and the script exits non-zero):
      200-2000 frames through embed_request, each reply within 0.99999 of
      server.embed, a bad magic answered with E = 0; requests/s, p50/p99
      latency and launches a request.
- 26. a "kernels" JSON line, then the device JSON as the last line.
+ 26. the tail of the host front end and its tools. (a) compute_mfcc
+     (sre-mfcc-23's options, read by options_from_kaldi_conf from a conf
+     file the phase writes), compute_plp, compute_spectrogram and the
+     VTLN-warped fbank (80 bins, warp 0.9) on the served [128, 160000] f32
+     batch on the card, each DFT mode; rows 0-15 against the same
+     function in float64 on the CPU (MFCC and PLP at 2e-4, the
+     spectrogram and the warped fbank at 2e-3 absolute); ms per batch.
+     (b) The OLR recipe's configuration (extended_xvector 512, AM m=0.2,
+     SGD warmR, 3.0 s chunks) through the Launcher on data.feat_type
+     mfcc_pitch with 23 mel bins (13 MFCCs + 3 pitch columns): 10
+     synthetic languages x 32 training utterances, B=64, one epoch;
+     stages 0-2 and stage 3's Cavg (lbfgs); the median steady step, the
+     first batch's fill, the host's wait for data after it and its share,
+     the host's pitch time for a 3.0 s utterance; the loss finite,
+     the ark/scp read back. (c) Two bf16 copies of the trained model, one
+     with the fused statistics pooling (K4 on [B, 1500, T] memory), on
+     one egs batch at cosine 0.9999; K4 then against its plain version on
+     that pooling input and timed. (d) augment_data_dir, generate_trials
+     and split_enroll_test_by_trials on a small synthetic datadir
+     (seconds, counts). (e) The four dropout layers in train mode on a
+     [128, 200, 80] batch (keep rates; eval mode the identity); a Trainer
+     with nan_debug_dir fed one NaN batch writes one dump, whose replay on
+     the card finds the input bad, the weights finite and the loss not;
+     flops_estimate of the served ECAPA C1024 batch.
+ 27. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
 line) is device time over many launches back to back: one CUDA event, N
@@ -3683,6 +3707,322 @@ def phase_checkpoints_and_serving(torch, device_label):
     torch.cuda.empty_cache()
     return counts
 
+# Phase 26: the host front end's tail, the data-dir tools, offline
+# augmentation, the dropout layers, NaN forensics and the FLOP counter.
+SRE_MFCC_23 = "--sample-frequency=16000\n--frame-length=25\n--low-freq=20\n--high-freq=-200\n--num-mel-bins=23\n--num-ceps=23\n"
+TAIL_ROWS = 16  # rows of the served batch held against the CPU's float64 result
+# f32 on the card against the CPU's float64, (atol, rtol) per feature:
+# MFCC and PLP at the 2e-4 of JAX's own f32 parity gates; the spectrogram
+# and the warped fbank keep the lowest DFT bin, whose power the
+# preemphasis leaves tiny, so the f32 DC removal moves its log by up to
+# about 1.5e-3: 2e-3 absolute, JAX's golden bound (tests/golden_features.py)
+TAIL_TOL = {"mfcc": (2e-4, 2e-4), "plp": (2e-4, 2e-4), "spectrogram": (2e-3, 0.0), "vtln_fbank": (2e-3, 0.0)}
+# the OLR recipe on mfcc_pitch, cut: 10 languages x 32 training utterances
+# of 2.5-4.0 s and 4 evaluation ones, B = 64, one epoch of a few steps.
+# The recipe's B = 256 for several steady steps would take some 1500
+# chunks of the host's numpy pitch (about 0.1 s each) and as many
+# extracted utterances: minutes of the script's time limit
+TAIL_LANGS, TAIL_TRAIN_UTTS, TAIL_EVAL_UTTS, TAIL_BATCH = 10, 32, 4, 64
+TAIL_COSINE = 0.9999  # phase_served_xvector's bar: K4 against the unfused pooling, bf16
+
+
+def warped_fbank(torch, x, opts, warp: float, mode: str):
+    """The VTLN-warped log-mel fbank (no energy column) from the front
+    end's pieces: compute_fbank takes no warp, mel_banks does."""
+    from asv_subtools_tpu_torch import features as F
+    from asv_subtools_tpu_torch.features.functional import _frames_and_energy
+
+    fo = opts.frame_opts
+    padded, _ = _frames_and_energy(x, fo, False, True, None)
+    spec = F.power_spectrum(padded, fo, keep_bins=fo.padded_window_size // 2, fft_mode=mode)
+    mel = spec @ torch.as_tensor(F.mel_banks(opts.mel_opts, fo, warp), dtype=spec.dtype, device=spec.device)
+    return torch.log(torch.clamp_min(mel, F.EPSILON))
+
+
+def _tail_features(torch, tmp: str) -> None:
+    """(a) MFCC (sre-mfcc-23's options, read from a conf file), PLP, the
+    spectrogram and the VTLN-warped fbank (80 bins, warp 0.9) on the
+    served [128, 160000] f32 batch on the card, in both DFT modes; rows
+    0-15 held against the same function in float64 on the CPU; ms per
+    batch (CUDA events, 3 batches back to back)."""
+    from asv_subtools_tpu_torch import features as F
+
+    conf = f"{tmp}/sre-mfcc-23.conf"
+    with open(conf, "w") as f:
+        f.write(SRE_MFCC_23)
+    mfcc = F.options_from_kaldi_conf(conf, "mfcc")
+    check(mfcc.num_ceps == mfcc.mel_opts.num_bins == 23 and mfcc.mel_opts.high_freq == -200,
+          f"sre-mfcc-23.conf parsed wrong: {mfcc}")
+    fbank80 = F.FbankOptions(mel_opts=F.MelOptions(num_bins=80))
+    runs = {
+        "mfcc": ("sre-mfcc-23", lambda x, mode: F.compute_mfcc(x, mfcc, fft_mode=mode)),
+        "plp": ("", lambda x, mode: F.compute_plp(x, F.PlpOptions(), fft_mode=mode)),
+        "spectrogram": ("", lambda x, mode: F.compute_spectrogram(x, F.SpectrogramOptions(), fft_mode=mode)),
+        "vtln_fbank": ("80 bins, warp 0.9", lambda x, mode: warped_fbank(torch, x, fbank80, 0.9, mode)),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 160)
+    wave = torch.randn((BATCH, SAMPLES), generator=gen, device="cuda") * 1000.0
+    rows = wave[:TAIL_ROWS].cpu().double()
+    audio_s = BATCH * SAMPLES / 16000.0
+    with torch.inference_mode():
+        for name, (note, fn) in runs.items():
+            atol, rtol = TAIL_TOL[name]
+            want = fn(rows, "rfft")
+            for mode in ("gemm", "rfft"):
+                got = fn(wave, mode)
+                torch.cuda.synchronize()
+                check(got.device.type == "cuda" and bool(torch.isfinite(got).all()), f"{name} ({mode}) not finite")
+                rows_got = got[:TAIL_ROWS].double().cpu()
+                err = float((rows_got - want).abs().max())
+                ok = bool(torch.allclose(rows_got, want, atol=atol, rtol=rtol))
+                ms = device_ms(torch, lambda: fn(wave, mode), n=3, warmup=1, runs=3)
+                print(f"tail features {name}{f' ({note})' if note else ''} [{BATCH},{SAMPLES}] f32 -> "
+                      f"{list(got.shape)}, DFT {mode}: {ms:.2f} ms/batch ({audio_s / ms * 1e3:.0f} audio-s/s), rows "
+                      f"0-{TAIL_ROWS - 1} against the CPU's float64: max abs err {err:.3e} (atol {atol}, rtol "
+                      f"{rtol})", flush=True)
+                check(ok, f"{name} ({mode}) on the card disagrees with the CPU's float64 result")
+                del got
+
+
+def _tail_olr(torch, data: str, exp: str, device_label: str):
+    """(b) The OLR recipe's configuration through the Launcher on
+    data.feat_type mfcc_pitch (23 mel bins: 13 MFCCs + 3 pitch columns):
+    stages 0-2, then stage 3's Cavg (lbfgs). -> (launcher, first batch of
+    the egs)."""
+    import os
+
+    from asv_subtools_tpu_torch.features import PitchOptions, compute_and_process_pitch
+    from asv_subtools_tpu_torch.io import read_vec_flt_scp, read_wav
+    from asv_subtools_tpu_torch.launcher import Launcher
+    from asv_subtools_tpu_torch.recipes import olr
+
+    params = olr.recipe_params(data, exp, epochs=1, batch_size=TAIL_BATCH)
+    params["data"].update(feat_type="mfcc_pitch", num_bins=23)
+    t0 = time.perf_counter()
+    launcher = Launcher(params)
+    egs = launcher.build_egs()
+    launcher.build_model()
+    launcher.train(egs)
+    extracted = {subset: launcher.extract(os.path.join(data, subset, "wav.scp"), os.path.join(exp, f"xvector_{subset}"))
+                 for subset in ("train", "eval")}
+    t_score = time.perf_counter()
+    out = olr.score_languages(data, exp, "lbfgs")
+    run_s, score_s = time.perf_counter() - t0, time.perf_counter() - t_score
+    check(launcher.feat_dim == 16, f"mfcc_pitch at 23 bins should give 16 columns, got {launcher.feat_dim}")
+    print(f"tail OLR on mfcc_pitch (extended_xvector width 512, B {TAIL_BATCH}, 3.0 s chunks, {TAIL_LANGS} languages "
+          f"x {TAIL_TRAIN_UTTS} training utterances, 16 feature columns): stages 0-3 in {run_s:.1f} s on "
+          f"{device_label}", flush=True)
+    losses = []
+    for stats in launcher.epoch_stats:
+        m, wait, steps = stats["metrics"], stats["data_wait_s"], stats["step_ms"]
+        losses.append(m["loss"])
+        check(len(steps) >= 3, f"the tail OLR epoch took {len(steps)} steps, too few for a steady median")
+        # the first step builds cuDNN's plans and the first batch fills the
+        # pipeline: both are left out of the steady numbers
+        after_fill = stats["wall_s"] - wait[0]
+        print(f"tail OLR epoch {stats['epoch']}: {stats['steps']} steps, the steady ones (2-{len(steps)}) "
+              f"{float(np.median(steps[1:])):.2f} ms/step (median, CUDA events; all: "
+              + ", ".join(f"{x:.1f}" for x in steps) + f"); the first batch's fill {wait[0]:.2f} s, then the "
+              f"host's wait for data {sum(wait[1:]):.2f} s of the {after_fill:.2f} s after it "
+              f"({sum(wait[1:]) / after_fill:.3f}); the whole epoch {stats['wall_s']:.2f} s, {sum(wait):.2f} s "
+              f"waiting; loss {m['loss']:.4f}, accuracy {m['accuracy']:.4f}", flush=True)
+    read = {}
+    for subset, n in (("train", TAIL_LANGS * TAIL_TRAIN_UTTS), ("eval", TAIL_LANGS * TAIL_EVAL_UTTS)):
+        embs = dict(read_vec_flt_scp(os.path.join(exp, f"xvector_{subset}.scp")))
+        read[subset] = len(embs) == n and all(v.shape == (512,) and np.isfinite(v).all() for v in embs.values())
+        st = extracted[subset]
+        print(f"tail OLR extraction of the {subset} list (host mfcc_pitch): {st['utts']} utterances, {st['frames']} "
+              f"frames in {st['batches']} batches, {st['wall_s']:.2f} s wall, {st['device_s']:.2f} s device", flush=True)
+    with open(os.path.join(data, "train", "wav.scp")) as f:
+        wav, sr = read_wav(f.readline().split(None, 1)[1].strip())
+    wav = np.asarray(wav, np.float64).reshape(-1)[: 3 * sr]
+    t0 = time.perf_counter()
+    for _ in range(3):
+        compute_and_process_pitch(wav, PitchOptions(samp_freq=float(sr)))
+    pitch_s = (time.perf_counter() - t0) / 3
+    print(f"tail OLR: stage 3 (lbfgs, {score_s:.1f} s on the host) Cavg {out['Cavg']:.4f}, EER {out['EER%']:.2f}% "
+          f"(not gated); ark/scp read back {read}; the host's pitch of one 3.0 s utterance {pitch_s:.3f} s", flush=True)
+    check(len(losses) == 1 and all(np.isfinite(x) for x in losses), f"a tail OLR epoch loss was not finite: {losses}")
+    check(all(read.values()), f"the tail OLR ark/scp did not read back: {read}")
+    check(np.isfinite(out["Cavg"]), "the tail OLR Cavg is not finite")
+    egs.set_epoch(0)
+    return launcher, next(iter(egs))
+
+
+def _tail_k4(torch, launcher, batch):
+    """(c) Two bf16 copies of the trained E-TDNN, one with
+    stats.fused_inference: one batch of the egs' own host features through
+    both. -> (fused copy, unfused copy, features, mask)."""
+    backbone = launcher.net.backbone
+    tensors = {k[len("backbone."):]: v for k, v in {**launcher.state.params, **launcher.state.batch_stats}.items()
+               if k.startswith("backbone.")}
+    off16 = copy.deepcopy(backbone)
+    off16.load_state_dict(tensors)
+    off16 = off16.eval().to(torch.bfloat16)
+    on16 = copy.deepcopy(off16)
+    on16.stats.fused_inference = True
+    x = torch.as_tensor(batch["x"]).to("cuda", torch.bfloat16)
+    mask = torch.as_tensor(batch["mask"]).to("cuda") if "mask" in batch else None
+    with torch.inference_mode():
+        on, off = on16(x, mask), off16(x, mask)
+    torch.cuda.synchronize()
+    c = float(cosine(on, off).min())
+    print(f"tail K4: the trained E-TDNN bf16 on one egs batch of host mfcc_pitch features {list(x.shape)}: min "
+          f"per-utterance cosine fused pooling vs unfused {c:.6f} (>= {TAIL_COSINE})", flush=True)
+    check(bool(torch.isfinite(on.float()).all()) and c >= TAIL_COSINE,
+          "the fused statistics pooling disagrees with the unfused one on the mfcc_pitch model")
+    return on16, x, mask
+
+
+def _tail_host(tmp: str) -> None:
+    """(d) augment_data_dir on a 6-utterance datadir (the manifests of
+    tests/test_offline_aug.py), then generate_trials and
+    split_enroll_test_by_trials on the result."""
+    from asv_subtools_tpu_torch.datadir import DataDir, generate_trials, split_enroll_test_by_trials
+    from asv_subtools_tpu_torch.io import write_wav
+    from asv_subtools_tpu_torch.offline_aug import augment_data_dir
+
+    import os
+
+    sr = 16000
+    rng = np.random.default_rng(SEED + 161)
+    os.makedirs(f"{tmp}/aug/wavs")
+    tables = {"wav.scp": {}, "utt2spk": {}}
+    for i in range(6):
+        path = f"{tmp}/aug/wavs/utt{i}.wav"
+        write_wav(path, (rng.normal(size=sr // 2) * 3000).astype(np.float32), sr)
+        tables["wav.scp"][f"utt{i}"], tables["utt2spk"][f"utt{i}"] = path, f"spk{i % 3}"
+    DataDir(tables).write(f"{tmp}/aug/clean")
+    csvs = {}
+    for kind, n in (("rir", 2), ("noise", 3), ("music", 2), ("babble", 4)):
+        rows = ["ID,duration,wav,wav_format,type"]
+        for i in range(n):
+            sig = np.zeros(1600, np.float32) if kind == "rir" else (rng.normal(size=sr) * 2000).astype(np.float32)
+            if kind == "rir":
+                sig[0], sig[200] = 1.0, 0.4
+            write_wav(f"{tmp}/aug/{kind}{i}.wav", sig, sr)
+            rows.append(f"{kind}{i},1.0,{tmp}/aug/{kind}{i}.wav,wav,{kind}")
+        with open(f"{tmp}/aug/{kind}.csv", "w") as f:
+            f.write("\n".join(rows) + "\n")
+        csvs[kind] = f"{tmp}/aug/{kind}.csv"
+    t0 = time.perf_counter()
+    out = augment_data_dir(f"{tmp}/aug/clean", f"{tmp}/aug/out", reverb_csv=csvs["rir"], noise_csv=csvs["noise"],
+                           music_csv=csvs["music"], babble_csv=csvs["babble"], factor=2.0, seed=SEED + 162)
+    aug_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trials = generate_trials(out, seed=SEED + 163)
+    enroll, test = split_enroll_test_by_trials(out, trials)
+    trials_s = time.perf_counter() - t0
+    targets = sum(t[2] for t in trials)
+    print(f"tail host: augment_data_dir 6 clean utterances x 4 types, factor 2 -> {len(out)} utterances in "
+          f"{aug_s:.3f} s; generate_trials {len(trials)} trials ({targets} target), enroll {len(enroll)} / test "
+          f"{len(test)} utterances in {trials_s:.4f} s", flush=True)
+    check(len(out) == 18 and targets > 0 and len(enroll) > 0 and len(test) > 0,
+          f"the host data-dir tools gave {len(out)} utterances, {len(trials)} trials")
+
+
+def _tail_dropout_and_forensics(torch, tmp: str) -> None:
+    """(e) The four dropouts in train mode on a [128, 200, 80] batch on
+    the card; a Trainer with nan_debug_dir fed one NaN batch, its dump
+    replayed on the card."""
+    import importlib
+    import os
+
+    from asv_subtools_tpu_torch.models import SpeakerNet, Xvector
+    from asv_subtools_tpu_torch.train import Trainer, TrainStepConfig, get_optimizer
+    from asv_subtools_tpu_torch.train.debug import replay_nan_batch
+
+    drop = importlib.import_module("asv_subtools_tpu_torch.nn.dropout")
+    x = torch.ones((128, 200, 80), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 164)
+    rates = {}
+    for name, layer in (("ContextDropout(0.2)", drop.ContextDropout(0.2)), ("RandomDropout(0.4)", drop.RandomDropout(0.4)),
+                        ("NoiseDropout(0.1)", drop.NoiseDropout(0.1)),
+                        ("SpecAugmentDropout(0.2, 0.2)", drop.SpecAugmentDropout(0.2, 0.2))):
+        y = layer(x, generator=gen)
+        check(layer(x, train=False) is x, f"{name} in eval mode is not the identity")
+        rates[name] = float((y != 0).float().mean())
+    rate_ok = abs(rates["ContextDropout(0.2)"] - 0.8) < 0.01 and 0.6 <= rates["RandomDropout(0.4)"] <= 1.0
+    rate_ok &= rates["NoiseDropout(0.1)"] == 1.0 and 0.6 < rates["SpecAugmentDropout(0.2, 0.2)"] < 1.0
+    print("tail dropouts on the card, train mode, [128, 200, 80]: share of values kept "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rates.items()) + "; eval mode the identity", flush=True)
+    check(rate_ok, f"a dropout's keep rate is off: {rates}")
+
+    rng = np.random.default_rng(SEED + 165)
+    good = {"x": torch.from_numpy(rng.standard_normal((8, 200, 80)).astype(np.float32)).pin_memory(),
+            "y": torch.from_numpy(rng.integers(0, 8, 8)).pin_memory()}
+    bad = dict(good, x=torch.full((8, 200, 80), float("nan")).pin_memory())
+    net = lambda: SpeakerNet(Xvector(80, 512, 512, device="cpu"), "softmax", {}, num_targets=8)
+    trainer = Trainer(net(), get_optimizer("sgd", learning_rate=1e-2), report_interval=100,
+                      config=TrainStepConfig(compute_dtype=torch.float32), nan_debug_dir=f"{tmp}/nan")
+    state, out = trainer.run_epoch(trainer.init_state(), iter([good, bad, good]),
+                                   torch.Generator(device="cuda").manual_seed(0))
+    dumps = sorted(os.listdir(f"{tmp}/nan"))
+    report = replay_nan_batch(f"{tmp}/nan/{dumps[0]}", net()) if len(dumps) == 1 else {}
+    print(f"tail NaN forensics: Xvector 512 on the card, 3 steps with one NaN batch: skipped {out['skipped']:.0f}, "
+          f"dumps {dumps}; replay on the card {report}", flush=True)
+    check(out["skipped"] == 1.0 and dumps == ["nan_batch_step2.pkl"], f"the NaN dump went wrong: {dumps}")
+    check(report["x_finite"] is False and report["params_finite"] is True and report["loss_finite"] is False,
+          f"the replay did not localise the bad input: {report}")
+
+
+def _tail_flops(torch) -> None:
+    """(e) flops_estimate of the served ECAPA C1024 bf16 batch (features in)."""
+    from asv_subtools_tpu_torch.models import EcapaTdnn
+    from asv_subtools_tpu_torch.utils.profiling import flops_estimate
+    from asv_subtools_tpu_torch.weights import init_ecapa_weights_
+
+    model = init_ecapa_weights_(EcapaTdnn(80, channels=1024, embd_dim=192, mfa_conv=1536), SEED).to(
+        "cuda", torch.bfloat16).eval()
+    feats = torch.randn((BATCH, 998, 80), generator=torch.Generator(device="cuda").manual_seed(SEED + 166),
+                        device="cuda").to(torch.bfloat16)
+    cost = flops_estimate(model, feats, None)
+    print(f"tail flops_estimate of the served ECAPA C1024 batch (bf16 [{BATCH}, 998, 80] features in, "
+          f"torch.utils.flop_counter): {cost['flops'] / 1e9:.1f} GFLOP; bytes_accessed {cost['bytes_accessed']}, "
+          f"transcendentals {cost['transcendentals']} (torch counts neither)", flush=True)
+    check(cost["flops"] > 0, "flops_estimate counted nothing")
+    del model
+
+
+def phase_tail(torch, device_label):
+    """Phase 26 (see the docstring): (a) the host features on the card,
+    (b) the OLR recipe on mfcc_pitch through the Launcher, (c) K4 on that
+    model, (d) host data-dir tools and offline augmentation, (e) the
+    dropouts, NaN forensics and the FLOP counter. The counters run from
+    (a) to (c); K4 is held against its plain version after them."""
+    import os
+
+    from asv_subtools_tpu_torch.recipes.synthetic import write_corpus
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = write_corpus(f"{tmp}/data", num_spks=TAIL_LANGS, train_per_spk=TAIL_TRAIN_UTTS,
+                            eval_per_spk=TAIL_EVAL_UTTS, dur=(2.5, 4.0), seed=SEED + 167, num_langs=TAIL_LANGS)
+        corpus_s = time.perf_counter() - t0
+        print(f"tail: corpus written in {corpus_s:.1f} s", flush=True)
+        zero_launches()
+        _tail_features(torch, tmp)
+        torch.cuda.empty_cache()
+        launcher, batch = _tail_olr(torch, data, f"{tmp}/exp", device_label)
+        on16, x, mask = _tail_k4(torch, launcher, batch)
+        counts = read_launches("tail (mfcc_pitch E-TDNN, fused pooling)", ("fused_stats_pooling",))
+        seen = {}
+        hook = on16.stats.register_forward_hook(lambda mod, args, out: seen.update(x=args[0], mask=args[1]))
+        with torch.inference_mode():
+            on16(x, mask)
+        hook.remove()
+        pool_mask = seen["mask"] if seen["mask"] is not None else torch.ones(seen["x"].shape[:2], dtype=torch.bool,
+                                                                             device="cuda")
+        _k4_on_the_model(torch, seen["x"], pool_mask, "mfcc_pitch E-TDNN")
+        del launcher, on16, seen
+        torch.cuda.empty_cache()
+        _tail_host(tmp)
+        _tail_dropout_and_forensics(torch, tmp)
+        _tail_flops(torch)
+    print(f"tail: phase 26 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
 
 def main() -> int:
     try:
@@ -3745,6 +4085,8 @@ def main() -> int:
     paths.append(phase_conformer_family(torch, smi))
     torch.cuda.empty_cache()
     paths.append(phase_checkpoints_and_serving(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_tail(torch, smi))
     for kernel_name, k in kernels.items():
         k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -1572,3 +1572,102 @@ def test_chip_smoke_phase_25_runs(card):
     counts = chip_smoke.phase_checkpoints_and_serving(torch, "card test")
     assert all(counts[k] > 0 for k in ("fused_fbank", "fused_attentive_stats_pool", "fused_res2_chain",
                                        "fused_stats_pooling"))
+
+
+def _warped_fbank(F, x, opts, warp, mode):
+    """The VTLN-warped log-mel fbank from the front end's pieces, as
+    chip_smoke.py's warped_fbank builds it (compute_fbank takes no warp)."""
+    from asv_subtools_tpu_torch.features.functional import _frames_and_energy
+
+    fo = opts.frame_opts
+    padded, _ = _frames_and_energy(x, fo, False, True, None)
+    spec = F.power_spectrum(padded, fo, keep_bins=fo.padded_window_size // 2, fft_mode=mode)
+    mel = spec @ torch.as_tensor(F.mel_banks(opts.mel_opts, fo, warp), dtype=spec.dtype, device=spec.device)
+    return torch.log(torch.clamp_min(mel, F.EPSILON))
+
+
+HOST_FEATURES = {  # the host front end's features and (atol, rtol) in f32, as phase_tail of chip_smoke.py runs them
+    "mfcc": (lambda F: (lambda x, mode: F.compute_mfcc(x, F.MfccOptions(
+        mel_opts=F.MelOptions(num_bins=23, high_freq=-200.0), num_ceps=23), fft_mode=mode)), (2e-4, 2e-4)),
+    "plp": (lambda F: (lambda x, mode: F.compute_plp(x, F.PlpOptions(), fft_mode=mode)), (2e-4, 2e-4)),
+    "spectrogram": (lambda F: (lambda x, mode: F.compute_spectrogram(x, F.SpectrogramOptions(), fft_mode=mode)),
+                    (2e-3, 0.0)),
+    "vtln_fbank": (lambda F: (lambda x, mode: _warped_fbank(
+        F, x, F.FbankOptions(mel_opts=F.MelOptions(num_bins=80)), 0.9, mode)), (2e-3, 0.0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HOST_FEATURES))
+@pytest.mark.parametrize("mode", ["gemm", "rfft"])
+def test_host_features_on_the_card_match_the_cpu_in_f64(card, name, mode):
+    """MFCC, PLP, the spectrogram and the VTLN-warped fbank in f32 on the
+    card (TF32 off) against the same function in float64 on the CPU, at
+    chip_smoke.py's TAIL_TOL: MFCC and PLP 2e-4, the spectrogram and the
+    warped fbank 2e-3 absolute (their lowest DFT bin); the card in float64
+    against the CPU in float64 at 1e-8."""
+    from asv_subtools_tpu_torch import features as F
+
+    make, (atol, rtol) = HOST_FEATURES[name]
+    fn = make(F)
+    wave = torch.randn((4, 48000), generator=torch.Generator().manual_seed(3)) * 1000.0
+    want = fn(wave.double(), "rfft")
+    got = fn(wave.to(card), mode)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu().double(), want, rtol=rtol, atol=atol)
+    torch.testing.assert_close(fn(wave.double().to(card), mode).cpu(), want, rtol=1e-8, atol=1e-8)
+
+
+def test_dropouts_on_the_card_keep_their_rates(card):
+    import importlib
+
+    drop = importlib.import_module("asv_subtools_tpu_torch.nn.dropout")
+    x = torch.ones((128, 200, 80), device=card)
+    gen = torch.Generator(device=card).manual_seed(0)
+    keep = drop.ContextDropout(0.2)(x, generator=gen)
+    assert keep.device.type == "cuda" and abs(float((keep > 0).float().mean()) - 0.8) < 0.01
+    assert float(keep.max()) == pytest.approx(1.25)
+    rate, mask = drop.RandomDropout(0.4).draw(x, gen)
+    assert 0.0 <= float(rate) <= 0.4 and abs(float(mask.float().mean()) - (1.0 - float(rate))) < 0.01
+    noise = drop.NoiseDropout(0.1)(x, generator=gen)
+    assert float((noise - 1.0).abs().max()) <= 0.1 and abs(float(noise.mean()) - 1.0) < 1e-3
+    spec = drop.SpecAugmentDropout(frequency=0.2, frame=0.2)(x, generator=gen)
+    zero_bins = (spec == 0).all(1).sum(-1)
+    zero_frames = (spec == 0).all(2).sum(-1)
+    assert int(zero_bins.max()) <= 16 and int(zero_frames.max()) <= 40 and int(zero_bins.sum()) > 0
+    for layer in (drop.ContextDropout(0.2), drop.RandomDropout(0.4), drop.NoiseDropout(0.1),
+                  drop.SpecAugmentDropout()):
+        assert layer(x, train=False) is x
+
+
+def test_nan_batch_dump_on_the_card(card, tmp_path):
+    """A Trainer on the card fed finite, NaN, finite batches: with
+    nan_debug_dir one dump, whose replay on the card finds the input bad
+    and the weights finite; without it the epoch waits on the card only
+    where it fetches (the step counter and the epoch's end)."""
+    import numpy as np
+
+    from asv_subtools_tpu_torch.models import SpeakerNet, Xvector
+    from asv_subtools_tpu_torch.train import Trainer, TrainStepConfig, get_optimizer
+    from asv_subtools_tpu_torch.train.debug import replay_nan_batch
+    from asv_subtools_tpu_torch.train.step_check import host_waits
+
+    rng = np.random.default_rng(0)
+    # pinned, as the Launcher's Prefetcher hands batches over
+    good = {"x": torch.from_numpy(rng.standard_normal((8, 40, 16)).astype(np.float32)).pin_memory(),
+            "y": torch.from_numpy(rng.integers(0, 4, 8)).pin_memory()}
+    bad = dict(good, x=torch.full((8, 40, 16), float("nan")).pin_memory())
+    net = lambda: SpeakerNet(Xvector(16, 32, 8, device="cpu"), "softmax", {}, num_targets=4)
+    waits = {}
+    for where in (None, str(tmp_path / "nan")):
+        trainer = Trainer(net(), get_optimizer("sgd", learning_rate=1e-2), report_interval=100,
+                          config=TrainStepConfig(compute_dtype=torch.float32), nan_debug_dir=where)
+        state = trainer.init_state()
+        (state, out), waits[where] = host_waits(
+            lambda: trainer.run_epoch(state, iter([good, bad, good]), torch.Generator(device=card).manual_seed(0)))
+        assert out["skipped"] == 1.0
+    assert len(waits[None]) == 2, waits[None]
+    assert len(waits[str(tmp_path / "nan")]) > 2
+    dumps = sorted((tmp_path / "nan").iterdir())
+    assert [p.name for p in dumps] == ["nan_batch_step2.pkl"]
+    report = replay_nan_batch(str(dumps[0]), net())
+    assert report["x_finite"] is False and report["params_finite"] is True and report["loss_finite"] is False

@@ -351,7 +351,6 @@ def test_roadmap_two_phase_run_with_transfer(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"data": {"feat_type": "mfcc", "compute_feat": True}}, 11),
     ({"data": {"feat_backend": "native"}}, 10),
     ({"train": {"fsdp": True}}, 5),
 ])

@@ -116,12 +116,14 @@ def asnorm_device(
     ddof-1 std (floored at 1e-12 before the root). Takes numpy arrays or
     tensors; returns a tensor on ``device`` (the card unless ``"cpu"``).
 
-    ``mesh`` (rows sharded over several devices) is ROADMAP Queue 1 item 5.
+    With ``mesh`` (parallel/mesh.py; every rank passes the same inputs)
+    the trial rows and both cohort matrices are split row-wise over
+    ``"data"`` (zero rows pad them to a multiple of its size, as JAX's
+    :136-167): each rank takes the top-k statistics of its enroll and test
+    cohort rows, the test-side statistics are all-gathered, each rank
+    normalises its trial rows, and the result is all-gathered whole on
+    every rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "asnorm_device(mesh=...) (trial rows sharded over several devices) "
-            "is not ported yet (ROADMAP Queue 1 item 5)")
     dev = resolve_device(device)
     raw = torch.as_tensor(raw).to(device=dev, dtype=torch.float32)
     ec = torch.as_tensor(enroll_cohort).to(device=dev, dtype=torch.float32)
@@ -134,9 +136,29 @@ def asnorm_device(
         var = ((top - mean[:, None]) ** 2).sum(dim=1) / max(k - 1, 1)
         return mean, torch.sqrt(torch.clamp_min(var, 1e-12))
 
-    em, es = stats(ec)
-    tm, ts = stats(tc)
-    return 0.5 * ((raw - em[:, None]) / es[:, None] + (raw - tm[None, :]) / ts[None, :])
+    if mesh is None:
+        em, es = stats(ec)
+        tm, ts = stats(tc)
+        return 0.5 * ((raw - em[:, None]) / es[:, None] + (raw - tm[None, :]) / ts[None, :])
+
+    from ..parallel.comm import all_gather_rows
+    from ..parallel.mesh import DATA_AXIS, mesh_axis
+
+    axis = mesh_axis(mesh, DATA_AXIS)
+    e, t = raw.shape
+
+    def my_rows(m):
+        """This rank's rows of ``m``, zero-padded to a multiple of the data size."""
+        n = -(-m.shape[0] // axis.size)
+        if n * axis.size != m.shape[0]:
+            m = torch.nn.functional.pad(m, (0, 0, 0, n * axis.size - m.shape[0]))
+        return m[axis.rank * n:(axis.rank + 1) * n]
+
+    em, es = stats(my_rows(ec))
+    tm, ts = (all_gather_rows(v, axis)[:t] for v in stats(my_rows(tc)))
+    mine = my_rows(raw)
+    out = 0.5 * ((mine - em[:, None]) / es[:, None] + (mine - tm[None, :]) / ts[None, :])
+    return all_gather_rows(out, axis)[:e]
 
 
 def cosine_score_matrix(enroll: torch.Tensor, test: torch.Tensor, normalize: bool = True) -> torch.Tensor:

@@ -294,9 +294,16 @@ def compute_feats(opts=None, feat_type: str = "fbank", cmvn: bool = True,
     make_fbank_pitch.sh: paste-feats of the base matrix with
     process-pitch-feats output), both cut to the shorter; CMVN runs over
     the concatenated matrix like apply-cmvn on the full dim (JAX
-    data/processor.py:280-340). ``backend="native"`` (the C++ front end)
-    is ROADMAP item 10 and raises NotImplementedError; ``backend="numpy"``
-    names the JAX package's host path, which this stage matches.
+    data/processor.py:280-340). ``backend="numpy"`` names the JAX
+    package's host path, which this stage matches. ``backend="native"``
+    computes the base matrix with the C++ front end (features/native.py,
+    within 1e-3 of fbank and 2e-3 of MFCC; pitch stays the port's) and
+    raises ValueError here, before any utterance, for an option the C API
+    cannot express (JAX computes those utterances with numpy instead).
+    ``backend="auto"`` keeps JAX's choice per utterance: native where the
+    options allow it and the C call succeeds, else the torch path. The
+    library is built and loaded by the process that runs the stage (a
+    spawned worker builds nothing when the file is current).
     """
     from ..features.config import FbankOptions, MfccOptions
 
@@ -304,23 +311,45 @@ def compute_feats(opts=None, feat_type: str = "fbank", cmvn: bool = True,
     with_pitch = feat_type.endswith("_pitch")
     if base_type not in ("fbank", "mfcc"):
         raise ValueError(f"unknown feat_type {feat_type!r}")
-    if backend != "numpy":
-        raise NotImplementedError(
-            f"feat_backend={backend!r}: the native C++ front end is not ported yet (ROADMAP item 10)")
+    if backend not in ("numpy", "native", "auto"):
+        raise ValueError(f"unknown feature backend {backend!r} (numpy | native | auto)")
     if opts is None:
         opts = FbankOptions() if base_type == "fbank" else MfccOptions()
+    use_native = False
+    if backend != "numpy":
+        from ..features import native
+
+        bad = native.unsupported_option(opts, base_type)
+        if backend == "native" and bad is not None:
+            raise ValueError(f"feat_backend='native' cannot express {base_type} option {bad!r}; use 'numpy' "
+                             "or 'auto'")
+        use_native = bad is None
 
     def stage(samples):
         import torch
 
+        from ..features import native
         from ..features.functional import cmvn_utterance, compute_fbank, compute_mfcc
         from ..features.pitch import PitchOptions, compute_and_process_pitch
 
         compute = compute_fbank if base_type == "fbank" else compute_mfcc
+        compute_native = native.native_fbank if base_type == "fbank" else native.native_mfcc
+        if use_native:
+            native.load()  # a missing compiler or a failed build raises here, in every backend
         for s in samples:
             wav = torch.from_numpy(np.asarray(s["wav"], np.float32))
             with torch.no_grad():
-                f = compute(wav, opts, fft_mode="rfft")
+                f = None
+                if use_native:
+                    try:
+                        f = torch.from_numpy(compute_native(s["wav"], opts))
+                    except native.NativeCallError:
+                        # a failed C call: "auto" takes the torch path for
+                        # this utterance, as JAX's None does; "native" raises
+                        if backend == "native":
+                            raise
+                if f is None:
+                    f = compute(wav, opts, fft_mode="rfft")
                 if with_pitch:
                     popts = PitchOptions(samp_freq=float(s.get("sample_rate", 16000)))
                     p = compute_and_process_pitch(np.asarray(s["wav"], np.float64), popts)

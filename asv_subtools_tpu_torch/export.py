@@ -17,7 +17,7 @@ one must have the ops registered first: importing this module (or
 A program is exported for one device and runs there. JAX's
 ``export_pjrt_bundle`` and ``export_pjrt_embed_bundles`` (bundles for the
 native PJRT runner) wait for the CUDA-side executor (ROADMAP Queue 1,
-item 10).
+item 10b).
 """
 
 from __future__ import annotations

@@ -8,6 +8,11 @@ shared header (``csrc/*.cuh``), is newer than it. Every launch function
 returns ``cudaGetLastError()``; the wrappers pass it to :func:`check`,
 which raises if it is not 0.
 
+The native host front end (``runtime/capi.cc`` over
+``runtime/frontend/feature.cc``) is built here too, by :func:`build_capi`:
+plain ``c++`` with the flags of ``runtime/CMakeLists.txt``, into
+``build/libasvtpu_capi.so``. It is host code and needs no CUDA.
+
 Nothing here runs at import: the CPU tests import every module, and a
 CPU-only install has no ``nvcc``.
 """
@@ -18,9 +23,10 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -31,6 +37,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+RUNTIME = _PKG.parent / "runtime"
+CAPI_SOURCES = ("capi.cc", "frontend/feature.cc")
+CAPI_LIB = BUILD_DIR / "libasvtpu_capi.so"
+CXX_FLAGS = ("-std=c++17", "-O3", "-march=native", "-fPIC", "-shared")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -116,3 +127,34 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.asv_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def _capi_stale(lib: Path) -> bool:
+    sources = [RUNTIME / f for f in CAPI_SOURCES] + list((RUNTIME / "frontend").glob("*.h"))
+    return not lib.exists() or lib.stat().st_mtime < max(f.stat().st_mtime for f in sources)
+
+
+def build_capi(lib: Optional[Path] = None) -> float:
+    """Compile ``libasvtpu_capi.so`` (the native host front end) with
+    ``c++`` into ``lib`` (default ``CAPI_LIB``) when it is missing or
+    older than a source or a header of ``runtime/frontend/``. The library
+    is written under a temporary name and renamed, so concurrent builders
+    never load a half-written file (the name holds the process and the
+    thread). Returns the seconds spent; raises with
+    the compiler's output if the compiler is missing or the build fails."""
+    lib = Path(lib) if lib is not None else CAPI_LIB
+    if not _capi_stale(lib):
+        return 0.0
+    cxx = shutil.which(os.environ.get("CXX", "c++"))
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (c++) on PATH: the native host front end cannot be built")
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.parent / f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [cxx, *CXX_FLAGS, "-I", str(RUNTIME), "-o", str(tmp), *(str(RUNTIME / f) for f in CAPI_SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"building the native front end failed ({' '.join(cmd)}):\n{proc.stdout}")
+    os.replace(tmp, lib)
+    return time.perf_counter() - t0

@@ -31,9 +31,20 @@ mfcc_pitch (the *_pitch types append the 3-dim Kaldi pitch); with
 ``data.num_bins`` the mfcc types take ``MfccOptions(mel_opts=...)`` (13
 cepstra). The wave-input path computes fbank only.
 
-Not ported yet; each raises NotImplementedError naming its ROADMAP item:
-``fsdp`` and ``num_model > 1`` (Queue 1 item 5) and the native host front
-end (item 10).
+``data.feat_backend`` picks the host front end: "numpy" (the port's
+torch features), "native" (the C++ front end, features/native.py) or
+"auto" (native per utterance where it can).
+
+Over several devices (one process each, parallel/mesh.py): a ``mesh`` is
+taken as given, or built over the initialised process group when
+``train.num_model`` > 1, ``train.fsdp`` is set or the group has more than
+one process (as JAX's Launcher always builds one over its devices).
+``train.fsdp`` takes ZeRO-3 rules (``make_fsdp_rules``, the classifier on
+``"model"`` when its size is above 1), ``num_model`` > 1 alone the
+row-sharded classifier; every rank builds the same global batches from
+the seed and keeps its rows; rank 0 writes the checkpoints, gathered
+whole in the one-device format. Stages 2 and 3 run on rank 0 (JAX's
+extraction does not use the mesh); the other ranks wait at a barrier.
 
 Two choices differ from the JAX Launcher: the held-out validation egs
 keep their last, partial batch (the JAX egs drop it, so a hold-out
@@ -79,8 +90,9 @@ DEFAULT_PARAMS: Dict[str, Any] = {
         # wave-input path computes fbank only)
         "feat_type": "fbank",
         # host feature backend: "numpy" (the port's torch CPU features,
-        # which match the JAX package's numpy path); "native" is ROADMAP
-        # item 10
+        # which match the JAX package's numpy path), "native" (the C++
+        # front end, features/native.py; raises on an option its C API
+        # cannot express) or "auto" (native where it can, per utterance)
         "feat_backend": "numpy",
         "spec_aug": False,
         "valid_utts": 0,  # hold out N utts for validation (plateau/reporting)
@@ -122,8 +134,11 @@ DEFAULT_PARAMS: Dict[str, Any] = {
         # warmup = cur_step / warmup_steps fed to the encoder's
         # layer-bypass alpha); 0 = off
         "model_warmup_steps": 0,
-        # ROADMAP item 5: model-axis sharding and fully-sharded data parallelism
+        # the mesh's model-axis size (> 1 holds the margin head's classifier
+        # rows over "model": parallel.mesh.classifier_partition_rules)
         "num_model": 1,
+        # ZeRO-3: large masters and their moments sharded over "data"
+        # (parallel.mesh.make_fsdp_rules)
         "fsdp": False,
     },
     # extraction: mode "feature" (host fbank) or "wave" (the fused fbank kernel)
@@ -136,10 +151,6 @@ DEFAULT_PARAMS: Dict[str, Any] = {
         "workers": 8,
     },
 }
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 def _sam_config(t: Dict[str, Any], opt: Dict[str, Any]) -> Optional[tuple]:
@@ -156,8 +167,27 @@ def _sam_config(t: Dict[str, Any], opt: Dict[str, Any]) -> Optional[tuple]:
     return (float(rho), bool(adaptive)) if flag else None
 
 
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier(mesh) -> None:
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
 class Launcher:
-    def __init__(self, params: Optional[Dict] = None, device: Any = None):
+    def __init__(self, params: Optional[Dict] = None, mesh=None, device: Any = None):
         params = params or {}
         self.params = assign_params_dict(DEFAULT_PARAMS, params, support_unknown=True)
         # factory-selection sub-dicts replace the default wholesale when the
@@ -177,8 +207,12 @@ class Launcher:
         self.device = resolve_device(device)
         self.logger = init_logger()
         set_all_seed(self.params["seed"])
-        if int(self.params["train"].get("num_model", 1)) > 1:
-            raise _not_ported("train.num_model > 1 (the model-sharded classifier)", 5)
+        num_model = int(self.params["train"].get("num_model", 1))
+        if mesh is None and (num_model > 1 or self.params["train"].get("fsdp") or _world() > 1):
+            from .parallel import make_mesh
+
+            mesh = make_mesh(num_model=num_model)
+        self.mesh = mesh
         self.spk2int: Optional[Dict] = None
         self.net: Optional[SpeakerNet] = None
         self.state = None
@@ -198,8 +232,6 @@ class Launcher:
                 f"data.feat_type={p['feat_type']!r} requires host feature "
                 "computation (data.compute_feat=True); the wave-input path "
                 "computes fbank on the device only")
-        if p.get("feat_backend", "numpy") != "numpy":
-            raise _not_ported(f"data.feat_backend={p['feat_backend']!r} (the native host front end)", 10)
         feat_type = p.get("feat_type", "fbank")
         self.feat_opts = None
         if p.get("num_bins"):
@@ -351,8 +383,6 @@ class Launcher:
         adv_optimizer {name, learning_rate, ...}, sgd 1e-2 by default;
         JAX launcher.py:523-591), and validates nothing, as in JAX."""
         t = self.params["train"]
-        if t.get("fsdp"):
-            raise _not_ported("train.fsdp", 5)
         from .train.fd import FDSpeakerNet
 
         fd = isinstance(self.net, FDSpeakerNet)
@@ -393,6 +423,21 @@ class Launcher:
             spec_aug=wave and self.params["data"].get("spec_aug", False),
             model_warmup_steps=int(t.get("model_warmup_steps", 0) or 0),
         )
+        partition_rules = None
+        if self.mesh is not None and not fd:
+            # the FD step runs replicated, as JAX's (launcher.py:523-590)
+            from .parallel import classifier_partition_rules, make_fsdp_rules
+
+            model_n = int(self.mesh.size(1))
+            if t.get("fsdp"):
+                partition_rules = make_fsdp_rules(self.mesh)
+            elif model_n > 1:
+                partition_rules = classifier_partition_rules
+        placement = None
+        if self.mesh is not None:
+            from .train.trainer import make_placement
+
+            placement = make_placement(self.net, self.mesh, partition_rules, tx)
         step_fn = None
         if fd:
             from .train.fd import init_fd_state, make_fd_train_step
@@ -403,23 +448,25 @@ class Launcher:
             step_fn = make_fd_train_step(
                 self.net, tx, tx_adv, aux_weight=float(f.get("aux_weight", 0.1)),
                 adv_weight=float(f.get("adv_weight", 0.1)), cycle=int(f.get("cycle", 70)),
-                adv_steps=int(f.get("adv_steps", 20)), config=config)
+                adv_steps=int(f.get("adv_steps", 20)), config=config, placement=placement)
         elif sam:
             # the two-pass SAM step (the reference's runSnowdarXvectorSAM
             # family, trainer_online_sam.py)
             from .train.sam import make_sam_train_step
 
-            step_fn = make_sam_train_step(self.net, tx, rho=sam[0], adaptive=sam[1], config=config)
-        reporter = Reporter(log_dir=os.path.join(self.params["exp_dir"], "log"))
+            step_fn = make_sam_train_step(self.net, tx, rho=sam[0], adaptive=sam[1], config=config,
+                                          placement=placement)
+        # one reporter: rank 0's
+        reporter = Reporter(log_dir=os.path.join(self.params["exp_dir"], "log")) if _rank() == 0 else None
         trainer = Trainer(self.net, tx, lr_schedule=schedule, config=config, margin_warm=margin_warm,
                           plateau=plateau, report_interval=t["report_interval"], reporter=reporter,
-                          device=self.device, step_fn=step_fn)
+                          device=self.device, step_fn=step_fn, mesh=self.mesh, partition_rules=partition_rules)
         self.trainer = trainer
         # FD's opt_state is the pair (main, adversary)
         state = init_fd_state(self.net, tx, tx_adv, self.device) if fd else trainer.init_state()
         start_epoch = 0
         if resume_from:
-            state = load_checkpoint(resume_from, state)
+            state = trainer.shard_state(load_checkpoint(resume_from, trainer.full_state(state)))
             epoch = read_checkpoint_info(resume_from).get("epoch")
             start_epoch = epoch if isinstance(epoch, int) else 0
             self.logger.info("resumed from %s at step %d, epoch %d", resume_from, int(state.step), start_epoch)
@@ -430,8 +477,10 @@ class Launcher:
             # from a previous phase's checkpoint
             tr = t.get("transfer") or self.params.get("transfer")
             if tr and tr.get("from"):
-                state.params = load_transfer(state.params, tr["from"], include=tr.get("include"),
-                                             exclude=tr.get("exclude"), rename=tr.get("rename"))
+                full = trainer.full_state(state)
+                full.params = load_transfer(full.params, tr["from"], include=tr.get("include"),
+                                            exclude=tr.get("exclude"), rename=tr.get("rename"))
+                state = trainer.shard_state(full)
                 self.logger.info("transfer init from %s (exclude=%s)", tr["from"], tr.get("exclude"))
         if isinstance(margin_warm, MarginWarm) and margin_warm.epoch_iter is None:
             # no epoch_iter given: 1000 steps an epoch, as the JAX Launcher
@@ -450,14 +499,19 @@ class Launcher:
                 metrics = {**metrics, **{f"valid_{k}": v for k, v in vmetrics.items()}}
                 if trainer.plateau is not None:
                     trainer.plateau.update(vmetrics["loss"])
-            save_checkpoint(ckpt_dir, state, epoch + 1, info=metrics)
+            full = trainer.full_state(state)
+            if _rank() == 0:
+                save_checkpoint(ckpt_dir, full, epoch + 1, info=metrics)
+            _barrier(self.mesh)
             self.epoch_stats.append(dict(stats, metrics=metrics))
             self.logger.info("epoch %d: %s", epoch + 1, metrics)
-        reporter.close()
+        if reporter is not None:
+            reporter.close()
         if hasattr(egs, "close"):  # stop a MultiprocessLoader pool
             egs.close()
-        self.state = state
-        return state
+        # the whole state on every rank: extraction and scoring read it
+        self.state = trainer.full_state(state)
+        return self.state
 
     def find_lr(self, egs, start_lr: float = 1e-8, end_lr: float = 1.0, num_steps: int = 100) -> Dict[str, Any]:
         """The LR range finder on this configuration's net, optimizer and
@@ -499,7 +553,16 @@ class Launcher:
     def extract(self, wav_scp: str, out_prefix: str, state=None) -> Dict:
         """Embeddings of every utterance of ``wav_scp`` from the backbone of
         ``state`` (the trained state by default), written to
-        ``out_prefix``.ark/.scp; returns the extractor's stats."""
+        ``out_prefix``.ark/.scp; returns the extractor's stats. On a mesh,
+        rank 0 extracts and the others wait for it (their stats are {})."""
+        if _rank() != 0:
+            _barrier(self.mesh)
+            return {}
+        stats = self._extract(wav_scp, out_prefix, state)
+        _barrier(self.mesh)
+        return stats
+
+    def _extract(self, wav_scp: str, out_prefix: str, state=None) -> Dict:
         state = state if state is not None else self.state
         e = self.params["extract"]
         backbone = self.net.backbone
@@ -572,7 +635,19 @@ class Launcher:
         train vectors with a speaker in ``train_utt2spk`` fit the chain
         (speaker ids are the speakers' sorted indices); the cohort is the
         first ``cohort_size`` of them in sorted key order. The
-        ``ScoreSets`` of the last call stays in ``self.score_sets``."""
+        ``ScoreSets`` of the last call stays in ``self.score_sets``. On a
+        mesh, rank 0 scores and the others wait for it (their result is
+        {})."""
+        if _rank() != 0:
+            _barrier(self.mesh)
+            return {}
+        out = self._score(train_scp, train_utt2spk, enroll_scp, test_scp, trials_path, process=process,
+                          classifier=classifier, score_norm=score_norm, top_n=top_n, cohort_size=cohort_size)
+        _barrier(self.mesh)
+        return out
+
+    def _score(self, train_scp, train_utt2spk, enroll_scp, test_scp, trials_path, *, process, classifier,
+               score_norm, top_n, cohort_size) -> Dict[str, float]:
         import numpy as np
 
         from .backend import ScoreConfig, ScoreSets, Trials

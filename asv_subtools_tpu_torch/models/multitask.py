@@ -25,6 +25,7 @@ from torch import nn
 from ..device import resolve_device
 from ..nn.loss import LOSSES, MARGIN_LOSSES, Scalar
 from ..nn.tdnn import ReluBatchNormTdnnLayer
+from ..parallel import comm
 from .xvector import _check_position, _TwoEmbeddings, build_snowdar_trunk, snowdar_trunk
 
 
@@ -72,7 +73,7 @@ def phone_frame_loss(phone_logits: torch.Tensor, phone_targets: torch.Tensor, ma
     nll = -logp.gather(-1, phone_targets[..., None].long())[..., 0]
     if mask is not None:
         m = mask.to(nll.dtype)
-        return (nll * m).sum() / torch.clamp_min(m.sum(), 1.0)
+        return comm.batch_sum((nll * m).sum()) / torch.clamp_min(comm.batch_sum(m.sum()), 1.0)
     return nll.mean()
 
 
@@ -126,7 +127,7 @@ class DALRegularizer(nn.Module):
         self.w_id = nn.Linear(dim, dim, bias=False)
 
     def forward(self, content_emb: torch.Tensor, spk_emb: torch.Tensor) -> torch.Tensor:
-        cos = (_unit(self.w_id(spk_emb)) * _unit(self.w_noise(content_emb))).sum(-1).mean()
+        cos = comm.batch_mean((_unit(self.w_id(spk_emb)) * _unit(self.w_noise(content_emb))).sum(-1).mean())
         return cos ** 2
 
 

@@ -6,7 +6,9 @@ The layers take [B, T, D]; ``train=False`` or a zero rate returns x
 unchanged. Each splits into ``draw`` (the random tensors, from a
 ``torch.Generator`` on x's device, or torch's default one) and
 ``apply_draw`` (x and a draw -> the output), so the arithmetic can be held against JAX on
-JAX's own draw: the two packages' random streams differ.
+JAX's own draw: the two packages' random streams differ. Inside a mesh
+step every per-row draw is made at the global batch's shape and cut to
+this rank's rows (parallel/comm.py ``draw_rows``).
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.comm import draw_rows
+
 
 def _keep_mask(shape, rate, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
     """True with probability 1 - rate, drawn from ``generator`` on ``device``."""
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    return draw_rows(lambda s: torch.rand(s, generator=generator, device=device), shape) < 1.0 - rate
 
 
 def _inverted(x: torch.Tensor, keep: torch.Tensor, keep_prob) -> torch.Tensor:
@@ -123,8 +127,10 @@ class NoiseDropout(_Layer):
 
     def draw(self, x, generator=None) -> torch.Tensor:
         if self.noise_type == "uniform":
-            return self.p * (2.0 * torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) - 1.0)
-        return self.p * torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+            return self.p * (2.0 * draw_rows(lambda s: torch.rand(s, generator=generator, device=x.device,
+                                                                  dtype=x.dtype), x.shape) - 1.0)
+        return self.p * draw_rows(lambda s: torch.randn(s, generator=generator, device=x.device, dtype=x.dtype),
+                                  x.shape)
 
     def apply_draw(self, x, draw) -> torch.Tensor:
         return x * (1.0 + draw)
@@ -155,8 +161,10 @@ class SpecAugmentDropout(_Layer):
         max_w = max(1, int(size * max_frac))
         idx = torch.arange(size, device=x.device)
         for _ in range(n_masks):
-            w = torch.randint(0, max_w + 1, batch_shape, generator=generator, device=x.device)
-            start = torch.randint(0, max(1, size - max_w), batch_shape, generator=generator, device=x.device)
+            w = draw_rows(lambda s: torch.randint(0, max_w + 1, s, generator=generator, device=x.device),
+                          batch_shape)
+            start = draw_rows(lambda s: torch.randint(0, max(1, size - max_w), s, generator=generator,
+                                                      device=x.device), batch_shape)
             band = (idx >= start[..., None]) & (idx < (start + w)[..., None])
             out = out * (1.0 - band.to(x.dtype))
         return out

@@ -20,6 +20,14 @@ module, :class:`MarginSoftmaxLoss` keeps float64 in float64 and
 :class:`MarginSoftmaxLossV1` computes in float32 always. Thresholds and
 hard-example masks carry no gradient. ``lambda_m`` and ``margin_offset`` may be floats or tensors on
 the device, so a margin schedule costs no host sync.
+
+Under a mesh step whose ``"model"`` group shards the classifier's rows
+(parallel/mesh.py ``classifier_partition_rules``; the weight a margin
+head is handed then has fewer rows than ``num_targets * sub_k``), each
+model rank computes the cosines of its rows and gathers them with
+autograd (parallel/comm.py) before the margin, the sub-centre max, the
+top-k and the softmax, which are unchanged: values equal the unsharded
+head's.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import comm
 
 _EPS = 1.0e-10
 Scalar = Union[float, torch.Tensor]
@@ -60,6 +70,28 @@ def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
 
 def _normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=-1, keepdim=True), eps)
+
+
+def _cosines(x: torch.Tensor, w: torch.Tensor, rows: int) -> torch.Tensor:
+    """normalize(x) @ normalize(w).T; with ``w`` a model rank's block of
+    the ``rows`` classifier rows, the blocks of every model rank gathered
+    along the last dim."""
+    xn, wn = _normalize(x), _normalize(w)
+    if w.shape[0] == rows:
+        return xn @ wn.t()
+    axis = comm.model_group()
+    if axis is None or w.shape[0] * axis.size != rows:
+        raise ValueError(f"classifier of {w.shape[0]} rows for {rows} outside a mesh step that shards it")
+    return comm.gather_from_model(comm.copy_to_model(xn, axis) @ wn.t(), axis)
+
+
+def _whole_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
+    """Every row of the classifier, gathered from the model ranks when
+    ``w`` is one rank's block (the gradient keeps this rank's rows)."""
+    if w.shape[0] == rows:
+        return w
+    axis = comm.model_group()
+    return comm.gather_from_model(w.t(), axis).t()
 
 
 def _margin(m: float, offset: Scalar) -> Scalar:
@@ -100,7 +132,7 @@ class FocalLoss(nn.Module):
         p = torch.softmax(logits, dim=-1)
         focal = (1.0 - p) ** self.gamma * torch.log(torch.clamp_min(p, _EPS))
         nll = -focal.gather(-1, targets[..., None].long())[..., 0]
-        return (nll.sum() if self.reduction == "sum" else nll.mean()), logits
+        return (comm.batch_sum(nll.sum()) if self.reduction == "sum" else nll.mean()), logits
 
 
 class LogisticAffinityLoss(nn.Module):
@@ -117,9 +149,11 @@ class LogisticAffinityLoss(nn.Module):
 
     def forward(self, embeddings: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         e = _normalize(embeddings.float())
-        cos = e @ e.t()
+        # in a mesh step: this rank's rows against the global batch's
+        cos = e @ comm.all_gather_with_grad(e).t()
         scores = self.w * cos.to(torch.promote_types(self.w.dtype, cos.dtype)) + self.b
-        sign = 2.0 * (targets[:, None] == targets[None, :]).to(scores.dtype) - 1.0
+        every = comm.all_gather_with_grad(targets)
+        sign = 2.0 * (targets[:, None] == every[None, :]).to(scores.dtype) - 1.0
         return -F.logsigmoid(sign * scores).mean(), scores
 
 
@@ -178,7 +212,7 @@ class MarginSoftmaxLoss(nn.Module):
     def forward(self, embeddings: torch.Tensor, targets: torch.Tensor, lambda_m: Scalar = 1.0,
                 margin_offset: Scalar = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
         x32, w32 = _at_least_f32(embeddings), _at_least_f32(self.weight)
-        cos = _normalize(x32) @ _normalize(w32).t()
+        cos = _cosines(x32, w32, self.num_targets)
         if self.feature_normalize:
             scale = self.s
         else:
@@ -213,7 +247,7 @@ class MarginSoftmaxLoss(nn.Module):
         if self.curricular:
             # the buffer moves before the hard-example rescale reads it
             # (momentum 0.01), as the reference's CurricularMarginComponent
-            tv = 0.99 * cos_t.detach().mean() + 0.01 * self.curricular_t
+            tv = 0.99 * comm.batch_mean(cos_t.detach().mean()) + 0.01 * self.curricular_t
             hard = cos_others > pen_t
             cos_others = torch.where(hard, cos_others * (tv + cos_others), cos_others)
             self.curricular_t = tv.to(self.curricular_t.dtype)
@@ -223,7 +257,7 @@ class MarginSoftmaxLoss(nn.Module):
         if self.ring_loss > 0:
             loss = loss + self.ring_loss * ((scale - self.ring_r) ** 2).mean() / 2.0
         if self.mhe_loss:
-            wn = _normalize(w32)
+            wn = _normalize(_whole_rows(w32, self.num_targets))
             d2 = ((wn[None, :, :] - wn[targets.long()][:, None, :]) ** 2).sum(-1)
             d2 = torch.where(onehot > 0, torch.full_like(d2, math.inf), torch.clamp_min(d2, self.eps))
             energy = torch.where(onehot > 0, torch.zeros_like(d2), 1.0 / d2)
@@ -267,7 +301,7 @@ class MarginSoftmaxLossV1(nn.Module):
     def forward(self, embeddings: torch.Tensor, targets: torch.Tensor, lambda_m: Scalar = 1.0,
                 margin_offset: Scalar = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
         c, k = self.num_targets, self.sub_k
-        cos = _normalize(embeddings.float()) @ _normalize(self.weight.float()).t()
+        cos = _cosines(embeddings.float(), self.weight.float(), c * k)
         if k > 1:
             cos = cos.view(-1, c, k).amax(-1)
         logits = self.s * cos
@@ -286,7 +320,7 @@ class MarginSoftmaxLossV1(nn.Module):
             hard_margin = ada_scale * add_m * hard
         elif self.adapt_method == "batch_mean":
             with torch.no_grad():
-                th = cos_t.mean() - self.lambda_bm
+                th = comm.batch_mean(cos_t.mean()) - self.lambda_bm
                 hard = (cos_n >= th).to(cos.dtype)
             hard_margin = ada_scale * add_m * hard - ada_scale * add_m / 2.0
         else:
@@ -308,7 +342,8 @@ class MarginSoftmaxLossV1(nn.Module):
             return cross_entropy(self.s * pen, targets, self.label_smoothing), logits
         bs = targets.shape[0]
         pen_n_only = pen.masked_fill(onehot > 0, -math.inf)
-        avg_nlog = torch.logsumexp((self.s * pen_n_only).flatten(), 0) - math.log(bs)
+        avg_nlog = comm.batch_logsumexp(torch.logsumexp((self.s * pen_n_only).flatten(), 0)) - math.log(
+            comm.batch_rows(bs))
         rect = F.softplus(-self.s * torch.where(onehot > 0, pen, torch.zeros_like(pen)).sum(-1) + avg_nlog)
         ce = cross_entropy(self.s * cos, targets, self.label_smoothing)
         return (1.0 - lam) * ce + lam * rect.sum() / bs, logits

@@ -18,6 +18,14 @@ as new tensors rather than written in place: under
 and the tensors handed in stay as they were. Eval mode uses the running
 statistics, folded into one scale and shift. The result is cast back to
 the input's type in both modes.
+
+Inside a mesh step (parallel/comm.py ``scope`` with a ``"data"`` group),
+train mode all-reduces ``s1``, ``s2`` and the count over the data group
+before the mean and variance, with autograd: the statistics, the running
+update (its unbiased variance on the global count) and the input
+gradients are those of one BatchNorm over the global batch (JAX
+norm.py:60-74, its ``axis_name`` psums). Without a group it is the
+single-device code.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ..parallel import comm
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -60,16 +70,28 @@ class BatchNorm(nn.Module):
         Without a mask the count is a Python number: a tensor made from it
         on the card would be a blocking host-to-device copy."""
         dims = (0,) + tuple(range(2, xf.dim()))
+        group = comm.data_group()
         if mask is not None:
             m = mask.to(xf.dtype)[:, None, :]
-            count = torch.clamp_min(m.sum(), 1.0)
+            count = m.sum()
             s1 = (xf * m).sum(dims)
             s2 = (xf * xf * m).sum(dims)
+            if group is not None:
+                c = xf.shape[1]
+                sums = comm.all_reduce(torch.cat([s1, s2, count[None]]), group)
+                s1, s2, count = sums[:c], sums[c:2 * c], sums[2 * c]
+            count = torch.clamp_min(count, 1.0)
             bessel = count / torch.clamp_min(count - 1.0, 1.0)
         else:
-            count = float(max(xf.numel() // xf.shape[1], 1))
+            count = float(xf.numel() // xf.shape[1])
             s1 = xf.sum(dims)
             s2 = (xf * xf).sum(dims)
+            if group is not None:
+                # equal shards: the global count is a Python number too
+                c = xf.shape[1]
+                sums = comm.all_reduce(torch.cat([s1, s2]), group)
+                s1, s2, count = sums[:c], sums[c:], count * group.size
+            count = max(count, 1.0)
             bessel = count / max(count - 1.0, 1.0)
         mean = s1 / count
         return mean, torch.clamp_min(s2 / count - mean * mean, 0.0), bessel

@@ -9,10 +9,8 @@ writes, folds the trunk (``deploy_repvgg_xvector``, which runs
 shape and the deployed model, and requires a mean embedding cosine above
 0.999 and EERs within 0.5 pt of each other.
 
-One deviation from the JAX gate: it computes the host features with
-``feat_backend="native"``, the C++ front end, which the port does not
-carry yet (ROADMAP Queue 1 item 10; the Launcher raises on it). This gate
-uses ``"numpy"``, the port's host fbank of the same Kaldi semantics.
+The host features come from the native C++ front end
+(``feat_backend="native"``), as in the JAX gate.
 
 Usage: python -m asv_subtools_tpu_torch.recipes.repvgg_deploy_gate
          [--data DIR] [--exp DIR] [--epochs 25] [--cpu]
@@ -47,7 +45,7 @@ MAX_EER_GAP = 0.5
 
 def gate_params(data: str, exp: str, epochs: int = 25) -> Dict[str, Any]:
     """The Launcher params of repvgg_deploy_gate.py:25-49, with the host
-    features from the port's numpy fbank."""
+    features from the native front end."""
     return {
         "exp_dir": exp,
         "data": {
@@ -55,7 +53,7 @@ def gate_params(data: str, exp: str, epochs: int = 25) -> Dict[str, Any]:
             "train_utt2spk": f"{data}/train/utt2spk",
             "chunk_seconds": 2.0, "batch_size": 64,
             "num_bins": 80, "shuffle_buffer": 64,
-            "feat_backend": "numpy",
+            "feat_backend": "native",
         },
         "model": {"name": "repvgg_xvector",
                   "params": {"base_channels": 16, "embd_dim": 64}},
@@ -107,7 +105,7 @@ def run_gate(data: str, exp: str, epochs: int = 25, device: Any = None) -> Dict[
         return deployed(x, mask)
 
     items = list(iter(WavEgsXvector(f"{data}/eval/wav.scp", feat_opts=launcher.feat_opts,
-                                    feat_backend="numpy", workers=4)))
+                                    feat_backend="native", workers=4)))
     e_train, eer_t = score(embed_train, items, "repvgg_train_shape", launcher.device)
     e_dep, eer_d = score(embed_deploy, items, "repvgg_deploy_reparam", launcher.device)
     cos = float(np.mean([

@@ -17,6 +17,12 @@ JAX's masks do. The state's ``opt_state`` is the pair (main, adversary).
 JAX picks the phase with ``lax.cond`` on the device step counter; here
 the caller hands the step index in from the host (the Trainer keeps the
 count there), so a step never waits on the card and runs one optimizer.
+
+With a ``placement`` (parallel/mesh.py, every leaf replicated: JAX's FD
+step runs data-parallel and replicated, launcher.py:523-590) the step
+runs on this rank's rows with global BatchNorm statistics, averages the
+gradients over ``"data"`` and reports the global batch's loss, accuracy
+and DAL cosine.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from ..models.multitask import DALRegularizer, FDXvector
 from ..nn.loss import LOSSES
 from ..nn.loss import accuracy as compute_accuracy
 from .optim import GradientTransformation
-from .trainer import TrainState, TrainStepConfig, _keep
+from .trainer import TrainState, TrainStepConfig, _keep, _microbatch_scope
 
 
 class FDSpeakerNet(nn.Module):
@@ -80,7 +86,7 @@ def init_fd_state(net: FDSpeakerNet, tx_main: GradientTransformation, tx_adv: Gr
 
 def make_fd_train_step(net: FDSpeakerNet, tx_main: GradientTransformation, tx_adv: GradientTransformation,
                        aux_weight: float = 0.1, adv_weight: float = 0.1, cycle: int = 70, adv_steps: int = 20,
-                       config: TrainStepConfig = TrainStepConfig()):
+                       config: TrainStepConfig = TrainStepConfig(), placement=None):
     """Build ``step(state, batch, generator=None, lambda_m=1.0,
     margin_offset=0.0, lr_scale=1.0, *, step_index) -> (state, metrics)``,
     the train step's signature, so that the Trainer runs it.
@@ -96,6 +102,8 @@ def make_fd_train_step(net: FDSpeakerNet, tx_main: GradientTransformation, tx_ad
     weights and BN statistics (the optimizer states advance, as in JAX)."""
     if config.wave_input or config.accum_grad != 1:
         raise ValueError("the FD step takes feature input with accum_grad 1 (as the JAX FD step)")
+    if placement is not None and any(placement.specs.values()):
+        raise ValueError("the FD step runs replicated: build its placement without partition rules")
     dtype = config.compute_dtype
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], generator: Any = None, lambda_m: Any = 1.0,
@@ -107,12 +115,20 @@ def make_fd_train_step(net: FDSpeakerNet, tx_main: GradientTransformation, tx_ad
         leaves = {k: p.detach().requires_grad_() for k, p in state.params.items()}
         tensors = {k: p.to(dtype) if p.dtype == torch.float32 else p for k, p in leaves.items()}
         tensors.update(state.batch_stats)
-        spk_loss, aux_loss, adv, logits = torch.func.functional_call(net, tensors, (x.to(dtype), y, aux_y),
-                                                                     {"mask": mask})
-        loss = (spk_loss + aux_weight * aux_loss + adv_weight * adv).float()
-        grads = dict(zip(names, torch.autograd.grad(loss, list(leaves.values()))))
-        new_stats = {k: tensors[k] for k in state.batch_stats}
+        with _microbatch_scope(placement, x.shape[0]):
+            spk_loss, aux_loss, adv, logits = torch.func.functional_call(net, tensors, (x.to(dtype), y, aux_y),
+                                                                         {"mask": mask})
+            loss = (spk_loss + aux_weight * aux_loss + adv_weight * adv).float()
+            grads = list(torch.autograd.grad(loss, list(leaves.values())))
+        acc = compute_accuracy(logits.detach(), y)
         loss, adv = loss.detach(), adv.detach()
+        if placement is not None:
+            grads = placement.mean_grads(names, grads)
+            w = placement.world
+            means = placement.world_sum(torch.stack([loss / w, acc / w, adv.to(loss.dtype) / w]))
+            loss, acc, adv = means[0], means[1], means[2].to(adv.dtype)
+        grads = dict(zip(names, grads))
+        new_stats = {k: tensors[k] for k in state.batch_stats}
         main_state, adv_state = state.opt_state
 
         in_adv = step_index % cycle < adv_steps
@@ -132,7 +148,7 @@ def make_fd_train_step(net: FDSpeakerNet, tx_main: GradientTransformation, tx_ad
         new_params = {k: state.params[k] + updates[k] if mine[k] else state.params[k] for k in names}
 
         finite = torch.isfinite(loss)
-        metrics = {"loss": loss, "accuracy": compute_accuracy(logits.detach(), y), "adversarial_cos": adv,
+        metrics = {"loss": loss, "accuracy": acc, "adversarial_cos": adv,
                    "phase_adv": float(in_adv), "skipped": 1.0 - finite.to(torch.float32)}
         return TrainState(step=state.step + 1, params=_keep(finite, new_params, state.params),
                           batch_stats=_keep(finite, new_stats, state.batch_stats),

@@ -43,6 +43,10 @@ LearningRate = Union[float, Callable]
 class GradientTransformation(NamedTuple):
     init: Callable[[Params], dict]
     update: Callable[[Params, dict, Params], Tuple[Params, dict]]
+    # True when each element's update reads only that element (and
+    # scalars): such an optimizer updates a flat ZeRO-3 shard as it would
+    # the whole leaf
+    elementwise: bool = False
 
 
 def no_weight_decay_mask(params: Params) -> Dict[str, bool]:
@@ -100,7 +104,7 @@ def _optimizer(learning_rate: LearningRate, *, adam: Optional[Tuple[float, float
         u = torch._foreach_mul(u, -lr)
         return dict(zip(names, u)), new
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, elementwise=not weight_decay or mask is None)
 
 
 def sgd(learning_rate: LearningRate, momentum: Optional[float] = None, nesterov: bool = False
@@ -155,7 +159,7 @@ def adamod(learning_rate: LearningRate, b1: float = 0.9, b2: float = 0.999, b3: 
                 out[k] = out[k] - weight_decay * lr * p
         return out, {"count": count, "mu": mu, "nu": nu, "eta": eta}
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, elementwise=True)
 
 
 def ralamb(learning_rate: LearningRate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -305,7 +309,7 @@ def lookahead_wrapper(inner: GradientTransformation, k: int = 5, alpha: float = 
             slow[n] = torch.where(sync, slow_new, s)
         return out, {"inner": inner_state, "slow": slow, "count": count}
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, elementwise=inner.elementwise)
 
 
 def _chain(first: GradientTransformation, second: GradientTransformation) -> GradientTransformation:
@@ -316,7 +320,8 @@ def _chain(first: GradientTransformation, second: GradientTransformation) -> Gra
         u, s2 = second.update(u, state[1], params)
         return u, (s1, s2)
 
-    return GradientTransformation(lambda params: (first.init(params), second.init(params)), update)
+    return GradientTransformation(lambda params: (first.init(params), second.init(params)), update,
+                                  elementwise=first.elementwise and second.elementwise)
 
 
 def get_optimizer(name: str = "adamW", learning_rate: LearningRate = 3e-4, beta1: float = 0.9,

@@ -22,14 +22,30 @@ forward in the compute type, the loss, the backward, the global-norm clip
   state and BN statistics through ``torch.where`` on the device; the step
   counter advances all the same. No metric leaves the device: the step
   never syncs with the host.
-* ``Trainer`` runs epochs of steps on one device. The host waits on the
-  card only where the JAX Trainer fetches: the step counter once an
-  epoch, the metrics at each report point, the validation's sums, and the
-  epoch means at its end.
+* ``Trainer`` runs epochs of steps. The host waits on the card only
+  where the JAX Trainer fetches: the step counter once an epoch, the
+  metrics at each report point, the validation's sums, and the epoch
+  means at its end.
+* With a mesh (parallel/mesh.py; one process a device) the step runs on
+  this rank's rows of the global batch and carries its collectives
+  itself, since the functional step never reads the module's parameters
+  (so DDP's and FSDP's hooks have nothing to act on): the gradients'
+  mean over ``"data"`` in one flat bucket, global BatchNorm statistics
+  and a row-sharded margin head inside the forward (parallel/comm.py),
+  and loss, accuracy and the squared gradient norm in one all-reduce, so
+  the clip and the non-finite choice see global values and every rank
+  takes the same branch. Under ZeRO-3 partition rules the masters and
+  their moments are sharded at rest, gathered whole in the compute type
+  once a step (JAX's ``param_gather_fn``), and the gradients are
+  reduce-scattered back to the shards. Per-row random draws are made at
+  the global batch's shape and cut to the rank's rows, so the step's
+  value does not depend on the placement; ``accum_grad`` splits each
+  rank's rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import time
@@ -47,6 +63,7 @@ from ..nn.loss import MarginWarm, cross_entropy
 from ..nn.loss import accuracy as compute_accuracy
 from ..nn import tdnn
 from ..nn.tdnn import is_semi_orth_weight, semi_orth_update
+from ..parallel import comm
 from .optim import GradientTransformation
 
 Tensors = Dict[str, torch.Tensor]
@@ -99,13 +116,14 @@ def device_spec_augment(feats: torch.Tensor, generator: torch.Generator, num_t_m
                         num_f_mask: int = 1, max_t: int = 50, max_f: int = 10) -> torch.Tensor:
     """SpecAugment of [B, T, D] features per row: zero ``num_*_mask`` bands
     of width U[1, max] at a uniform start, a band skipped when its width
-    reaches the axis size (JAX trainer.py:93-125)."""
+    reaches the axis size (JAX trainer.py:93-125). In a mesh step the
+    draws are the global batch's, cut to this rank's rows."""
     b, t, d = feats.shape
     dev = feats.device
 
     def band_mask(nmask: int, size: int, max_w: int) -> torch.Tensor:
-        w = torch.randint(1, max_w + 1, (b, nmask), generator=generator, device=dev)
-        start = (torch.rand((b, nmask), generator=generator, device=dev)
+        w = comm.draw_rows(lambda s: torch.randint(1, max_w + 1, s, generator=generator, device=dev), (b, nmask))
+        start = (comm.draw_rows(lambda s: torch.rand(s, generator=generator, device=dev), (b, nmask))
                  * torch.clamp_min(size - w, 1).to(torch.float32)).to(torch.int64)
         idx = torch.arange(size, device=dev)[None, :, None]
         hit = (idx >= start[:, None, :]) & (idx < (start + w)[:, None, :]) & (w < size)[:, None, :]
@@ -171,6 +189,24 @@ def _checkpoint_context(policy: str) -> Callable:
     return lambda: create_selective_checkpoint_contexts(policy_fn)
 
 
+def _mixup(x: torch.Tensor, y: Any, generator: torch.Generator, alpha: float) -> Tuple[torch.Tensor, Any, Any]:
+    """(mixed x, lam, the partners' targets). In a mesh step the
+    permutation is the global batch's: the partner rows come from every
+    data rank (features and targets all-gathered, no gradient)."""
+    s = comm.current()
+    if s is None or s.data is None or s.global_rows == s.local:
+        x, lam, perm = tdnn.mixup(x, generator, alpha)
+        return x, lam, _rows(y, perm)
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    lam, perm = tdnn.mixup_draw(s.global_rows, alpha, generator, x.device, dtype)
+    mine = perm[s.start:s.start + s.local]
+    x_all = comm.all_gather_rows(x, s.data)
+    y_all = ({k: comm.all_gather_rows(v, s.data) for k, v in y.items()} if isinstance(y, dict)
+             else comm.all_gather_rows(y, s.data))
+    mixed = (lam * x.to(dtype) + (1.0 - lam) * x_all[mine].to(dtype)).to(x.dtype)
+    return mixed, lam, _rows(y_all, mine)
+
+
 def make_loss_and_grads(net: nn.Module, config: TrainStepConfig) -> Callable:
     """``fn(params, batch_stats, x, y, mask, generator, lambda_m,
     margin_offset, warmup) -> (loss, accuracy, new batch_stats, grads)``:
@@ -210,7 +246,7 @@ def make_loss_and_grads(net: nn.Module, config: TrainStepConfig) -> Callable:
         if config.mixup_alpha > 0:
             # the mix stays in the compute type; JAX's multiplies bf16
             # features by an f32 lam, which promotes its forward to f32
-            x, lam, perm = tdnn.mixup(x, generator, config.mixup_alpha)
+            x, lam, partner = _mixup(x, y, generator, config.mixup_alpha)
         replay = generator is not None and (config.mixup_alpha > 0 or config.remat is not None)
         start = generator.get_state() if replay else None
         names = list(params)
@@ -231,7 +267,7 @@ def make_loss_and_grads(net: nn.Module, config: TrainStepConfig) -> Callable:
 
             loss, logits, new_stats = run(y, batch_stats)
             if config.mixup_alpha > 0:
-                loss_b = run(_rows(y, perm), dict(batch_stats))[0]
+                loss_b = run(partner, dict(batch_stats))[0]
                 loss = lam * loss + (1.0 - lam) * loss_b
             return (loss.float(), logits, *new_stats)
 
@@ -248,8 +284,50 @@ def make_loss_and_grads(net: nn.Module, config: TrainStepConfig) -> Callable:
     return loss_and_grads
 
 
+def _compute_type(config: TrainStepConfig, master: torch.Tensor) -> torch.dtype:
+    """The type the forward runs a master in (f32 masters in the compute
+    type, others in their own)."""
+    return config.compute_dtype if master.dtype == torch.float32 else master.dtype
+
+
+def _is_semi_orth(placement, name: str, value: torch.Tensor) -> bool:
+    shape = placement.shapes[name] if placement is not None else value.shape
+    return is_semi_orth_weight(name, torch.empty(shape, device="meta"))
+
+
+def _semi_orth(placement, name: str, value: torch.Tensor) -> torch.Tensor:
+    """The semi-orthogonal update; a ZeRO-3 shard is gathered whole first
+    and cut back after."""
+    if placement is None or name not in placement.sharded:
+        return semi_orth_update(value)
+    return placement.local_chunk(name, semi_orth_update(placement.gather_leaf(name, value)))
+
+
+def _microbatch_scope(placement, rows: int) -> Any:
+    """The collectives' scope for a microbatch of ``rows`` rows on this
+    rank (a null context without a placement). A mesh dim of one process
+    is left out: the layers run their single-device code on it."""
+    if placement is None:
+        return contextlib.nullcontext()
+    d, m = placement.data, placement.model
+    return comm.scope(d if d.size > 1 else None, m if m.size > 1 else None, global_rows=rows * d.size,
+                      start=d.rank * rows, local=rows)
+
+
+def _global_metrics(placement, names, grads, loss, acc) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(loss, accuracy, global gradient norm): the means over the global
+    batch and the norm over every element once, in one all-reduce over the
+    mesh; without a placement or on one process, this process's values."""
+    if placement is None or placement.world == 1:
+        return loss, acc, torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    w = placement.world
+    sq = placement.sq_norm_parts(names, grads)
+    tot = placement.world_sum(torch.stack([loss.double() / w, torch.as_tensor(acc).double() / w, sq.double()]))
+    return tot[0].to(loss.dtype), tot[1].float(), torch.sqrt(tot[2]).to(sq.dtype)
+
+
 def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Optional[Callable] = None,
-                    config: TrainStepConfig = TrainStepConfig()) -> Callable:
+                    config: TrainStepConfig = TrainStepConfig(), placement=None) -> Callable:
     """Build ``step(state, batch, generator, lambda_m=1.0, margin_offset=0.0,
     lr_scale=1.0) -> (state, metrics)``.
 
@@ -264,6 +342,10 @@ def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Opt
     ``model_warmup_steps`` is 0. metrics: loss, accuracy, grad_norm,
     skipped (1.0 on a kept state) and, given ``lr_schedule``, lr at the
     state's step times lr_scale; all 0-dim tensors on the device.
+
+    ``placement`` (parallel/mesh.py ``Placement``): the mesh step. batch
+    holds this rank's rows of the global batch (``shard_batch``), the
+    state this rank's shards; the metrics are the global ones.
     """
     loss_and_grads = make_loss_and_grads(net, config)
 
@@ -278,31 +360,38 @@ def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Opt
         # the division stays on the device: the step never waits on the card
         warmup = (state.step.to(torch.float32) / config.model_warmup_steps
                   if config.model_warmup_steps > 0 else 1.0)
+        names = list(state.params)
+        params = state.params
+        if placement is not None and placement.sharded:
+            params = placement.gather_params(params, _compute_type(config, params[placement.sharded[0]]))
         grads, stats, loss, acc = None, state.batch_stats, 0.0, 0.0
         for i in range(a):
             part = slice(i * mb, (i + 1) * mb)
-            loss_i, acc_i, stats, grads_i = loss_and_grads(
-                state.params, stats, x[part], _rows(y, part), None if mask is None else mask[part], generator,
-                lambda_m, margin_offset, warmup)
+            with _microbatch_scope(placement, mb):
+                loss_i, acc_i, stats, grads_i = loss_and_grads(
+                    params, stats, x[part], _rows(y, part), None if mask is None else mask[part], generator,
+                    lambda_m, margin_offset, warmup)
             grads = grads_i if grads is None else torch._foreach_add(grads, grads_i)
             loss, acc = loss + loss_i, acc + acc_i
         if a > 1:
             grads = torch._foreach_div(grads, float(a))
             loss, acc = loss / a, acc / a
+        if placement is not None:
+            # gathered leaves took their gradients in the compute type
+            grads = placement.mean_grads(names, [g.to(state.params[k].dtype) for g, k in zip(grads, names)])
 
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        loss, acc, gnorm = _global_metrics(placement, names, grads, loss, acc)
         finite = torch.isfinite(gnorm) & torch.isfinite(loss)
         # the denominator (gnorm + 1e-6) is torch clip_grad_norm_'s
         grads = torch._foreach_mul(grads, torch.clamp_max(config.max_change / (gnorm + 1e-6), 1.0))
-        names = list(state.params)
         updates, opt_state = tx.update(dict(zip(names, grads)), state.opt_state, state.params)
         new_params = dict(zip(names, torch._foreach_add([state.params[k] for k in names],
                                                          torch._foreach_mul([updates[k] for k in names],
                                                                             lr_scale))))
         if config.use_semi_orth:
             on = state.step % 4 == 0
-            new_params = {k: torch.where(on, semi_orth_update(v), v) if is_semi_orth_weight(k, v) else v
-                          for k, v in new_params.items()}
+            new_params = {k: torch.where(on, _semi_orth(placement, k, v), v) if _is_semi_orth(placement, k, v)
+                          else v for k, v in new_params.items()}
         if config.skip_nonfinite:
             new_params = _keep(finite, new_params, state.params)
             opt_state = _keep(finite, opt_state, state.opt_state)
@@ -315,7 +404,7 @@ def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Opt
     return step
 
 
-def make_eval_step(net: nn.Module) -> Callable:
+def make_eval_step(net: nn.Module, placement=None) -> Callable:
     """Build ``step(state, batch) -> {"loss_sum", "acc_sum", "n"}``, 0-dim
     tensors on the state's device (JAX trainer.py:379-417).
 
@@ -324,22 +413,32 @@ def make_eval_step(net: nn.Module) -> Callable:
     "weight" [B]}: a row of weight 0 contributes nothing; without weights
     every row counts once. The loss is the per-row cross entropy of the
     head's logits (no margin in eval mode); a multi-task batch is scored
-    on its speaker labels."""
+    on its speaker labels. With ``placement`` the batch is this rank's
+    rows, ZeRO-3 shards are gathered whole, and the sums are the global
+    batch's (one all-reduce over "data")."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         net.eval()
         x, targets = batch["x"], batch["y"]
         y = speaker_targets(targets)
         dtype = next(p.dtype for p in state.params.values() if p.is_floating_point())
-        with torch.no_grad():
-            _, logits, _ = torch.func.functional_call(net, {**state.params, **state.batch_stats},
+        params = state.params
+        if placement is not None and placement.sharded:
+            params = placement.gather_params(params, dtype)
+        with torch.no_grad(), _microbatch_scope(placement, x.shape[0]):
+            _, logits, _ = torch.func.functional_call(net, {**params, **state.batch_stats},
                                                       (x.to(dtype), targets), {"mask": batch.get("mask")})
             w = batch.get("weight")
             if w is None:
                 w = torch.ones(y.shape[0], dtype=torch.float32, device=y.device)
             correct = (logits.argmax(-1) == y).to(w.dtype)
             per_row = cross_entropy(logits, y, reduction="none")
-            return {"loss_sum": (per_row * w).sum(), "acc_sum": (correct * w).sum(), "n": w.sum()}
+            sums = {"loss_sum": (per_row * w).sum(), "acc_sum": (correct * w).sum(), "n": w.sum()}
+            if placement is None or placement.data.size == 1:
+                return sums
+            flat = torch.stack([v.to(per_row.dtype) for v in sums.values()])
+            torch.distributed.all_reduce(flat, group=placement.data.group)
+            return dict(zip(sums, flat))
 
     return step
 
@@ -356,7 +455,7 @@ def _fetch(values: Dict[str, Any]) -> Dict[str, float]:
 
 
 def batch_to_device(batch: Dict, device: torch.device,
-                    keys: Tuple[str, ...] = ("x", "y", "mask", "phone_y", "aux_y")) -> Dict[str, Any]:
+                    keys: Tuple[str, ...] = ("x", "y", "mask", "phone_y", "aux_y", "weight")) -> Dict[str, Any]:
     """A host batch's ``keys`` on ``device`` (``non_blocking``: from pinned
     memory the copies are queued), labels as int64. A dual-label batch
     (``phone_y``, the multi-task chunk egs) gets the multi-task net's
@@ -375,9 +474,26 @@ def batch_to_device(batch: Dict, device: torch.device,
     return out
 
 
+def make_placement(net: nn.Module, mesh, partition_rules=None, tx: Optional[GradientTransformation] = None):
+    """The Placement of ``net``'s parameters on ``mesh`` under
+    ``partition_rules`` (None: every leaf replicated). ZeRO-3 shards are
+    flat chunks, so an optimizer that reads a leaf's shape or norm (gc,
+    ralamb, novograd, eve, the ``decay_kernels_only`` mask) cannot update
+    them: with ``tx`` such a pairing raises."""
+    from ..parallel.mesh import Placement, partition_params
+
+    params = dict(net.named_parameters())
+    placement = Placement(mesh, partition_params(mesh, params, partition_rules),
+                          {k: p.shape for k, p in params.items()})
+    if placement.sharded and tx is not None and not tx.elementwise:
+        raise ValueError("ZeRO-3 shards are flat chunks: the optimizer must update element by element (sgd, "
+                         "sgdw, adam, adamW or adamod, without decay_kernels_only or gc; lookahead around one)")
+    return placement
+
+
 class Trainer:
-    """Epoch loop: host batches -> train steps on one device -> report,
-    validate (JAX trainer.py:472-678, with no mesh).
+    """Epoch loop: host batches -> train steps -> report, validate (JAX
+    trainer.py:472-678).
 
     ``device`` is the CUDA card unless ``device="cpu"``; the state lives
     there. Batches may hold numpy arrays or (pinned) CPU tensors: each goes
@@ -396,12 +512,20 @@ class Trainer:
     ``nan_debug_dir`` set: each skipped step's batch, weights and metrics
     are dumped there (train/debug.py), which reads each step's ``skipped``
     back from the device: one wait on the card a step. Unset (the
-    default), no step waits."""
+    default), no step waits.
+
+    ``mesh`` (parallel/mesh.py ``make_mesh``) and ``partition_rules``
+    (``classifier_partition_rules``, ``make_fsdp_rules``; None replicates
+    every leaf) run the mesh step as JAX's Trainer does: every rank feeds
+    the same global batches and keeps its rows, the state holds this
+    rank's shards (``full_state`` gathers it whole, ``shard_state`` cuts a
+    whole one), validation pads a batch to the data size with rows of
+    weight 0. Without a mesh it is the one-device loop."""
 
     def __init__(self, net: nn.Module, tx: GradientTransformation, lr_schedule: Optional[Callable] = None,
                  config: TrainStepConfig = TrainStepConfig(), margin_warm=None, plateau=None,
                  report_interval: int = 100, reporter=None, device: Any = None, step_fn: Optional[Callable] = None,
-                 nan_debug_dir: Optional[str] = None):
+                 nan_debug_dir: Optional[str] = None, mesh=None, partition_rules: Optional[Callable] = None):
         self.net = net
         self.tx = tx
         self.lr_schedule = lr_schedule
@@ -413,15 +537,56 @@ class Trainer:
         self.device = resolve_device(device)
         self.nan_debug_dir = nan_debug_dir
         self.epoch_stats: Dict[str, Any] = {}
-        self._train_step = step_fn if step_fn is not None else make_train_step(net, tx, lr_schedule, config)
+        self.mesh = mesh
+        self.placement = make_placement(net, mesh, partition_rules, tx) if mesh is not None else None
+        self._train_step = (step_fn if step_fn is not None
+                            else make_train_step(net, tx, lr_schedule, config, placement=self.placement))
         self._takes_step_index = "step_index" in inspect.signature(self._train_step).parameters
-        self._eval_step = make_eval_step(net)
+        self._eval_step = make_eval_step(net, self.placement)
 
     def init_state(self) -> TrainState:
-        """Step 0 from the net's weights, on the trainer's device."""
-        return init_train_state(self.net, self.tx, self.device)
+        """Step 0 from the net's weights, on the trainer's device; on a
+        mesh, rank 0's weights on every rank, cut to this rank's shards."""
+        if self.placement is None:
+            return init_train_state(self.net, self.tx, self.device)
+        from ..parallel.mesh import replicate
+
+        self.net.to(self.device)
+        params = replicate(self.mesh, {k: p.detach().clone() for k, p in self.net.named_parameters()})
+        stats = replicate(self.mesh, {k: b.detach().clone() for k, b in self.net.named_buffers()})
+        params = self.placement.shard_params(params)
+        return TrainState(step=torch.zeros((), dtype=torch.int32, device=self.device), params=params,
+                          batch_stats=stats, opt_state=self.tx.init(params))
+
+    def _opt_specs(self, state: TrainState, full_params: Dict[str, torch.Tensor]) -> Any:
+        from ..parallel.mesh import opt_state_shardings
+
+        return opt_state_shardings(self.mesh, state.opt_state, full_params, self.placement.specs)
+
+    def full_state(self, state: TrainState) -> TrainState:
+        """The whole state from every rank's shards (a collective: every
+        rank calls it); the state itself without a mesh."""
+        if self.placement is None:
+            return state
+        full = self.placement.full_tree(state.params, self.placement.specs)
+        # the moments' specs come from the shards' shapes on this rank
+        specs = self._opt_specs(state, state.params)
+        return dataclasses.replace(state, params=full, opt_state=self.placement.full_tree(state.opt_state, specs))
+
+    def shard_state(self, state: TrainState) -> TrainState:
+        """This rank's shards of a whole state (a loaded checkpoint)."""
+        if self.placement is None:
+            return state
+        specs = self._opt_specs(state, state.params)
+        return dataclasses.replace(state, params=self.placement.shard_params(state.params),
+                                   opt_state=self.placement.shard_tree(state.opt_state, specs))
 
     def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """A host batch on the device; on a mesh, this rank's rows of it."""
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_batch
+
+            batch = shard_batch(self.mesh, {k: v for k, v in batch.items() if k != "keys"})
         return batch_to_device(batch, self.device)
 
     def run_epoch(self, state: TrainState, data_iter: Iterable[Dict], generator: torch.Generator, epoch: int = 0,
@@ -502,9 +667,14 @@ class Trainer:
         row weight 1); the sums are fetched once at the end."""
         sums: Dict[str, Any] = {"loss_sum": 0.0, "acc_sum": 0.0, "n": 0.0}
         for batch in valid_iter:
-            batch = self._to_device(batch)
-            batch["weight"] = torch.ones(speaker_targets(batch["y"]).shape[0], dtype=torch.float32,
-                                         device=self.device)
+            rows = len(batch["y"])
+            pad = (-rows) % (self.placement.data.size if self.placement is not None else 1)
+            weight = np.concatenate([np.ones(rows), np.zeros(pad)]).astype(np.float32)
+            if pad:
+                # JAX's padding (trainer.py:656-668): copies of the first row
+                batch = {k: np.concatenate([np.asarray(v)] + [np.asarray(v[:1])] * pad)
+                         for k, v in batch.items() if k in ("x", "y", "mask", "phone_y", "aux_y")}
+            batch = self._to_device(dict(batch, weight=weight))
             m = self._eval_step(state, batch)
             sums = {k: sums[k] + m[k] for k in sums}
         got = _fetch(sums)

@@ -57,4 +57,9 @@ class Timer:
         self.elapsed = self.elapse()
 
 
-__all__ = ["Timer", "assign_params_dict", "init_logger", "load_yaml", "save_yaml", "set_all_seed", "split_params"]
+def auto_scale_lr(base_lr: float, world_size: int, base_world: int = 1) -> float:
+    """Linear LR scaling with data-parallel width (reference utils.py:438-445)."""
+    return base_lr * world_size / base_world
+
+
+__all__ = ["Timer", "auto_scale_lr", "assign_params_dict", "init_logger", "load_yaml", "save_yaml", "set_all_seed", "split_params"]

@@ -48,7 +48,7 @@ Phases (any failure raises and the script exits non-zero):
      fed by the plain front end and against an f32 model on the f32 plain
      front end; timed with the flag on and off; one batch profiled; then the Extractor run as in 6.
      The launch counters are zeroed just before each main path (6 to
-     26) drives the port and read just after; every
+     28) drives the port and read just after; every
      kernel of a path must have been launched in it.
   8. the train step of ECAPA-TDNN C1024 (SpeakerNet with the sub-centre
      top-k AAM head over 5994 classes, seeded random weights, bf16
@@ -345,7 +345,24 @@ Phases (any failure raises and the script exits non-zero):
      with nan_debug_dir fed one NaN batch writes one dump, whose replay on
      the card finds the input bad, the weights finite and the loss not;
      flops_estimate of the served ECAPA C1024 batch.
- 27. a "kernels" JSON line, then the device JSON as the last line.
+ 27. the native C++ host front end (features/native.py): a fresh build
+     of the library (plain c++) timed; ms per 10 s utterance on one host
+     thread, native beside the port's host compute_fbank on CPU tensors
+     (80 bins), and their largest deviation (1e-3); one OLR smoke epoch
+     (phase 16's setup) on data.feat_backend "native": the data wait's
+     share of the epoch beside phase 16's host-fbank shares. Phase 21's
+     RepVGG gate computes its features on the native front end too.
+ 28. the mesh at full width on the one card: NCCL at world 1 in this
+     process; phase 8's ECAPA C1024 step (sub-centre top-k AAM over 5,994
+     classes, B=128 x 2 s, K1 in the step, bf16 on f32 masters, adamW
+     1e-3) through Trainer(mesh=make_mesh(1, 1)) with no rules and with
+     make_fsdp_rules (at world 1 every leaf replicated), each under the
+     sync check against the plain step from the same seed (loss and
+     grad_norm 1e-5 relative, BN statistics 1e-6, every leaf 2.5 lr), K1
+     once a step, ms/step beside the plain step in turns, peak memory;
+     the collective audit's table; asnorm_device(mesh=...) at phase 13's
+     shape against the unsharded call (rtol 1e-5).
+ 29. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
 line) is device time over many launches back to back: one CUDA event, N
@@ -2163,6 +2180,7 @@ def phase_train_xvector(torch, device_label):
 # 10 languages of one speaker each, 128 training utterances of 2.5-4.0 s
 # and 8 evaluation ones: 5 steps an epoch at the recipe's B = 256
 OLR_LANGS, OLR_TRAIN_UTTS, OLR_EVAL_UTTS = 10, 128, 8
+OLR_WAIT_SHARE: list = []  # phase 16's host-fbank epochs: the data wait's share of each
 
 
 def phase_olr(torch, device_label):
@@ -2205,6 +2223,7 @@ def phase_olr(torch, device_label):
         for stats in launcher.epoch_stats:
             m, wait = stats["metrics"], stats["data_wait_s"]
             losses.append(m["loss"])
+            OLR_WAIT_SHARE.append(sum(wait) / stats["wall_s"])  # phase 27 prints it beside the native one
             print(f"OLR epoch {stats['epoch']}: {stats['steps']} steps, "
                   f"{float(np.median(stats['step_ms'])):.2f} ms/step (median, CUDA events; "
                   + ", ".join(f"{x:.1f}" for x in stats["step_ms"]) + f"), the host's wait for the next batch "
@@ -2586,7 +2605,10 @@ def phase_gates(torch, device_label):
     with tempfile.TemporaryDirectory() as tmp:
         with Renderer() as render:
             synth_datadir.write_datadir(f"{tmp}/data", spk=24, train_utts=8, eval_utts=4, render=render)
+        backend = repvgg_deploy_gate.gate_params(f"{tmp}/data", f"{tmp}/exp")["data"]["feat_backend"]
+        check(backend == "native", f"the RepVGG gate computes its features with {backend!r}, not the native front end")
         out = repvgg_deploy_gate.run_gate(f"{tmp}/data", f"{tmp}/exp", epochs=1, device="cuda")
+    print(f"gate RepVGG on feat_backend={backend!r} (the C++ host front end)", flush=True)
     has_keys("repvgg", out, GATE_KEYS["repvgg"])
     finite("RepVGG", out["losses"])
     check(out["deploy_vs_train_mean_cosine"] > repvgg_deploy_gate.MIN_COSINE,
@@ -4024,6 +4046,197 @@ def phase_tail(torch, device_label):
     return counts
 
 
+NATIVE_UTTS = 10  # 10 s utterances timed on one host thread, native against the port's host fbank
+NATIVE_TOL = 1e-3  # tests/test_runtime_parity.py:68: the C++ fbank against the numpy/torch one
+
+
+def phase_native(torch, device_label):
+    """27. The native C++ host front end (features/native.py): a fresh build
+    of the library into a temporary directory (the package's copy was
+    built for phase 21's RepVGG gate), timed; ms per 10 s utterance on one
+    host thread, native against the port's host ``compute_fbank`` on CPU
+    tensors (80 bins), and their largest deviation; then one OLR smoke
+    epoch (phase 16's setup) with ``data.feat_backend="native"``: the data
+    wait's share of the epoch beside phase 16's host-fbank epochs. No
+    kernel runs here (the counters show it)."""
+    from pathlib import Path
+
+    from asv_subtools_tpu_torch.features import FbankOptions, MelOptions, native
+    from asv_subtools_tpu_torch.features.functional import compute_fbank
+    from asv_subtools_tpu_torch.kernels import _build
+    from asv_subtools_tpu_torch.launcher import Launcher
+    from asv_subtools_tpu_torch.recipes import olr
+    from asv_subtools_tpu_torch.recipes.synthetic import write_corpus
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        build_s = _build.build_capi(Path(tmp) / "libasvtpu_capi.so")
+    check(build_s > 0 and native.native_available(), "the native front end did not build")
+    opts = FbankOptions(mel_opts=MelOptions(num_bins=80))
+    rng = np.random.default_rng(SEED + 130)
+    waves = [(rng.normal(size=SAMPLES) * 1000.0).astype(np.float32) for _ in range(NATIVE_UTTS + 1)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        nat_ms, host_ms, dev, ok = [], [], 0.0, True
+        for i, w in enumerate(waves):
+            t0 = time.perf_counter()
+            a = native.native_fbank(w, opts)
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                b = compute_fbank(torch.from_numpy(w), opts, fft_mode="rfft").numpy()
+            t2 = time.perf_counter()
+            if i:  # the first utterance warms both up
+                nat_ms.append((t1 - t0) * 1e3)
+                host_ms.append((t2 - t1) * 1e3)
+            ok = ok and a.shape == b.shape and bool(np.allclose(a, b, rtol=NATIVE_TOL, atol=NATIVE_TOL))
+            dev = max(dev, float(np.abs(a - b).max()))
+    finally:
+        torch.set_num_threads(threads)
+    nat, host = float(np.median(nat_ms)), float(np.median(host_ms))
+    print(f"native front end: build {build_s:.2f} s (c++ -O3 -march=native, capi.cc + feature.cc); one 10 s "
+          f"utterance on one host thread (80-bin fbank, median of {NATIVE_UTTS}): native {nat:.2f} ms, the port's host "
+          f"compute_fbank (torch CPU, rfft) {host:.2f} ms, {host / nat:.2f}x; largest deviation {dev:.3e} (tol "
+          f"{NATIVE_TOL}); on the host of {device_label}", flush=True)
+    check(ok, f"the native fbank is {dev:.3e} from the host fbank (tol {NATIVE_TOL})")
+
+    zero_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_corpus(f"{tmp}/data", num_spks=OLR_LANGS, train_per_spk=OLR_TRAIN_UTTS,
+                            eval_per_spk=OLR_EVAL_UTTS, dur=(2.5, 4.0), seed=SEED + 95, num_langs=OLR_LANGS)
+        params = olr.recipe_params(data, f"{tmp}/exp", epochs=1)
+        params["data"]["feat_backend"] = "native"
+        launcher = Launcher(params)
+        egs = launcher.build_egs()
+        launcher.build_model()
+        launcher.train(egs)
+    counts = read_launches("native front end", ())
+    stats = launcher.epoch_stats[0]
+    share = sum(stats["data_wait_s"]) / stats["wall_s"]
+    print(f"OLR smoke epoch on feat_backend='native' (phase 16's setup, B {params['data']['batch_size']}): "
+          f"{stats['steps']} steps, {float(np.median(stats['step_ms'])):.2f} ms/step (median, CUDA events), the data "
+          f"wait {sum(stats['data_wait_s']):.2f} s of the epoch's {stats['wall_s']:.2f} s = {share:.3f}; phase 16's "
+          f"host-fbank epochs: " + ", ".join(f"{x:.3f}" for x in OLR_WAIT_SHARE)
+          + f"; loss {stats['metrics']['loss']:.4f}; phase 27 {time.perf_counter() - t_phase:.1f} s on {device_label}",
+          flush=True)
+    check(np.isfinite(stats["metrics"]["loss"]), "the native OLR epoch's loss is not finite")
+    check(not any(counts.values()), f"a kernel ran on the native front end's path: {counts}")
+    return counts
+
+
+MESH_LR = 1e-3  # bench.py:115's adamW
+MESH_STEPS = 4  # steps back to back in each timed run of the turns
+
+
+def phase_mesh(torch, device_label):
+    """28. The mesh at full width on the one card: NCCL at world 1 in this
+    process (init_method on 127.0.0.1), ECAPA-TDNN C1024 with the
+    sub-centre top-k AAM head over 5,994 classes at B=128 x 32,000
+    samples, K1 in the step, bf16 on f32 masters, adamW 1e-3 (phase 8's
+    step), through ``Trainer(mesh=make_mesh(1, 1))`` with no rules and
+    with ``make_fsdp_rules`` (which at world 1 replicate every leaf, as
+    JAX's do at n <= 1; the sharding itself is held by the CPU tests).
+    Each mesh step, under the sync check, against the plain step from the
+    same state and generator seed: loss and grad_norm within 1e-5
+    relative, the BN statistics within 1e-6, every leaf within 2.5 lr
+    (JAX's bound, test_multichip_production.py:24-28); K1 once a step;
+    ms/step beside the plain step in turns; peak memory; the collective
+    audit's table (two steps under the profiler), which must be empty: a
+    collective over a group of one process is skipped, so on one card the
+    mesh step does the plain step's work. Then asnorm_device with
+    the mesh at phase 13's shape against the unsharded call (rtol 1e-5).
+    The group is torn down at the end."""
+    import socket
+
+    from asv_subtools_tpu_torch.backend import asnorm_device
+    from asv_subtools_tpu_torch.parallel import initialize_multihost, make_fsdp_rules, make_mesh
+    from asv_subtools_tpu_torch.parallel.audit import audit_train_step
+    from asv_subtools_tpu_torch.train import Trainer, TrainStepConfig, get_optimizer, init_train_state, make_train_step
+    from asv_subtools_tpu_torch.train.step_check import SUBCENTER_TOPK, ecapa_net
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    initialize_multihost(f"127.0.0.1:{port}", num_processes=1, process_id=0, backend="nccl")
+    total = {name: 0 for name in _wrappers()}
+    try:
+        mesh = make_mesh(1, 1)
+        opts, _, wave, labels = _train_batch(torch, SEED + 140)
+        batch = {"x": wave, "y": labels}
+        config = TrainStepConfig(compute_dtype=torch.bfloat16, wave_input=True, fbank_opts=opts)
+        net = ecapa_net(SUBCENTER_TOPK, SEED + 141, channels=1024)
+        tx = get_optimizer("adamW", MESH_LR)
+        plain_step = make_train_step(net, tx, config=config)
+        plain0 = init_train_state(net, tx, dev)
+        ref, ref_m = plain_step(plain0, batch, torch.Generator(device=dev).manual_seed(SEED + 142))
+        ref_loss, ref_gn = float(ref_m["loss"]), float(ref_m["grad_norm"])
+        for label, rules in (("no rules", None), ("make_fsdp_rules", make_fsdp_rules(mesh))):
+            trainer = Trainer(net, tx, config=config, device=dev, mesh=mesh, partition_rules=rules)
+            check(not trainer.placement.sharded, f"a leaf is sharded on a mesh of one ({label})")
+            state = trainer.init_state()
+            # a warm-up step outside the sync check
+            trainer._train_step(state, batch, torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device=dev).manual_seed(SEED + 142)
+            zero_launches()
+            with no_host_sync(torch):
+                new, m = trainer._train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            counts = read_launches(f"mesh step ({label})", ("fused_fbank",))
+            check(counts["fused_fbank"] == 1, f"K1 launched {counts['fused_fbank']} times in a mesh step")
+            for k, v in counts.items():
+                total[k] += v
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            full = trainer.full_state(new)
+            d_loss = abs(float(m["loss"]) - ref_loss) / abs(ref_loss)
+            d_gn = abs(float(m["grad_norm"]) - ref_gn) / abs(ref_gn)
+            d_bn = max(float((full.batch_stats[k].float() - v.float()).abs().max())
+                       for k, v in ref.batch_stats.items() if v.is_floating_point())
+            d_leaf = max(float((full.params[k] - v).abs().max()) for k, v in ref.params.items())
+            plain_ms, mesh_ms = turns_ms(torch, lambda: plain_step(plain0, batch, gen),
+                                         lambda: trainer._train_step(state, batch, gen), n=MESH_STEPS)
+            print(f"mesh step C1024 bf16 [{BATCH},{TRAIN_SAMPLES}] adamW, Trainer(mesh=make_mesh(1, 1), "
+                  f"partition_rules={label}) on NCCL world 1: loss {float(m['loss']):.6f} (plain {ref_loss:.6f}, "
+                  f"rel {d_loss:.2e}), grad_norm rel {d_gn:.2e}, BN statistics {d_bn:.2e}, leaves {d_leaf:.2e} "
+                  f"(bars 1e-5, 1e-5, 1e-6, {2.5 * MESH_LR:.1e}); K1 launches {counts['fused_fbank']}; no wait on the "
+                  f"card; {mesh_ms:.2f} ms/step beside the plain step's {plain_ms:.2f} (turns, {MESH_STEPS} steps "
+                  f"back to back); peak memory {peak:.2f} GiB on {device_label}", flush=True)
+            check(d_loss <= 1e-5 and d_gn <= 1e-5 and d_bn <= 1e-6 and d_leaf <= 2.5 * MESH_LR,
+                  f"the mesh step ({label}) is off the plain step")
+            if rules is None:
+                audit = audit_train_step(lambda: trainer._train_step(state, batch, gen), steps=2)
+                print(f"collective audit of the mesh step (two steps under torch.profiler, NCCL world 1, "
+                      f"{device_label}):\n{audit.table()}", flush=True)
+                check(not audit.collectives, f"the mesh step of one process ran collectives: {audit.counts()}")
+            del trainer, state, new, full
+            torch.cuda.empty_cache()
+        del ref, plain0
+        torch.cuda.empty_cache()
+
+        g = torch.Generator(device=dev).manual_seed(SEED + 143)
+        raw = torch.rand((BACKEND_E, BACKEND_T), generator=g, device=dev) * 2 - 1
+        ec = torch.rand((BACKEND_E, BACKEND_C), generator=g, device=dev) * 2 - 1
+        tc = torch.rand((BACKEND_T, BACKEND_C), generator=g, device=dev) * 2 - 1
+        got = asnorm_device(raw, ec, tc, top_n=300, mesh=mesh)
+        want = asnorm_device(raw, ec, tc, top_n=300)
+        err = float((got - want).abs().max())
+        mesh_as = device_ms(torch, lambda: asnorm_device(raw, ec, tc, top_n=300, mesh=mesh), n=10)
+        plain_as = device_ms(torch, lambda: asnorm_device(raw, ec, tc, top_n=300), n=10)
+        print(f"asnorm_device(mesh=make_mesh(1, 1)) at {BACKEND_E} x {BACKEND_T}, cohort {BACKEND_C}, top 300: max abs "
+              f"err {err:.3e} against the unsharded call (rtol 1e-5); {mesh_as:.3f} ms beside {plain_as:.3f} ms (CUDA "
+              f"events, 10 back to back) on {device_label}", flush=True)
+        check(got.device.type == "cuda" and bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6)),
+              f"asnorm_device with the mesh is {err:.3e} from the unsharded call")
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"phase 28 {time.perf_counter() - t_phase:.1f} s on {device_label}", flush=True)
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -4087,6 +4300,10 @@ def main() -> int:
     paths.append(phase_checkpoints_and_serving(torch, smi))
     torch.cuda.empty_cache()
     paths.append(phase_tail(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_native(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_mesh(torch, smi))
     for kernel_name, k in kernels.items():
         k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -475,10 +475,31 @@ def test_asnorm_device_whole_cohort():
         np.testing.assert_allclose(got, P.snorm(raw, ec, tc), rtol=2e-3, atol=2e-4)
 
 
-def test_asnorm_device_mesh_raises():
+def test_asnorm_device_mesh_matches_jax():
+    """asnorm_device(mesh=...) (before ROADMAP item 5 was ported it raised)
+    on a mesh of one process (a one-process gloo group) against JAX's on a
+    one-device mesh and against the unsharded call; the 2- and 4-rank
+    runs are tests/test_torch_distributed.py's."""
+    import socket
+
+    import jax
+
+    from asv_subtools_tpu.parallel import make_mesh as jax_make_mesh
+    from asv_subtools_tpu_torch import parallel
+
     raw, ec, tc = _cohort_scores(4, 5, 20, seed=4)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        P.asnorm_device(raw, ec, tc, top_n=8, mesh=object(), device="cpu")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    parallel.initialize_multihost(f"127.0.0.1:{port}", num_processes=1, process_id=0, backend="gloo")
+    try:
+        got = P.asnorm_device(raw, ec, tc, top_n=8, mesh=parallel.make_mesh(), device="cpu").numpy()
+    finally:
+        torch.distributed.destroy_process_group()
+    want = np.asarray(J.asnorm_device(raw, ec, tc, top_n=8, mesh=jax_make_mesh(devices=jax.devices()[:1])))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, P.asnorm_device(raw, ec, tc, top_n=8, device="cpu").numpy(), rtol=1e-5)
 
 
 @pytest.mark.parametrize("normalize", [True, False])

@@ -97,6 +97,16 @@ tests/test_backend_scale.py (600 x 970, cohort 5,994, top 300) against
 the f64 host asnorm at rtol 2e-3, atol 2e-4; llr_matrix_device at
 600 x 970, D=256, against the f64 Plda.llr_matrix at 2e-3; each result a
 tensor on the card.
+
+The native host front end and the mesh: the C++ library builds on the
+card's host (plain c++) and its fbank agrees with the port's host fbank
+at 1e-3; under a world-1 NCCL group ``resolve_device()`` is
+``cuda:LOCAL_RANK``, and the mesh step of a narrow ECAPA (C256, B=8,
+bf16 on f32 masters, K1 in the step) through ``Trainer(mesh=
+make_mesh(1, 1))``, with and without ZeRO-3 rules, equals the plain step
+from the same seed at chip_smoke phase 28's bars (loss and grad_norm
+1e-5 relative, BN statistics 1e-6, every leaf within 2.5 lr) and never
+waits on the card.
 """
 
 import pytest
@@ -1671,3 +1681,76 @@ def test_nan_batch_dump_on_the_card(card, tmp_path):
     assert [p.name for p in dumps] == ["nan_batch_step2.pkl"]
     report = replay_nan_batch(str(dumps[0]), net())
     assert report["x_finite"] is False and report["params_finite"] is True and report["loss_finite"] is False
+
+
+def test_native_front_end_builds_on_the_cards_host(card):
+    import numpy as np
+
+    from asv_subtools_tpu_torch.features import native
+    from asv_subtools_tpu_torch.features.functional import compute_fbank
+
+    assert native.native_available()
+    opts = FbankOptions(mel_opts=MelOptions(num_bins=80))
+    wave = (np.random.default_rng(0).normal(size=48000) * 1000).astype(np.float32)
+    got = native.native_fbank(wave, opts)
+    want = compute_fbank(torch.from_numpy(wave), opts, fft_mode="rfft").numpy()
+    assert got.shape == want.shape == (298, 80)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.fixture
+def nccl_world1(card, monkeypatch):
+    import socket
+
+    from asv_subtools_tpu_torch.parallel import initialize_multihost, make_mesh
+
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    initialize_multihost(f"127.0.0.1:{port}", num_processes=1, process_id=0, backend="nccl")
+    try:
+        yield make_mesh(1, 1)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_resolve_device_under_a_group_is_the_local_rank(nccl_world1):
+    from asv_subtools_tpu_torch.device import resolve_device
+
+    assert resolve_device() == torch.device("cuda", 0)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("fsdp", [False, True])
+def test_world1_mesh_step_equals_the_plain_step(nccl_world1, fsdp):
+    from asv_subtools_tpu_torch.parallel import make_fsdp_rules
+    from asv_subtools_tpu_torch.train import Trainer, TrainStepConfig, get_optimizer, init_train_state, make_train_step
+    from asv_subtools_tpu_torch.train.step_check import OPTS, SUBCENTER_TOPK, ecapa_net, host_waits, modulated_waves
+
+    dev = torch.device("cuda", 0)
+    lr = 1e-3
+    config = TrainStepConfig(compute_dtype=torch.bfloat16, wave_input=True, fbank_opts=OPTS)
+    x, y = modulated_waves(8, 0)
+    batch = {"x": x.to(dev), "y": y.to(dev)}
+    net = ecapa_net(SUBCENTER_TOPK, 3, channels=256)
+    tx = get_optimizer("adamW", lr)
+    plain_state, plain_m = make_train_step(net, tx, config=config)(
+        init_train_state(net, tx, dev), batch, torch.Generator(device=dev).manual_seed(5))
+    trainer = Trainer(net, tx, config=config, device=dev, mesh=nccl_world1,
+                      partition_rules=make_fsdp_rules(nccl_world1) if fsdp else None)
+    state = trainer.init_state()
+    trainer._train_step(state, batch, torch.Generator(device=dev).manual_seed(5))  # NCCL's communicator
+    torch.cuda.synchronize()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    (state, m), waits = host_waits(lambda: trainer._train_step(state, batch, gen))
+    assert not waits, waits
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m[k]) - float(plain_m[k])) <= 1e-5 * abs(float(plain_m[k])), k
+    full = trainer.full_state(state)
+    for k, v in plain_state.batch_stats.items():
+        if v.is_floating_point():
+            assert float((full.batch_stats[k] - v).abs().max()) <= 1e-6, k
+    for k, v in plain_state.params.items():
+        assert float((full.params[k] - v).abs().max()) <= 2.5 * lr, k

@@ -130,11 +130,21 @@ def test_host_features_match_jax(corpus):
     assert n > 0
 
 
-def test_compute_feats_rejects_the_unported_types():
+@pytest.mark.parametrize("feat_type", ["fbank", "mfcc_pitch"])
+def test_compute_feats_native_matches_jax(corpus, feat_type):
+    """backend="native" (before ROADMAP item 10 was ported it raised) runs
+    the C++ front end and agrees with JAX's native stage (its C++ library
+    where it is built, else its numpy path) at 2e-3, with CMVN."""
+    from asv_subtools_tpu.data import processor as jax_processor
     from asv_subtools_tpu_torch.data import processor
 
-    with pytest.raises(NotImplementedError, match="item 10"):
-        processor.compute_feats(backend="native")
+    with open(os.path.join(corpus["root"], "train", "wav.scp")) as f:
+        wav, _ = io.read_wav(f.readline().split()[1])
+    sample = lambda: [{"key": "u", "wav": np.asarray(wav, np.float32).reshape(-1), "sample_rate": 16000}]  # noqa
+    got = next(processor.compute_feats(feat_type=feat_type, backend="native")(sample()))["feat"]
+    want = next(jax_processor.compute_feats(feat_type=feat_type, backend="native")(sample()))["feat"]
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
 
 
 @pytest.mark.parametrize("seed", [0, 1024])

@@ -13,6 +13,14 @@ The native host front end (``runtime/capi.cc`` over
 plain ``c++`` with the flags of ``runtime/CMakeLists.txt``, into
 ``build/libasvtpu_capi.so``. It is host code and needs no CUDA.
 
+The native runtime (``asv_subtools_tpu_torch/runtime``: the bundle loader,
+the CudaExecutor, the kernels' op registrations and the two binaries
+``bundle_runner`` and ``asv_extractor_main``) is built by
+:func:`build_runtime`: plain ``c++`` against the installed torch's
+headers and libraries, linked to the ``nvcc``-built kernel libraries, into
+``build/runtime/``. Where torch has no CUDA or there is no ``nvcc`` it
+builds a CPU-only variant, whose binaries refuse ``--device=cuda``.
+
 Nothing here runs at import: the CPU tests import every module, and a
 CPU-only install has no ``nvcc``.
 """
@@ -157,4 +165,139 @@ def build_capi(lib: Optional[Path] = None) -> float:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"building the native front end failed ({' '.join(cmd)}):\n{proc.stdout}")
     os.replace(tmp, lib)
+    return time.perf_counter() - t0
+
+
+RUNTIME_SRC = _PKG / "runtime"
+RUNTIME_BUILD = BUILD_DIR / "runtime"
+RUNTIME_BINARIES = ("bundle_runner", "asv_extractor_main")
+# object -> source; cuda_executor and ops include libtorch's headers (20-40 s each)
+_RUNTIME_UNITS = {
+    "bundle": RUNTIME_SRC / "bundle.cc",
+    "cuda_executor": RUNTIME_SRC / "cuda_executor.cc",
+    "ops": RUNTIME_SRC / "ops.cc",
+    "feature": RUNTIME / "frontend" / "feature.cc",
+    "bundle_runner_main": RUNTIME_SRC / "bin" / "bundle_runner_main.cc",
+    "asv_extractor_main": RUNTIME_SRC / "bin" / "asv_extractor_main.cc",
+}
+_RUNTIME_LINK = {
+    "bundle_runner": ("bundle_runner_main", "bundle", "cuda_executor"),
+    "asv_extractor_main": ("asv_extractor_main", "bundle", "cuda_executor", "feature"),
+}
+_OP_KERNELS = ("att_pooling", "res2_chain", "stats_pooling")  # the kernels runtime/ops.cc calls
+
+
+def runtime_has_cuda() -> bool:
+    """Whether :func:`build_runtime` builds the CUDA variant here: torch
+    built with CUDA and ``nvcc`` present."""
+    import torch
+
+    if torch.version.cuda is None:
+        return False
+    try:
+        _nvcc()
+    except RuntimeError:
+        return False
+    return True
+
+
+def runtime_binary(name: str, out_dir: Optional[Path] = None) -> Path:
+    """The path of a runtime binary (``bundle_runner`` or ``asv_extractor_main``)."""
+    if name not in RUNTIME_BINARIES:
+        raise ValueError(f"no runtime binary {name!r}; expected one of {RUNTIME_BINARIES}")
+    return (Path(out_dir) if out_dir is not None else RUNTIME_BUILD) / name
+
+
+def _cudart() -> Path:
+    """The CUDA runtime library torch loads (its pip package's), else the toolkit's."""
+    import torch
+
+    dirs = [Path(torch.__file__).resolve().parent.parent / "nvidia" / "cuda_runtime" / "lib",
+            Path(_nvcc()).resolve().parent.parent / "lib64"]
+    for d in dirs:
+        found = sorted(d.glob("libcudart.so*"))
+        if found:
+            return found[0]
+    raise RuntimeError(f"no libcudart.so under {[str(d) for d in dirs]}")
+
+
+def _run_all(jobs, what: str) -> None:
+    """Run (command, temporary output, final output) jobs in parallel;
+    rename each output when its command succeeds, raise with the output of
+    every command that failed."""
+    procs = [(cmd, tmp, dst, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+             for cmd, tmp, dst in jobs]
+    failed = []
+    for cmd, tmp, dst, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{what} failed ({' '.join(map(str, cmd))}):\n{out}")
+        else:
+            os.replace(tmp, dst)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def build_runtime(out_dir: Optional[Path] = None, ops: bool = True) -> float:
+    """Build the native runtime's two binaries into ``out_dir`` (default
+    ``build/runtime/``) when they are missing, older than a source or a
+    header (``runtime/frontend/`` and ``runtime/utils/`` included), or were
+    built by another torch or variant. Every translation unit compiles at
+    once, one ``c++`` each; objects and binaries are written under
+    temporary names and renamed. The CUDA variant (:func:`runtime_has_cuda`)
+    first builds the kernel libraries ``runtime/ops.cc`` calls and links
+    them with an rpath; ``ops=False`` leaves ``ops.cc`` out (a binary that
+    cannot run a package holding the kernels' ops). Returns the seconds
+    spent; raises with the compiler's output if a step fails."""
+    import torch
+    from torch.utils import cpp_extension
+
+    out = Path(out_dir) if out_dir is not None else RUNTIME_BUILD
+    cuda = runtime_has_cuda()
+    stamp = f"torch {torch.__version__} cuda {cuda} ops {ops}\n"
+    stamp_file = out / "BUILD_STAMP"
+    binaries = [runtime_binary(name, out) for name in RUNTIME_BINARIES]
+    sources = list(_RUNTIME_UNITS.values()) + [*RUNTIME_SRC.glob("*.h"), *(RUNTIME / "frontend").glob("*.h"),
+                                               *(RUNTIME / "utils").glob("*.h")]
+    libs = [_lib_path(name) for name in _OP_KERNELS] if cuda and ops else []
+    fresh = (all(b.exists() for b in binaries) and stamp_file.exists() and stamp_file.read_text() == stamp
+             and not any(_stale(name) for name in (_OP_KERNELS if libs else ()))
+             and min(b.stat().st_mtime for b in binaries) >= max(f.stat().st_mtime for f in sources + libs))
+    if fresh:
+        return 0.0
+    cxx = shutil.which(os.environ.get("CXX", "c++"))
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (c++) on PATH: the native runtime cannot be built")
+    t0 = time.perf_counter()
+    if libs:
+        build(_OP_KERNELS)
+    out.mkdir(parents=True, exist_ok=True)
+    stamp_file.unlink(missing_ok=True)
+    torch_lib = Path(torch.__file__).resolve().parent / "lib"
+    flags = ["-std=c++17", "-O2", "-fPIC", f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+             "-I", str(RUNTIME), "-I", str(RUNTIME_SRC)]
+    for inc in cpp_extension.include_paths():
+        flags += ["-isystem", inc]
+    if cuda:
+        flags += ["-DASV_WITH_CUDA", "-isystem", str(Path(_nvcc()).resolve().parent.parent / "include")]
+    tag = f"{os.getpid()}.{threading.get_ident()}.tmp"
+    units = [u for u in _RUNTIME_UNITS if ops or u != "ops"]
+    _run_all([([cxx, *flags, "-c", str(_RUNTIME_UNITS[u]), "-o", str(out / f"{u}.o.{tag}")],
+               out / f"{u}.o.{tag}", out / f"{u}.o") for u in units], "compiling the native runtime")
+    link = ["-L", str(torch_lib), f"-Wl,-rpath,{torch_lib}", "-Wl,--no-as-needed", "-ltorch", "-ltorch_cpu", "-lc10"]
+    if cuda:
+        cudart = _cudart()
+        link += ["-ltorch_cuda", "-lc10_cuda", str(cudart), f"-Wl,-rpath,{cudart.parent}"]
+        if ops:
+            link += ["-L", str(BUILD_DIR), f"-Wl,-rpath,{BUILD_DIR}", *(f"-l{name}" for name in _OP_KERNELS)]
+    link += ["-lpthread"]
+    jobs = []
+    for name, objs in _RUNTIME_LINK.items():
+        dst = runtime_binary(name, out)
+        tmp = dst.with_name(f"{dst.name}.{tag}")
+        objs = [*objs, "ops"] if ops else list(objs)
+        jobs.append(([cxx, *(str(out / f"{o}.o") for o in objs), "-o", str(tmp), *link], tmp, dst))
+    _run_all(jobs, "linking the native runtime")
+    stamp_file.write_text(stamp)
     return time.perf_counter() - t0

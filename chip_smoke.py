@@ -49,7 +49,9 @@ Phases (any failure raises and the script exits non-zero):
      front end; timed with the flag on and off; one batch profiled; then the Extractor run as in 6.
      The launch counters are zeroed just before each main path (6 to
      28) drives the port and read just after; every
-     kernel of a path must have been launched in it.
+     kernel of a path must have been launched in it. Phase 29's main path
+     runs in the native binaries, whose own counters (runtime/ops.cc)
+     it reads.
   8. the train step of ECAPA-TDNN C1024 (SpeakerNet with the sub-centre
      top-k AAM head over 5994 classes, seeded random weights, bf16
      compute on f32 masters) on raw waves at B=128 x 2 s, K1 inside the
@@ -362,7 +364,21 @@ Phases (any failure raises and the script exits non-zero):
      once a step, ms/step beside the plain step in turns, peak memory;
      the collective audit's table; asnorm_device(mesh=...) at phase 13's
      shape against the unsharded call (rtol 1e-5).
- 29. a "kernels" JSON line, then the device JSON as the last line.
+ 29. the native runtime (asv_subtools_tpu_torch/runtime): the C++
+     binaries built from nothing (timed); the served ECAPA C1024 (seeded,
+     bf16, every flag on) exported by export_pjrt_embed_bundles at b1 t200,
+     b1 t400 and b32 t1600 (each AOTInductor compile timed), each bundle
+     through bundle_runner (no Python in the process) at cosine 0.99999
+     against eager on the same features, K2 once and K3 three times a call
+     through runtime/ops.cc, ms a call beside eager and 25(d)'s loaded
+     program; a SnowdarXvector 512/512 bundle with K4 (once a call, 0.99999);
+     the port's extractor over phase 6's 48 utterances per utterance,
+     batched (--threads 8) and with --streams 4, each embedding at 0.9999
+     against the eager model on the extractor's features (audio-s/s, RTF,
+     BREAKDOWN, finalize p50/p95); the x-vector's bf16 and int8 wires at
+     0.999 against its f32 wire. The launches of this phase are the
+     binaries' own counts (runtime/ops.cc).
+ 30. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
 line) is device time over many launches back to back: one CUDA event, N
@@ -394,6 +410,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import Optional
 
@@ -3314,6 +3331,7 @@ def phase_conformer_family(torch, device_label):
 CONVERT_COSINE = 0.999  # the converted model's bf16 batch, every flag on, against its unfused bf16 model (phase 6)
 INT8_COSINE = 0.999  # JAX tests/test_int8.py:41-53: int8 products against the bf16 model
 EXPORT_COSINE = 0.99999  # a loaded exported program against the same model eager
+EXPORTED_MS = {}  # (batch, bucket) -> (loaded torch.export program, eager) ms a call, phase 25(d); phase 29 reads it
 SERVER_COSINE = 0.99999  # a socket reply against server.embed on the same features
 SERVER_THREADS, SERVER_REQUESTS = 4, 32  # client threads, requests each
 SERVER_ALONE = 16  # requests from one client thread before them
@@ -3649,6 +3667,7 @@ def phase_checkpoints_and_serving(torch, device_label):
                 k3 = events.get("res2_mma_kernel", 0) + events.get("res2_kernel", 0)
                 ms_loaded = median_ms(torch, lambda: loaded(x, m), warmup=2, iters=10)
                 ms_eager = median_ms(torch, lambda: feats_fn(x, m), warmup=2, iters=10)
+                EXPORTED_MS[(b, t)] = (ms_loaded, ms_eager)
                 launched = {what: _profile(torch, fn, 1)[2] for what, fn in
                             (("loaded", lambda: loaded(x, m)), ("eager", lambda: feats_fn(x, m)))}
             print(f"exported ECAPA C1024 b{b}_t{t} (bf16, K2 and K3 on): export {export_s:.1f} s, save+load "
@@ -4237,6 +4256,332 @@ def phase_mesh(torch, device_label):
     return total
 
 
+RUNTIME_COSINE = 0.99999  # a bundle through the C++ runner against the same model eager, same features
+EXTRACT_COSINE = 0.9999  # the port's extractor against the eager model on the extractor's features
+WIRE_COSINE = 0.999  # the bf16 and int8 feature wires against the f32 wire (JAX tests/test_pjrt_bundle.py:218)
+RUNTIME_ITERS, RUNTIME_WARMUP = 20, 3  # the runner's timed calls, after its warm-up calls
+EXTRACT_UTTS = 48  # phase 6's seeded utterances (1.5-25 s)
+WIRE_UTTS = 8  # the wires' utterances (the first eight)
+ECAPA_BUNDLES = ((1, 200), (1, 400), (32, 1600))  # (batch, bucket): the served shapes; 25(d) exported the last two
+XVECTOR_BUCKET = 400
+
+
+def _runner_ms(proc) -> dict:
+    m = re.search(r"execute: ([0-9.]+) ms/iter \(\d+ iters; enqueue ([0-9.]+), execute ([0-9.]+), download "
+                  r"([0-9.]+)", proc.stdout)
+    check(m is not None, f"no execute line in the runner's output:\n{proc.stdout}\n{proc.stderr}")
+    return dict(zip(("call", "enqueue", "execute", "download"), map(float, m.groups())))
+
+
+def _extractor_feats(torch, path: str) -> np.ndarray:
+    """The extractor's features for one wav: fbank with the raw log-energy
+    in column 0 from the same runtime/frontend code (features/native.py),
+    the port's energy VAD, the voiced frames, submean."""
+    from asv_subtools_tpu_torch.features import native
+    from asv_subtools_tpu_torch.features.functional import compute_vad_energy
+    from asv_subtools_tpu_torch.io.wav import read_wav
+
+    samples, _ = read_wav(path)
+    feats = native._call(native.load().asvtpu_fbank, np.asarray(samples, np.float32).reshape(-1), 81, 160, 80,
+                         16000.0, 1, 1, 1)
+    voiced = compute_vad_energy(torch.from_numpy(feats[:, 0])).numpy() > 0
+    sel = feats[voiced, 1:] if voiced.any() else feats[:, 1:]
+    return sel - sel.mean(axis=0, dtype=np.float64).astype(np.float32)
+
+
+def _bucketed(feats: np.ndarray, buckets):
+    """The extractor's rule: the smallest bucket at or above T, else cut to the last."""
+    t = len(feats)
+    bucket = next((b for b in buckets if b >= t), buckets[-1])
+    x = np.zeros((1, bucket, feats.shape[1]), np.float32)
+    x[0, :min(t, bucket)] = feats[:bucket]
+    return x, np.arange(bucket)[None, :] < min(t, bucket)
+
+
+_OP_MODULES = {"fused_attentive_stats_pool": "asv_subtools_tpu_torch.nn.fused_att_pooling",
+               "fused_res2_chain": "asv_subtools_tpu_torch.nn.fused_res2",
+               "fused_stats_pooling": "asv_subtools_tpu_torch.nn.fused_stats_pooling"}
+
+
+def _served_op_calls(torch, run) -> list:
+    """(op name, its arguments) of every custom-op call that ``run()``
+    makes: the main path's own arguments, views included."""
+    import importlib
+
+    calls, saved = [], []
+    for name, module in _OP_MODULES.items():
+        mod = importlib.import_module(module)
+        op = getattr(mod, f"{name}_op")
+        saved.append((mod, f"{name}_op", op))
+
+        def record(*args, _name=name, _op=op):
+            calls.append((_name, args))
+            return _op(*args)
+
+        setattr(mod, f"{name}_op", record)
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for mod, attr, op in saved:
+            setattr(mod, attr, op)
+    return calls
+
+
+def _hold_cpp_ops(torch, calls: list, out_dir: str, device_label: str) -> None:
+    """One op bundle of ``calls`` at the main path's shapes, run by
+    bundle_runner: runtime/ops.cc's host plan and launch held bit for bit
+    against the Python op's (its ctypes launch) on the same card tensors.
+    A [B, T, C] view of [B, C, T] memory is fed as that memory and viewed
+    again inside the bundle, so that both sides plan the same layout."""
+    from asv_subtools_tpu_torch.export import export_pjrt_bundle, raw_bytes
+    from asv_subtools_tpu_torch.runtime import parse_fields, run_bundle
+
+    feeds, plan = [], []
+    for name, args in calls:
+        spec = []
+        for a in args:
+            if not isinstance(a, torch.Tensor):
+                spec.append(("const", a))
+                continue
+            viewed = not a.is_contiguous() and a.dim() == 3 and a.transpose(1, 2).is_contiguous()
+            spec.append(("view" if viewed else "leaf", len(feeds)))
+            feeds.append(a.transpose(1, 2) if viewed else a.contiguous())
+        plan.append((name, spec))
+    ops = {name: getattr(torch.ops.asv_subtools_tpu_torch, name) for name in _OP_MODULES}
+
+    def fn(*leaves):
+        return tuple(ops[name](*(leaves[v].transpose(1, 2) if k == "view" else leaves[v] if k == "leaf" else v
+                                 for k, v in spec)) for name, spec in plan)
+
+    t0 = time.perf_counter()
+    path = export_pjrt_bundle(fn, feeds, out_dir, device="cuda")
+    compile_s = time.perf_counter() - t0
+    proc, outs = run_bundle(path, dict(enumerate(feeds)))
+    check(proc.returncode == 0, f"bundle_runner failed on the op bundle:\n{proc.stderr[-3000:]}")
+    with torch.no_grad():
+        wants = [ops[name](*args) for name, args in calls]
+    check(len(outs) == len(wants), f"the op bundle gave {len(outs)} outputs for {len(wants)} calls")
+    per_call = parse_fields(proc.stdout, "ops per call:")
+    expected = {name: float(sum(n == name for n, _ in calls)) for name in _OP_MODULES}
+    for (name, args), got, want in zip(calls, outs, wants):
+        shape = "x".join(map(str, args[0].shape))
+        check(got == raw_bytes(want), f"runtime/ops.cc's {name} at [{shape}] {args[0].dtype} differs from the "
+              "Python op")
+    print(f"native runtime: op bundle of the main path's {len(calls)} custom-op calls ({expected}; shapes "
+          f"{sorted({(n, tuple(a[0].shape)) for n, a in calls})}): compile {compile_s:.1f} s; runtime/ops.cc equal "
+          f"to the Python ops bit for bit; C++ ops a call {per_call}; {device_label}", flush=True)
+    check(per_call == expected, f"the op bundle launched {per_call} a call, expected {expected}")
+
+
+def phase_runtime(torch, device_label):
+    """29. The native runtime (asv_subtools_tpu_torch/runtime): C++
+    binaries over AOTInductor bundles, no Python in the serving process.
+    (a) build_runtime() from nothing (the kernel libraries are phase 1's),
+    timed, in a thread beside the first compile. (b) The served ECAPA C1024 (seeded weights, bf16, every flag
+    on) through export_pjrt_embed_bundles at b1 t200, b1 t400 and b32
+    t1600, each compile timed; bundle_runner on each at cosine 0.99999
+    against eager on the same --feed input, one K2 and three K3 launches
+    a call through runtime/ops.cc; ms a call beside eager and beside the
+    loaded torch.export program of 25(d). (c) SnowdarXvector 512/512
+    (f32, K4 on) at t400: K4 once a call, cosine 0.99999. One op bundle
+    of every custom-op call that (b) and (c) make, at their shapes:
+    runtime/ops.cc bit for bit against the Python ops. (d) The port's
+    extractor on phase 6's 48 seeded utterances, per utterance (b1
+    bundles), batched (--threads 8, the b32 bundle) and --streams 4: every
+    embedding at cosine 0.9999 against the eager model on the extractor's
+    features; audio-s/s over the audio embedded (voiced frames cut to the
+    largest bucket) and over the audio read, the cut, RTF, BREAKDOWN,
+    finalize p50/p95. (e) The x-vector's bf16 and int8 wires at t400
+    through the extractor at cosine 0.999 against its f32 wire. Returns
+    the C++ launch counts: each binary's total over its process, warm-up
+    included, as its own counters give it."""
+    import shutil
+    from pathlib import Path
+
+    from asv_subtools_tpu_torch.export import export_pjrt_embed_bundles
+    from asv_subtools_tpu_torch.io.wav import write_wav
+    from asv_subtools_tpu_torch.kernels import _build
+    from asv_subtools_tpu_torch.models import EcapaTdnn
+    from asv_subtools_tpu_torch.runtime import parse_fields, read_embeddings, run_bundle, run_extractor
+    from asv_subtools_tpu_torch.train.step_check import xvector_net
+    from asv_subtools_tpu_torch.weights import init_ecapa_weights_
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cpp = {"fused_fbank": 0, "fused_attentive_stats_pool": 0, "fused_res2_chain": 0, "fused_stats_pooling": 0}
+
+    def count(ops: dict) -> None:
+        for k, v in ops.items():
+            cpp[k] += int(v)
+
+    # (a) the build, from nothing, in a thread beside the first compile (it waits on c++ processes)
+    shutil.rmtree(_build.RUNTIME_BUILD, ignore_errors=True)
+    check(_build.runtime_has_cuda(), "the CUDA variant of the runtime cannot be built here")
+    build = {}
+
+    def build_runtime():
+        try:
+            build["s"] = _build.build_runtime()
+        except Exception as e:  # noqa: BLE001  (reported by the main thread)
+            build["error"] = e
+
+    build_thread = threading.Thread(target=build_runtime)
+    build_thread.start()
+
+    zero_launches()  # the Python wrappers: eager references only below, the main path runs in the binaries
+    op_calls = []  # the custom-op calls of (b) and (c), for the op bundle
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) ECAPA C1024 bundles
+        model = _all_flags(init_ecapa_weights_(EcapaTdnn(80, channels=1024, embd_dim=192, mfa_conv=1536), SEED))
+        model = model.to(torch.bfloat16)
+        variables = {"params": model.state_dict()}
+        for b, t in ECAPA_BUNDLES:
+            t0 = time.perf_counter()
+            path = export_pjrt_embed_bundles(model, variables, 80, f"{tmp}/ecapa_b{b}", bucket_lengths=(t,),
+                                             compute_dtype=torch.bfloat16, batch=b)[t]
+            compile_s = time.perf_counter() - t0
+            if build_thread is not None:  # the runner needs the build from here on
+                build_thread.join()
+                build_thread = None
+                check("error" not in build, f"build_runtime() failed: {build.get('error')}")
+                print(f"native runtime: build_runtime() from nothing {build['s']:.1f} s, beside the first compile "
+                      f"(CUDA variant: ops.cc, CudaExecutor, bundle_runner, asv_extractor_main; {device_label})",
+                      flush=True)
+            x, m = _feature_batch(torch, b, t, SEED + 290 + b)
+            proc, outs = run_bundle(path, {1: x, 2: m}, iters=RUNTIME_ITERS, warmup=RUNTIME_WARMUP)
+            check(proc.returncode == 0, f"bundle_runner failed on ECAPA b{b} t{t}:\n{proc.stderr[-3000:]}")
+            ops = parse_fields(proc.stdout, "ops per call:")
+            count(parse_fields(proc.stdout, "ops total:"))
+            got = torch.from_numpy(np.frombuffer(outs[0], np.float32).reshape(b, 192).copy())
+            xd, md = x.to(dev, torch.bfloat16), m.to(dev)
+            op_calls += _served_op_calls(torch, lambda: model(xd, md))
+            with torch.inference_mode():
+                eager = model(xd, md).float().cpu()
+                eager_ms = median_ms(torch, lambda: model(xd, md), warmup=2, iters=10)
+                host_ms = median_ms(torch, lambda: model(x.to(dev, torch.bfloat16), m.to(dev)).float().cpu(),
+                                    warmup=2, iters=10)
+            c = float(cosine(got, eager).min())
+            ms = _runner_ms(proc)
+            loaded = EXPORTED_MS.get((b, t))
+            loaded_txt = (f"; the loaded torch.export program of 25(d) {loaded[0]:.2f} ms (its eager "
+                          f"{loaded[1]:.2f})" if loaded else "")
+            print(f"native runtime: ECAPA C1024 b{b} t{t} (bf16, every flag on): compile {compile_s:.1f} s; "
+                  f"bundle_runner {ms['call']:.3f} ms a call (enqueue {ms['enqueue']:.3f}, execute "
+                  f"{ms['execute']:.3f}, download {ms['download']:.3f}); eager {eager_ms:.2f} ms a call on the "
+                  f"card's inputs, {host_ms:.2f} host to host{loaded_txt}; min cosine {c:.7f} (>= "
+                  f"{RUNTIME_COSINE}); C++ ops a call {ops}; {device_label}", flush=True)
+            check(c >= RUNTIME_COSINE, f"the runner's ECAPA b{b} t{t} disagrees with eager")
+            check(ops.get("fused_attentive_stats_pool") == 1 and ops.get("fused_res2_chain") == 3,
+                  f"the runner launched {ops} a call, expected K2 once and K3 three times")
+        ecapa_eval = model
+
+        # (c) SnowdarXvector with K4, f32: the f32 wire of (e)
+        net = xvector_net("snowdar", pooling_params={"fused_inference": True}).to(dev).eval()
+        wires = {}
+        for wire in ("f32", "bf16", "int8"):
+            t0 = time.perf_counter()
+            feats_dtype = {"f32": None, "bf16": torch.bfloat16, "int8": "int8"}[wire]
+            path = export_pjrt_embed_bundles(net, {"params": net.state_dict()}, 80, f"{tmp}/xvec_{wire}",
+                                             bucket_lengths=(XVECTOR_BUCKET,), feats_dtype=feats_dtype)[XVECTOR_BUCKET]
+            wires[wire] = (f"{tmp}/xvec_{wire}", time.perf_counter() - t0)
+            if wire != "f32":
+                continue
+            x, m = _feature_batch(torch, 1, XVECTOR_BUCKET, SEED + 295)
+            proc, outs = run_bundle(path, {1: x, 2: m}, iters=RUNTIME_ITERS, warmup=RUNTIME_WARMUP)
+            check(proc.returncode == 0, f"bundle_runner failed on the x-vector:\n{proc.stderr[-3000:]}")
+            ops = parse_fields(proc.stdout, "ops per call:")
+            count(parse_fields(proc.stdout, "ops total:"))
+            op_calls += _served_op_calls(torch, lambda: net.embed(x.to(dev), m.to(dev)))
+            got = torch.from_numpy(np.frombuffer(outs[0], np.float32).reshape(1, 512).copy())
+            with torch.inference_mode():
+                eager = net.embed(x.to(dev), m.to(dev)).float().cpu()
+                eager_ms = median_ms(torch, lambda: net.embed(x.to(dev), m.to(dev)).cpu(), warmup=2, iters=10)
+            c = float(cosine(got, eager).min())
+            ms = _runner_ms(proc)
+            print(f"native runtime: SnowdarXvector 512/512 t{XVECTOR_BUCKET} (f32, K4 on): compile "
+                  f"{wires['f32'][1]:.1f} s; bundle_runner {ms['call']:.3f} ms a call, eager {eager_ms:.2f} host "
+                  f"to host; cosine {c:.7f} (>= {RUNTIME_COSINE}); C++ ops a call {ops}", flush=True)
+            check(c >= RUNTIME_COSINE, "the runner's x-vector disagrees with eager")
+            check(ops.get("fused_stats_pooling") == 1, f"the runner launched {ops} a call, expected K4 once")
+        print(f"native runtime: x-vector wire compiles bf16 {wires['bf16'][1]:.1f} s, int8 {wires['int8'][1]:.1f} s",
+              flush=True)
+        _hold_cpp_ops(torch, op_calls, f"{tmp}/ops", device_label)  # a comparison: its launches are not counted
+        del op_calls
+
+        # (d) the extractor on phase 6's utterances
+        rng = np.random.default_rng(SEED)
+        lengths = rng.integers(24000, 400001, size=EXTRACT_UTTS)
+        lines = []
+        for i, n in enumerate(lengths):
+            wav = f"{tmp}/utt{i:02d}.wav"
+            write_wav(wav, rng.standard_normal(n) * 1000.0, 16000)
+            lines.append(f"utt{i:02d} {wav}")
+        Path(f"{tmp}/wav.scp").write_text("\n".join(lines) + "\n")
+        Path(f"{tmp}/wires.scp").write_text("\n".join(lines[:WIRE_UTTS]) + "\n")
+        feats = {f"utt{i:02d}": _extractor_feats(torch, f"{tmp}/utt{i:02d}.wav") for i in range(EXTRACT_UTTS)}
+        single = tuple(t for b, t in ECAPA_BUNDLES if b == 1)
+        batched_b = max(b for b, _ in ECAPA_BUNDLES)
+        batched = tuple(t for b, t in ECAPA_BUNDLES if b == batched_b)
+        refs = {}
+        for buckets in (single, batched):
+            with torch.inference_mode():
+                for key, f in feats.items():
+                    x, m = _bucketed(f, buckets)
+                    refs[(buckets, key)] = ecapa_eval(torch.from_numpy(x).to(dev, torch.bfloat16),
+                                                      torch.from_numpy(m).to(dev)).float().cpu()[0]
+        modes = (("per utterance", f"{tmp}/ecapa_b1", single, []),
+                 ("batched", f"{tmp}/ecapa_b{batched_b}", batched, ["--threads", "8"]),
+                 ("streams 4", f"{tmp}/ecapa_b1", single, ["--streaming", "--streams", "4"]))
+        for label, bundles, buckets, args in modes:
+            out = f"{tmp}/emb_{label.replace(' ', '_')}.txt"
+            t0 = time.perf_counter()
+            proc = run_extractor(f"{tmp}/wav.scp", bundles, out, ["--warmup", *args])
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, f"the extractor ({label}) failed:\n{proc.stderr[-3000:]}")
+            got = read_embeddings(out)
+            check(sorted(got) == sorted(feats), f"the extractor ({label}) wrote {len(got)} embeddings")
+            c = min(float(cosine(torch.from_numpy(got[k]), refs[(buckets, k)])) for k in feats)
+            total = parse_fields(proc.stdout, "TOTAL")
+            ops = parse_fields(proc.stdout, "OPS")
+            count(ops)
+            extra = [ln for ln in proc.stdout.splitlines() if ln.startswith(("BREAKDOWN", "STREAMING"))]
+            elapsed = max(total.get("elapsed_s", 0), 1e-9)
+            print(f"native runtime: extractor {label} over {EXTRACT_UTTS} utterances: {total.get('embedded_s', 0):.2f} "
+                  f"s of audio embedded of {total.get('wav_s', 0):.2f} s read ({total.get('cut', 0):.0f} utterances "
+                  f"cut to t{buckets[-1]}), {total.get('embedded_s', 0) / elapsed:.1f} audio-s/s embedded "
+                  f"({total.get('wav_s', 0) / elapsed:.1f} over the audio read), RTF {total.get('RTF', 0):.5f} (of "
+                  f"the audio read), process wall {wall:.1f} s; min cosine {c:.6f} (>= {EXTRACT_COSINE}); C++ ops "
+                  f"{ops}; {' | '.join(extra)}", flush=True)
+            check(total.get("utts") == EXTRACT_UTTS and total.get("failures") == 0, f"the extractor ({label}) failed")
+            # the bucket rule over the Python front end's voiced frames (10 ms each), within a frame an utterance
+            embedded = sum(min(len(f), next((t for t in buckets if t >= len(f)), buckets[-1])) for f in feats.values())
+            check(abs(total.get("embedded_s", 0) - embedded * 0.01) <= 0.01 * EXTRACT_UTTS,
+                  f"the extractor ({label}) embedded {total.get('embedded_s')} s, the bucket rule gives "
+                  f"{embedded * 0.01:.2f} s")
+            check(c >= EXTRACT_COSINE, f"the extractor ({label}) disagrees with the eager model")
+            check(ops.get("fused_attentive_stats_pool", 0) > 0, f"the extractor ({label}) launched no K2")
+
+        # (e) the wires through the extractor
+        wire_emb = {}
+        for wire, (bundles, _) in wires.items():
+            out = f"{tmp}/emb_wire_{wire}.txt"
+            proc = run_extractor(f"{tmp}/wires.scp", bundles, out)
+            check(proc.returncode == 0, f"the extractor ({wire} wire) failed:\n{proc.stderr[-3000:]}")
+            count(parse_fields(proc.stdout, "OPS"))
+            wire_emb[wire] = read_embeddings(out)
+        for wire in ("bf16", "int8"):
+            c = min(float(cosine(torch.from_numpy(wire_emb[wire][k]), torch.from_numpy(wire_emb["f32"][k])))
+                    for k in wire_emb["f32"])
+            print(f"native runtime: x-vector {wire} wire against the f32 wire over {WIRE_UTTS} utterances: min "
+                  f"cosine {c:.6f} (>= {WIRE_COSINE})", flush=True)
+            check(len(wire_emb[wire]) == WIRE_UTTS and c >= WIRE_COSINE, f"the {wire} wire disagrees")
+    py = {name: wrapper.launches for name, wrapper in _wrappers().items()}
+    print(f"native runtime: C++ launches {cpp} (Python wrappers, eager references: {py}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return cpp
+
+
 def main() -> int:
     try:
         import torch
@@ -4304,6 +4649,8 @@ def main() -> int:
     paths.append(phase_native(torch, smi))
     torch.cuda.empty_cache()
     paths.append(phase_mesh(torch, smi))
+    torch.cuda.empty_cache()
+    paths.append(phase_runtime(torch, smi))
     for kernel_name, k in kernels.items():
         k["launches"] = sum(counts[kernel_name] for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

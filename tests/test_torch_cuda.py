@@ -107,8 +107,19 @@ make_mesh(1, 1))``, with and without ZeRO-3 rules, equals the plain step
 from the same seed at chip_smoke phase 28's bars (loss and grad_norm
 1e-5 relative, BN statistics 1e-6, every leaf within 2.5 lr) and never
 waits on the card.
+
+The native runtime (asv_subtools_tpu_torch/runtime): each kernel's C++
+registration (runtime/ops.cc), run by bundle_runner inside an
+AOTInductor package, equals the Python op on the same CUDA inputs bit
+for bit (K2 f32 and bf16, K3 on the CUDA and tensor cores, K4 on a
+contiguous x, on a transposed view and without a mask), one launch a
+call; a narrow ECAPA bundle (K2 and K3 on, f32) through the CUDA runner
+matches eager at 1e-5 with K2 once and K3 three times a call; a runner
+built without ops.cc fails on that package, and the CPU device refuses
+a CUDA package: nothing falls back.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -1754,3 +1765,153 @@ def test_world1_mesh_step_equals_the_plain_step(nccl_world1, fsdp):
             assert float((full.batch_stats[k] - v).abs().max()) <= 1e-6, k
     for k, v in plain_state.params.items():
         assert float((full.params[k] - v).abs().max()) <= 2.5 * lr, k
+
+
+# The native runtime (asv_subtools_tpu_torch/runtime): the C++ op
+# registrations of runtime/ops.cc against the Python ops bit for bit, a
+# narrow ECAPA bundle through the CUDA runner against eager, and a runner
+# built without ops.cc failing on a package that holds the ops.
+
+
+@pytest.fixture(scope="module")
+def runtime_built():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from asv_subtools_tpu_torch.kernels._build import build_runtime, runtime_has_cuda
+
+    assert runtime_has_cuda(), "torch with CUDA and nvcc build the CUDA variant"
+    build_runtime()
+
+
+def _op_bundle(tmp_path, fn, args):
+    from asv_subtools_tpu_torch.export import export_pjrt_bundle
+
+    return export_pjrt_bundle(fn, args, str(tmp_path / "bundle"), device="cuda")
+
+
+def _held_bit_for_bit(proc, outs, want):
+    from asv_subtools_tpu_torch.export import raw_bytes
+
+    assert proc.returncode == 0, proc.stderr
+    assert outs == [raw_bytes(want)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_native_att_pooling_op_equals_the_python_op(card, runtime_built, tmp_path, dtype):
+    from asv_subtools_tpu_torch.nn.fused_att_pooling import fused_attentive_stats_pool_op
+    from asv_subtools_tpu_torch.runtime import parse_fields, run_bundle
+
+    g = torch.Generator().manual_seed(3)
+    c, k, b, t = 64, 16, 2, 150
+    r = lambda *s: (torch.randn(*s, generator=g) * 0.3).to(card)  # noqa: E731
+    x = r(b, c, t).to(dtype).transpose(1, 2)  # the model's [B, T, C] view of [B, C, T] memory
+    ws = [r(c, k).to(dtype), r(c, k).to(dtype), r(c, k).to(dtype), r(k), r(k).abs() + 0.5, r(k),
+          r(k, c).to(dtype), r(c)]
+    mask = torch.arange(t, device=card)[None, :] < torch.tensor([[t], [t - 37]], device=card)
+
+    def fn(xt, mask, *w):
+        return fused_attentive_stats_pool_op(xt.transpose(1, 2), *w, mask)
+
+    xt = x.transpose(1, 2).contiguous()
+    bundle = _op_bundle(tmp_path, fn, (xt, mask, *ws))
+    proc, outs = run_bundle(bundle, dict(enumerate((xt, mask, *ws))))
+    _held_bit_for_bit(proc, outs, fused_attentive_stats_pool_op(xt.transpose(1, 2), *ws, mask))
+    assert parse_fields(proc.stdout, "ops per call:")["fused_attentive_stats_pool"] == 1
+
+
+@pytest.mark.parametrize("dtype,h", [(torch.bfloat16, 16), (torch.float32, 24)])
+def test_native_res2_op_equals_the_python_op(card, runtime_built, tmp_path, dtype, h):
+    from asv_subtools_tpu_torch.nn.fused_res2 import fused_res2_chain_op
+    from asv_subtools_tpu_torch.runtime import parse_fields, run_bundle
+
+    g = torch.Generator().manual_seed(4)
+    n, b, t = 7, 2, 203
+    xt = torch.randn(b, 8 * h, t, generator=g).to(card, dtype)
+    w = (torch.randn(n, 3, h, h, generator=g) * (3 * h) ** -0.5).to(card, dtype)
+    vecs = [torch.randn(n, h, generator=g).to(card) * 0.1 for _ in range(3)]
+
+    def fn(xt, w, b, s, sh):
+        return fused_res2_chain_op(xt.transpose(1, 2), w, b, s, sh, 2)
+
+    bundle = _op_bundle(tmp_path, fn, (xt, w, *vecs))
+    proc, outs = run_bundle(bundle, dict(enumerate((xt, w, *vecs))))
+    _held_bit_for_bit(proc, outs, fused_res2_chain_op(xt.transpose(1, 2), w, *vecs, 2).contiguous())
+    assert parse_fields(proc.stdout, "ops per call:")["fused_res2_chain"] == 1
+
+
+@pytest.mark.parametrize("dtype,layout,masked", [(torch.float32, "contiguous", True),
+                                                  (torch.bfloat16, "transposed", True),
+                                                  (torch.float32, "transposed", False)])
+def test_native_stats_pooling_op_equals_the_python_op(card, runtime_built, tmp_path, dtype, layout, masked):
+    from asv_subtools_tpu_torch.nn.fused_stats_pooling import fused_stats_pooling_op
+    from asv_subtools_tpu_torch.runtime import parse_fields, run_bundle
+
+    g = torch.Generator().manual_seed(5)
+    b, t, d = 3, 125, 96
+    if layout == "transposed":  # K4 on the x-vector's [B, T, D] view of [B, D, T] memory
+        x = torch.randn(b, d, t, generator=g).to(card, dtype)
+        view = lambda x: x.transpose(1, 2)  # noqa: E731
+    else:
+        x = torch.randn(b, t, d, generator=g).to(card, dtype)
+        view = lambda x: x  # noqa: E731
+    mask = torch.arange(t, device=card)[None, :] < torch.tensor([[t], [60], [1]], device=card)
+    args = (x, mask) if masked else (x,)
+
+    def fn(x, mask=None):
+        return fused_stats_pooling_op(view(x), mask, 1e-10)
+
+    bundle = _op_bundle(tmp_path, fn, args)
+    proc, outs = run_bundle(bundle, dict(enumerate(args)))
+    _held_bit_for_bit(proc, outs, fused_stats_pooling_op(view(x), mask if masked else None, 1e-10))
+    assert parse_fields(proc.stdout, "ops per call:")["fused_stats_pooling"] == 1
+
+
+def _narrow_ecapa(card):
+    from asv_subtools_tpu_torch.models import EcapaTdnn
+
+    model = init_weights_(EcapaTdnn(input_dim=24, channels=64, mfa_conv=96, embd_dim=16, device=card), 1)
+    for blk in (model.layer2, model.layer3, model.layer4):
+        blk.res2net.fused_inference = True
+    model.stats.fused_inference = True
+    return model
+
+
+def test_native_ecapa_bundle_on_the_card_matches_eager(card, runtime_built, tmp_path):
+    from asv_subtools_tpu_torch.export import export_pjrt_embed_bundles
+    from asv_subtools_tpu_torch.runtime import parse_fields, run_bundle
+
+    model = _narrow_ecapa(card)
+    paths = export_pjrt_embed_bundles(model, {"params": model.state_dict()}, 24, str(tmp_path / "ecapa"),
+                                      bucket_lengths=(160,), device="cuda", batch=2)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(2, 160, 24, generator=g)
+    mask = torch.arange(160)[None, :] < torch.tensor([[160], [97]])
+    proc, outs = run_bundle(paths[160], {1: x, 2: mask}, iters=2)
+    assert proc.returncode == 0, proc.stderr
+    got = torch.from_numpy(np.frombuffer(outs[0], np.float32).reshape(2, 16).copy())
+    conv_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the executor computes f32 in f32
+    try:
+        with torch.no_grad():
+            want = model(x.to(card), mask.to(card)).float().cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv_tf32
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    ops = parse_fields(proc.stdout, "ops per call:")
+    assert ops["fused_attentive_stats_pool"] == 1 and ops["fused_res2_chain"] == 3, proc.stdout
+
+
+def test_a_runner_without_ops_refuses_a_package_with_the_kernels(card, runtime_built, tmp_path):
+    from asv_subtools_tpu_torch.export import export_pjrt_embed_bundles
+    from asv_subtools_tpu_torch.kernels._build import build_runtime, runtime_binary
+    from asv_subtools_tpu_torch.runtime import run_bundle
+
+    model = _narrow_ecapa(card)
+    paths = export_pjrt_embed_bundles(model, {"params": model.state_dict()}, 24, str(tmp_path / "ecapa"),
+                                      bucket_lengths=(64,), device="cuda")
+    build_runtime(tmp_path / "no_ops", ops=False)
+    proc, outs = run_bundle(paths[64], {}, runner=runtime_binary("bundle_runner", tmp_path / "no_ops"))
+    assert proc.returncode != 0 and not outs, proc.stdout
+    assert "fused_" in proc.stderr, proc.stderr
+    proc, outs = run_bundle(paths[64], {}, device="cpu")  # a CUDA package on the CPU: no fallback either
+    assert proc.returncode != 0 and not outs and "compiled for 'cuda'" in proc.stderr, proc.stderr

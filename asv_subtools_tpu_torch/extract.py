@@ -23,6 +23,7 @@ from .device import resolve_device
 from .features.config import FbankOptions
 from .features.fused_fbank import wave_features
 from .io.kaldi import ArkScpWriter
+from .utils.profiling import add, span
 
 
 @dataclasses.dataclass
@@ -77,12 +78,21 @@ def _chunk(feats: np.ndarray, max_chunk: int) -> Tuple[List[np.ndarray], List[fl
     return chunks, [w / s for w in weights]
 
 
+_END = object()
+
+
 class Extractor:
     """Batched bucketed embedding extractor.
 
     embed_fn(x [B, T, D] or wave [B, S], mask) -> [B, embd], e.g.
     ``make_wave_embed_fn(lambda x, m: model(x, m))``. Runs on ``device``:
     the CUDA card unless ``device="cpu"``; raises without a card.
+
+    ``_stats`` counts, over the extractor's life: ``utts`` (embeddings
+    yielded), ``frames`` (valid frames sent, samples in wave mode),
+    ``batches`` (embed calls) and ``device_s`` (host seconds of each
+    batch's copy-in, embed call and copy-out). The host path's stretches
+    are spans (utils/profiling.py), which record only while profiled.
     """
 
     def __init__(self, embed_fn: Callable, config: ExtractConfig = ExtractConfig(),
@@ -101,47 +111,61 @@ class Extractor:
         acc: Dict[str, List] = {}
         expected: Dict[str, int] = {}
 
-        def flush(bucket: int):
-            batch = pending[bucket]
-            if not batch:
-                return []
-            keys = [k for k, _, _ in batch]
-            weights = [w for _, _, w in batch]
-            feats = [f for _, f, _ in batch]
-            lens = np.asarray([f.shape[0] for f in feats])
-            x = np.zeros((len(feats), bucket) + feats[0].shape[1:], np.float32)
-            for i, f in enumerate(feats):
-                x[i, : f.shape[0]] = f
-            mask = np.arange(bucket)[None, :] < lens[:, None]
-            t0 = time.perf_counter()
+        def flush(bucket: int, batch: List) -> List[Tuple[str, np.ndarray]]:
+            with span("extract.assemble"):
+                feats = [f for _, f, _ in batch]
+                lens = np.asarray([f.shape[0] for f in feats])
+                x = np.zeros((len(feats), bucket) + feats[0].shape[1:], np.float32)
+                for i, f in enumerate(feats):
+                    x[i, : f.shape[0]] = f
+                mask = np.arange(bucket)[None, :] < lens[:, None]
             with torch.inference_mode():
-                embs = self._embed(torch.from_numpy(x).to(self.device),
-                                   torch.from_numpy(mask).to(self.device))
-                embs = embs.float().cpu().numpy()
-            self._stats["device_s"] += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                with span("extract.copy_in"):
+                    wave = torch.from_numpy(x).to(self.device)
+                    valid = torch.from_numpy(mask).to(self.device)
+                with span("extract.launch"):
+                    embs = self._embed(wave, valid)
+                with span("extract.copy_out"):
+                    embs = embs.float().cpu().numpy()
+                # host seconds of copy-in, embed and copy-out, spans on or off: the benchmark's untraced window reads it
+                self._stats["device_s"] += time.perf_counter() - t0
+            add("extract.copy_in_bytes", x.nbytes + mask.nbytes)
             self._stats["batches"] += 1
             self._stats["frames"] += int(lens.sum())
-            pending[bucket] = []
             out = []
-            for key, w, e in zip(keys, weights, embs):
-                acc.setdefault(key, []).append(w * e)
-                if len(acc[key]) == expected[key]:
-                    out.append((key, np.sum(acc.pop(key), axis=0)))
-                    expected.pop(key)
-                    self._stats["utts"] += 1
+            with span("extract.assemble"):
+                for (key, _, w), e in zip(batch, embs):
+                    acc.setdefault(key, []).append(w * e)
+                    if len(acc[key]) == expected[key]:
+                        out.append((key, np.sum(acc.pop(key), axis=0)))
+                        expected.pop(key)
+                        self._stats["utts"] += 1
             return out
 
         batch_sizes = cfg.batch_sizes or {}
-        for key, feats in items:
-            chunks, weights = _chunk(np.asarray(feats, np.float32), cfg.max_chunk)
-            expected[key] = len(chunks)
-            for c, w in zip(chunks, weights):
-                b = _bucket_for(c.shape[0], cfg.buckets)
-                pending[b].append((key, c, w))
-                if len(pending[b]) >= batch_sizes.get(b, cfg.default_batch):
-                    yield from flush(b)
+        items = iter(items)
+        while True:
+            with span("extract.input"):
+                item = next(items, _END)
+            if item is _END:
+                break
+            key, feats = item
+            full = []
+            with span("extract.assemble"):
+                chunks, weights = _chunk(np.asarray(feats, np.float32), cfg.max_chunk)
+                expected[key] = len(chunks)
+                for c, w in zip(chunks, weights):
+                    b = _bucket_for(c.shape[0], cfg.buckets)
+                    pending[b].append((key, c, w))
+                    if len(pending[b]) >= batch_sizes.get(b, cfg.default_batch):
+                        full.append((b, pending[b]))
+                        pending[b] = []
+            for b, batch in full:
+                yield from flush(b, batch)
         for b in cfg.buckets:
-            yield from flush(b)
+            if pending[b]:
+                yield from flush(b, pending[b])
 
     def extract_to_ark(self, items: Iterable[Tuple[str, np.ndarray]], ark_path: str,
                        scp_path: Optional[str] = None) -> Dict:

@@ -64,6 +64,7 @@ from ..nn.loss import accuracy as compute_accuracy
 from ..nn import tdnn
 from ..nn.tdnn import is_semi_orth_weight, semi_orth_update
 from ..parallel import comm
+from ..utils.profiling import span
 from .optim import GradientTransformation
 
 Tensors = Dict[str, torch.Tensor]
@@ -238,7 +239,7 @@ def make_loss_and_grads(net: nn.Module, config: TrainStepConfig) -> Callable:
                        warmup):
         if config.wave_input:
             # the wave is data: the front end needs no gradient
-            with torch.no_grad():
+            with torch.no_grad(), span("train.front_end", device=x):
                 x, mask = wave_features(x, mask, opts, dtype)
                 if config.spec_aug:
                     x = device_spec_augment(x, generator, **(config.spec_aug_params or {}))
@@ -272,12 +273,15 @@ def make_loss_and_grads(net: nn.Module, config: TrainStepConfig) -> Callable:
             return (loss.float(), logits, *new_stats)
 
         leaves = [params[k].detach().requires_grad_() for k in names]
-        if config.remat is None:
-            loss, logits, *new_stats = forward(*leaves)
-        else:
-            loss, logits, *new_stats = checkpoint(forward, *leaves, use_reentrant=False, preserve_rng_state=False,
-                                                  **({"context_fn": context_fn} if context_fn else {}))
-        grads = torch.autograd.grad(loss, leaves)
+        with span("train.forward", device=x):
+            if config.remat is None:
+                loss, logits, *new_stats = forward(*leaves)
+            else:
+                loss, logits, *new_stats = checkpoint(forward, *leaves, use_reentrant=False,
+                                                      preserve_rng_state=False,
+                                                      **({"context_fn": context_fn} if context_fn else {}))
+        with span("train.backward", device=x):
+            grads = torch.autograd.grad(loss, leaves)
         return (loss.detach(), compute_accuracy(logits.detach(), speaker_targets(y)),
                 dict(zip(batch_stats, new_stats)), list(grads))
 
@@ -380,22 +384,23 @@ def make_train_step(net: nn.Module, tx: GradientTransformation, lr_schedule: Opt
             # gathered leaves took their gradients in the compute type
             grads = placement.mean_grads(names, [g.to(state.params[k].dtype) for g, k in zip(grads, names)])
 
-        loss, acc, gnorm = _global_metrics(placement, names, grads, loss, acc)
-        finite = torch.isfinite(gnorm) & torch.isfinite(loss)
-        # the denominator (gnorm + 1e-6) is torch clip_grad_norm_'s
-        grads = torch._foreach_mul(grads, torch.clamp_max(config.max_change / (gnorm + 1e-6), 1.0))
-        updates, opt_state = tx.update(dict(zip(names, grads)), state.opt_state, state.params)
-        new_params = dict(zip(names, torch._foreach_add([state.params[k] for k in names],
-                                                         torch._foreach_mul([updates[k] for k in names],
-                                                                            lr_scale))))
-        if config.use_semi_orth:
-            on = state.step % 4 == 0
-            new_params = {k: torch.where(on, _semi_orth(placement, k, v), v) if _is_semi_orth(placement, k, v)
-                          else v for k, v in new_params.items()}
-        if config.skip_nonfinite:
-            new_params = _keep(finite, new_params, state.params)
-            opt_state = _keep(finite, opt_state, state.opt_state)
-            stats = _keep(finite, stats, state.batch_stats)
+        with span("train.optimizer", device=state.step):
+            loss, acc, gnorm = _global_metrics(placement, names, grads, loss, acc)
+            finite = torch.isfinite(gnorm) & torch.isfinite(loss)
+            # the denominator (gnorm + 1e-6) is torch clip_grad_norm_'s
+            grads = torch._foreach_mul(grads, torch.clamp_max(config.max_change / (gnorm + 1e-6), 1.0))
+            updates, opt_state = tx.update(dict(zip(names, grads)), state.opt_state, state.params)
+            new_params = dict(zip(names, torch._foreach_add([state.params[k] for k in names],
+                                                             torch._foreach_mul([updates[k] for k in names],
+                                                                                lr_scale))))
+            if config.use_semi_orth:
+                on = state.step % 4 == 0
+                new_params = {k: torch.where(on, _semi_orth(placement, k, v), v)
+                              if _is_semi_orth(placement, k, v) else v for k, v in new_params.items()}
+            if config.skip_nonfinite:
+                new_params = _keep(finite, new_params, state.params)
+                opt_state = _keep(finite, opt_state, state.opt_state)
+                stats = _keep(finite, stats, state.batch_stats)
         metrics = {"loss": loss, "accuracy": acc, "grad_norm": gnorm, "skipped": 1.0 - finite.to(torch.float32)}
         if lr_schedule is not None:
             metrics["lr"] = lr_schedule(state.step) * lr_scale

@@ -18,15 +18,22 @@ is for:
 - ``extract.input``: each ``next`` of the caller's items
   (``extract.input_share``);
 - ``extract.assemble``: per item the chunking and bucket placement, per
-  batch the padded wave, lengths and mask before the card and the
-  chunks' weighted sums after it (``extract.assemble_share``);
-- ``extract.copy_in``: the wave's and mask's copies to the device
-  (``extract.copy_in_share``), with the counter ``extract.copy_in_bytes``
-  (``extract.copy_in_gbps``);
+  batch the padded wave and lengths written into a staging slab before
+  the card and the chunks' weighted sums after it
+  (``extract.assemble_share``), with the counters
+  ``extract.overlap_batches`` (batches whose assembly began while the
+  batch before was still on the card) and ``extract.staging_allocs``
+  (slab pairs allocated or grown), which no metric reads yet;
+- ``extract.copy_in``: the enqueue of the slab's copy to the device and
+  the mask built there from the lengths (``extract.copy_in_share``), with
+  the counter ``extract.copy_in_bytes``, the wave's and lengths' bytes
+  (``extract.copy_in_gbps``: since the copy is asynchronous, a rate of
+  enqueue, not of PCIe);
 - ``extract.launch``: the embed call, the host's enqueue of the fbank,
-  CMVN and the model (``extract.launch_share``);
-- ``extract.copy_out``: the embeddings' copy to the host, which waits
-  for the card (``extract.copy_out_share``);
+  CMVN and the model, and of the answers' copy to pinned memory
+  (``extract.launch_share``);
+- ``extract.copy_out``: the wait for the batch before's answers, the
+  host's wait for the card (``extract.copy_out_share``);
 - ``train.front_end``, ``train.forward`` (with the margin head and the
   loss), ``train.backward``, ``train.optimizer`` (the global norm, the
   clip, the update, semi-orth and the non-finite choice), each with the

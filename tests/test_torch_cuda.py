@@ -117,6 +117,13 @@ call; a narrow ECAPA bundle (K2 and K3 on, f32) through the CUDA runner
 matches eager at 1e-5 with K2 once and K3 three times a call; a runner
 built without ops.cc fails on that package, and the CPU device refuses
 a CUDA package: nothing falls back.
+
+The Extractor's staging: a narrow bf16 ECAPA behind make_wave_embed_fn
+over a stream that fills two buckets, with partial tails and a chunked
+utterance; the pinned, one-in-flight path yields the keys, the order and
+the embeddings of a synchronous pageable path (a fresh zero-padded batch,
+a host mask, ``.cpu()``) bit for bit, copies in from pinned memory only,
+and allocates no slab on a second pass.
 """
 
 import numpy as np
@@ -1915,3 +1922,73 @@ def test_a_runner_without_ops_refuses_a_package_with_the_kernels(card, runtime_b
     assert "fused_" in proc.stderr, proc.stderr
     proc, outs = run_bundle(paths[64], {}, device="cpu")  # a CUDA package on the CPU: no fallback either
     assert proc.returncode != 0 and not outs and "compiled for 'cuda'" in proc.stderr, proc.stderr
+
+
+def _pageable_extract(embed, cfg, items, device):
+    """The synchronous pageable path: the Extractor's batching and weighted
+    sums over a fresh zero-padded batch and a host mask, each copied in
+    from pageable memory, the answers read back with ``.cpu()``."""
+    from asv_subtools_tpu_torch.extract import _bucket_for, _chunk
+
+    pending = {b: [] for b in cfg.buckets}
+    acc, expected, out = {}, {}, []
+
+    def flush(bucket, batch):
+        lens = np.asarray([c.shape[0] for _, c, _ in batch])
+        x = np.zeros((len(batch), bucket), np.float32)
+        for i, (_, c, _) in enumerate(batch):
+            x[i, :c.shape[0]] = c
+        mask = np.arange(bucket)[None, :] < lens[:, None]
+        with torch.inference_mode():
+            embs = embed(torch.from_numpy(x).to(device), torch.from_numpy(mask).to(device)).float().cpu().numpy()
+        for (key, _, w), e in zip(batch, embs):
+            acc.setdefault(key, []).append(w * e)
+            if len(acc[key]) == expected[key]:
+                out.append((key, np.sum(acc.pop(key), axis=0)))
+
+    for key, wave in items:
+        chunks, weights = _chunk(wave, cfg.max_chunk)
+        expected[key] = len(chunks)
+        for c, w in zip(chunks, weights):
+            b = _bucket_for(c.shape[0], cfg.buckets)
+            pending[b].append((key, c, w))
+            if len(pending[b]) >= cfg.default_batch:
+                flush(b, pending[b])
+                pending[b] = []
+    for b in cfg.buckets:
+        if pending[b]:
+            flush(b, pending[b])
+    return out
+
+
+def test_pinned_extractor_matches_a_pageable_path_bit_for_bit(card):
+    from torch.profiler import ProfilerActivity, profile
+
+    from asv_subtools_tpu_torch.extract import ExtractConfig, Extractor, make_wave_embed_fn
+    from asv_subtools_tpu_torch.utils import profiling
+
+    model = _narrow_ecapa(card).to(torch.bfloat16).eval()
+    embed = make_wave_embed_fn(lambda x, m: model(x, m), FbankOptions(mel_opts=MelOptions(num_bins=24)),
+                               dtype=torch.bfloat16)
+    cfg = ExtractConfig(buckets=(16000, 32000), default_batch=4, max_chunk=32000)
+    rng = np.random.default_rng(8)
+    lengths = [9000, 30000, 400, 16000, 70000, 12000, 32000, 20000, 15000, 24000, 8000, 31000, 5000, 27000]
+    items = [(f"u{i}", (rng.standard_normal(n) * 1000).astype(np.float32)) for i, n in enumerate(lengths)]
+    want = _pageable_extract(embed, cfg, items, card)
+    ex = Extractor(embed, cfg, device=card)
+    with profiling.tracing():
+        got = list(ex.extract_iter(iter(items)))
+        first = profiling.totals()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = list(ex.extract_iter(iter(items)))
+    second = profiling.totals()
+    assert [k for k, _ in got] == [k for k, _ in want] == [k for k, _ in again] and len(want) == len(items)
+    for (key, a), (_, b), (_, c) in zip(got, want, again):
+        assert np.array_equal(a, b) and np.array_equal(c, b), key
+    batches = second["extract.copy_in"][0]
+    assert batches == ex._stats["batches"] // 2 >= 5
+    assert first["extract.staging_allocs"] >= 1 and second["extract.staging_allocs"] == 0
+    assert 0 <= second["extract.overlap_batches"] <= batches
+    assert len(ex._staging) == 1 and all(s.is_pinned() for s in ex._staging[0].slabs)
+    copies = [e.name for e in prof.events() if "Memcpy HtoD" in e.name]
+    assert copies and all("Pinned" in n for n in copies), sorted(set(copies))

@@ -240,6 +240,90 @@ def test_batch_sizes_give_jax_batches():
     assert all(b <= full[bucket] for b, bucket in shapes) and (2, 50) in shapes and (4, 200) in shapes
 
 
+def _stats_embed_port(x, m):
+    """[B, T(, D)] -> [B, D + 1]: the masked mean of each row and its
+    valid count."""
+    x = x.reshape(x.shape[0], x.shape[1], -1)
+    mf = m.to(x.dtype)[..., None]
+    n = mf.sum(1)
+    return torch.cat([(x * mf).sum(1) / torch.clamp_min(n, 1.0), n], 1)
+
+
+def _stats_embed_jax(x, m):
+    x = x.reshape(x.shape[0], x.shape[1], -1)
+    mf = m.astype(x.dtype)[..., None]
+    n = jnp.sum(mf, axis=1)
+    return jnp.concatenate([jnp.sum(x * mf, axis=1) / jnp.maximum(n, 1.0), n], 1)
+
+
+@pytest.mark.parametrize("tail", [(), (3,)], ids=["wave", "features"])
+def test_pipelined_batches_match_jax_across_buckets(tail):
+    """One batch in flight: over seven batches across two buckets, with a
+    partial tail in each and an utterance chunked over a batch boundary,
+    the port yields JAX's keys in JAX's order with its embeddings, in wave
+    mode ([S] items) and feature mode ([T, D] items)."""
+    rng = np.random.default_rng(5)
+    lengths = [40, 150, 90, 1, 200, 470, 100, 60, 180, 30, 120, 75, 199, 10, 160]
+    items = [(f"u{i}", rng.normal(size=(n,) + tail).astype(np.float32)) for i, n in enumerate(lengths)]
+    cfg = dict(buckets=(100, 200), default_batch=3, max_chunk=200)
+    shapes = []
+
+    def port_embed(x, m):
+        shapes.append(tuple(x.shape[:2]))
+        return _stats_embed_port(x, m)
+
+    ref = list(jex.Extractor(_stats_embed_jax, jex.ExtractConfig(**cfg)).extract_iter(iter(items)))
+    pex = tex.Extractor(port_embed, tex.ExtractConfig(**cfg), device="cpu")
+    got = list(pex.extract_iter(iter(items)))
+    assert [k for k, _ in got] == [k for k, _ in ref] and len(got) == len(items)
+    for (_, a), (_, b) in zip(got, ref):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6, atol=1e-6)
+    assert len(shapes) == pex._stats["batches"] >= 3
+    assert {b for _, b in shapes} == {100, 200} and {(2, 100), (1, 200)} <= set(shapes)
+
+
+def test_embed_fn_returning_a_view_of_its_input():
+    """An embed_fn whose answer is a view of the batch it was given (the
+    slab itself on the CPU) stays right while the two slabs are reused:
+    each utterance's answer is its first four samples, a chunked one's the
+    weighted sum of its chunks' first four."""
+    rng = np.random.default_rng(6)
+    lengths = [30, 12, 50, 47, 8, 50, 21, 130, 44, 9, 50, 33]
+    items = [(f"u{i}", rng.normal(size=n).astype(np.float32)) for i, n in enumerate(lengths)]
+    ex = tex.Extractor(lambda x, m: x[:, :4], tex.ExtractConfig(buckets=(50,), default_batch=2, max_chunk=50),
+                       device="cpu")
+    got = dict(ex.extract_iter(iter(items)))
+    assert ex._stats["batches"] >= 6 and len(ex._staging) == 1
+    for key, wave in items:
+        chunks, weights = tex._chunk(wave, 50)
+        np.testing.assert_allclose(got[key], sum(w * c[:4] for c, w in zip(chunks, weights)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("lengths", [(1, 37, 1, 64, 5), (100, 3, 100, 99, 100), (250, 101, 30, 1)],
+                         ids=["one-sample rows", "full-bucket rows", "chunked rows"])
+def test_mask_from_lengths_equals_the_host_mask(lengths):
+    """The mask built from the lengths after the copy-in is the bool
+    ``arange(bucket) < lens[:, None]`` the host used to build, row for row:
+    rows of one sample, rows that fill the bucket, the chunks of utterances
+    longer than max_chunk; and the batch's padding is zero."""
+    rng = np.random.default_rng(7)
+    items = [(f"u{i}", rng.uniform(1.0, 2.0, size=n).astype(np.float32)) for i, n in enumerate(lengths)]
+    seen = []
+
+    def embed(x, m):
+        seen.append((x.clone(), m.clone()))
+        return x[:, :1]
+
+    ex = tex.Extractor(embed, tex.ExtractConfig(buckets=(100,), default_batch=4, max_chunk=100), device="cpu")
+    dict(ex.extract_iter(iter(items)))
+    lens = [c.shape[0] for _, w in items for c in tex._chunk(w, 100)[0]]
+    assert [m.shape[0] for _, m in seen] == [len(lens[i:i + 4]) for i in range(0, len(lens), 4)]
+    for i, (x, m) in enumerate(seen):
+        want = np.arange(100)[None, :] < np.asarray(lens[4 * i:4 * i + 4])[:, None]
+        assert m.dtype == torch.bool and np.array_equal(m.numpy(), want)
+        assert np.array_equal(x.numpy() != 0, want)
+
+
 def _port_modules():
     pkg = REPO / "asv_subtools_tpu_torch"
     return sorted(

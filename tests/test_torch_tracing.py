@@ -1,6 +1,6 @@
 """The port's spans (utils/profiling.py ``span``, ``add``, ``totals``) on
 the CPU: off they record nothing and enter no ``record_function``; under
-a torch profiler the Extractor's five host spans and its copy counter,
+a torch profiler the Extractor's five host spans and its three counters,
 and the train step's four phases, record once where their code runs; a
 second profiled session starts the registry afresh; and each per-layer
 metric that reads them (``benchmark/layer_metrics``) reads None without
@@ -99,7 +99,12 @@ def test_extractor_spans_under_the_profiler():
     # Python between them
     inside = sum(t[k][1] for k in ("extract.copy_in", "extract.launch", "extract.copy_out"))
     assert 0 <= ex._stats["device_s"] - inside < 2e-4 * len(batches)
-    assert t["extract.copy_in_bytes"] == sum(n * b * (4 + 1) for n, b in batches)
+    # the padded waves and the int64 lengths; the mask is built on the device
+    assert t["extract.copy_in_bytes"] == sum(n * b * 4 + n * 8 for n, b in batches)
+    # on the CPU a batch is done when its call returns: no batch finds the one before it running
+    assert t["extract.overlap_batches"] == 0
+    # the slab pair is allocated at the first batch and grown at the first of the larger bucket
+    assert t["extract.staging_allocs"] == 2
 
 
 def test_a_second_profiled_session_starts_afresh():
@@ -109,7 +114,7 @@ def test_a_second_profiled_session_starts_afresh():
     assert profiling.totals()["extract.copy_in"][0] == 3
     ex, _, _, t = _profiled_extract(_items(3))
     assert t["extract.copy_in"][0] == 1 and t["extract.input"][0] == 4
-    assert t["extract.copy_in_bytes"] == 3 * 1000 * 5
+    assert t["extract.copy_in_bytes"] == 3 * 1000 * 4 + 3 * 8
 
 
 def test_train_step_spans_once_a_step():

@@ -33,6 +33,7 @@ from ..device import resolve_device
 from ..nn.conformer import ConformerEncoder, TransformerEncoder
 from ..nn.norm import LayerNorm
 from ..nn.pooling import build_pooling
+from ..utils.profiling import span
 from .ecapa import EcapaAttentiveStatsPool
 
 
@@ -108,8 +109,9 @@ class ConformerXvector(nn.Module):
         if position not in ("near", "near_affine"):
             raise ValueError(f"position must be near or near_affine, got {position!r}")
         h, sub_mask = self.transformer(x, mask, warmup, generator)
-        h = self.transform_out_norm(F.silu(self.transform_out_affine(h)))
-        z = self.fc2_affine(self.bn_stats(self.stats(h, sub_mask)))
-        if position == "near_affine":
-            return z
-        return self.fc2_norm(torch.relu(z))
+        with span("conformer.pooling", device=h):
+            h = self.transform_out_norm(F.silu(self.transform_out_affine(h)))
+            z = self.fc2_affine(self.bn_stats(self.stats(h, sub_mask)))
+            if position == "near_affine":
+                return z
+            return self.fc2_norm(torch.relu(z))

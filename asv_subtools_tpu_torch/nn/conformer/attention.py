@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils.profiling import span
 from ..dropout import dropout
 from ..norm import _at_least_f32
 from .embedding import apply_rope, position_table, rel_position_encoding, rope_freqs
@@ -195,16 +196,17 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 extra_score: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, t, d = x.shape
-        q, k, v = self._split(x)
-        table = rel_position_encoding(t, d, x.device) if self.rel_shift else position_table(t, d, x.device)
-        p = self.pos(table.to(x.dtype))  # [P, D]
-        p = p.view(-1, self.num_heads, d // self.num_heads).transpose(0, 1)  # [H, P, Dh]
-        ac = torch.matmul((q + self.pos_bias_u).transpose(1, 2), k.transpose(-1, -2))
-        bd = _at_least_f32(torch.matmul((q + self.pos_bias_v).transpose(1, 2), p.transpose(-1, -2)))
-        if self.rel_shift:
-            bd = self._shift(bd)
-        return self._attend(_at_least_f32(ac) + bd, v, mask, generator, extra_score)
+        with span("conformer.attention", device=x):
+            b, t, d = x.shape
+            q, k, v = self._split(x)
+            table = rel_position_encoding(t, d, x.device) if self.rel_shift else position_table(t, d, x.device)
+            p = self.pos(table.to(x.dtype))  # [P, D]
+            p = p.view(-1, self.num_heads, d // self.num_heads).transpose(0, 1)  # [H, P, Dh]
+            ac = torch.matmul((q + self.pos_bias_u).transpose(1, 2), k.transpose(-1, -2))
+            bd = _at_least_f32(torch.matmul((q + self.pos_bias_v).transpose(1, 2), p.transpose(-1, -2)))
+            if self.rel_shift:
+                bd = self._shift(bd)
+            return self._attend(_at_least_f32(ac) + bd, v, mask, generator, extra_score)
 
 
 class RoPESelfAttention(MultiHeadedAttention):

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils.profiling import span
 from ..activations import double_swish, swish
 from ..norm import BatchNorm, LayerNorm
 from .scaling import BasicNorm, activation_balancer
@@ -58,24 +59,25 @@ class ConvolutionModule(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B, T, D], mask [B, T] -> [B, T, D]."""
-        if mask is not None:
-            x = x * mask[..., None].to(x.dtype)
-        h = pointwise(self.pointwise1, x)
-        if self.use_balancer:
-            h = activation_balancer(h, -1, 0.05, 1.0, 0.01, 0.2, 10.0)
-        h = F.glu(h, dim=-1)
-        k = self.kernel_size
-        h = F.pad(h.transpose(1, 2), (k - 1, 0) if self.causal else ((k - 1) // 2, k // 2))  # or flax "SAME"
-        h = F.conv1d(h, self.depthwise.weight, self.depthwise.bias, groups=self.depthwise.groups)
-        if self.norm is None:
-            h = h.transpose(1, 2)
-        elif self.norm_type == "batch_norm":
-            h = self.norm(h, mask).transpose(1, 2)
-        else:
-            h = self.norm(h.transpose(1, 2))
-        if self.use_balancer:
-            h = activation_balancer(h, -1, 0.05, 1.0, 0.01, 0.2, 100.0)
-        h = pointwise(self.pointwise2, self.act(h))
-        if mask is not None:
-            h = h * mask[..., None].to(h.dtype)
-        return h
+        with span("conformer.conv_module", device=x):
+            if mask is not None:
+                x = x * mask[..., None].to(x.dtype)
+            h = pointwise(self.pointwise1, x)
+            if self.use_balancer:
+                h = activation_balancer(h, -1, 0.05, 1.0, 0.01, 0.2, 10.0)
+            h = F.glu(h, dim=-1)
+            k = self.kernel_size
+            h = F.pad(h.transpose(1, 2), (k - 1, 0) if self.causal else ((k - 1) // 2, k // 2))  # or flax "SAME"
+            h = F.conv1d(h, self.depthwise.weight, self.depthwise.bias, groups=self.depthwise.groups)
+            if self.norm is None:
+                h = h.transpose(1, 2)
+            elif self.norm_type == "batch_norm":
+                h = self.norm(h, mask).transpose(1, 2)
+            else:
+                h = self.norm(h.transpose(1, 2))
+            if self.use_balancer:
+                h = activation_balancer(h, -1, 0.05, 1.0, 0.01, 0.2, 100.0)
+            h = pointwise(self.pointwise2, self.act(h))
+            if mask is not None:
+                h = h * mask[..., None].to(h.dtype)
+            return h

@@ -65,6 +65,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils.profiling import span
 from ..activations import double_swish
 from ..dropout import dropout
 from ..norm import BatchNorm, LayerNorm
@@ -399,11 +400,12 @@ class ConformerEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, warmup: Scalar = 1.0,
                 generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        h, mask = self.embed(x, mask, generator)
-        if self.pos_enc_type == "abs_pos" or (self.pos_enc_type == "rot_pos" and self.rope_abs_plus):
-            h = abs_position_encoding(h)
-        elif self.pos_enc_type in ("rel_pos", "rot_pos"):
-            h = h * math.sqrt(self.attention_dim)
+        with span("conformer.subsample", device=x):
+            h, mask = self.embed(x, mask, generator)
+            if self.pos_enc_type == "abs_pos" or (self.pos_enc_type == "rot_pos" and self.rope_abs_plus):
+                h = abs_position_encoding(h)
+            elif self.pos_enc_type in ("rel_pos", "rot_pos"):
+                h = h * math.sqrt(self.attention_dim)
         att_mask = add_optional_chunk_mask(mask, h.shape[1], draw=self.training, generator=generator,
                                            device=h.device, **self.chunk)
         taps = []

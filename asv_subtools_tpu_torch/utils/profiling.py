@@ -37,7 +37,16 @@ is for:
 - ``train.front_end``, ``train.forward`` (with the margin head and the
   loss), ``train.backward``, ``train.optimizer`` (the global norm, the
   clip, the update, semi-orth and the non-finite choice), each with the
-  card's time (``train.<phase>_device_ms``).
+  card's time (``train.<phase>_device_ms``);
+- ``conformer.subsample``: the Conformer encoder's input subsampling and
+  the positions' scale, once a call (``conformer.subsample_share``);
+- ``conformer.attention``: ``RelPositionMultiHeadedAttention.forward``,
+  once a block (``conformer.attention_share``,
+  ``conformer.attention_roofline``);
+- ``conformer.conv_module``: the convolution module, once a block;
+- ``conformer.pooling``: the Conformer x-vector's ``transform_out``
+  through ``fc2``, once a call. These two, each with the card's time,
+  no metric reads yet.
 
 torch's flop counter counts the FLOPs of the matrix products and
 convolutions a call runs; it has no counterpart of XLA's "bytes accessed"

@@ -72,6 +72,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
 }
 
+// 16 bytes, of which the first src_bytes (0 or 16) are read and the rest
+// zero-filled: the ragged edge of a tile reads nothing past its rows
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 // 4 bytes, of which the first src_bytes (0 or 4) are read and the rest
 // zero-filled
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t src_bytes) {

@@ -1,5 +1,6 @@
 // The tensor cores' fragment loads and product as inline PTX (mma.sync on
-// bf16 with f32 sums), shared by fbank.cu, att_pooling.cu and res2_chain.cu.
+// bf16 or fp16 with f32 sums), shared by fbank.cu, att_pooling.cu,
+// res2_chain.cu and rel_attention.cu.
 // Shared-memory addresses are u32 (smem_u32 in async_copy.cuh).
 //
 // m16n8k16 fragments (g = lane / 4, tg = lane % 4): A [16 rows][16 k],
@@ -10,6 +11,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -41,6 +43,19 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, cons
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void mma_f16_16816(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);  // .x = lo in the low half
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 

@@ -39,7 +39,7 @@ from typing import Dict, Optional, Sequence
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("fbank", "att_pooling", "res2_chain", "stats_pooling")
+SOURCES = ("fbank", "att_pooling", "res2_chain", "stats_pooling", "rel_attention")
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

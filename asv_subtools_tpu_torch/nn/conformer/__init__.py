@@ -7,7 +7,8 @@ from .embedding import (abs_position_encoding, apply_rope, position_table, rel_p
                         sinusoid_table)
 from .encoder import (ConformerBlock, ConformerEncoder, PositionwiseFeedForward, RandomCombine, TransformerEncoder,
                       combine, layer_drop_keep, random_combine_weights)
-from .mask import add_optional_chunk_mask, chunk_mask, dynamic_chunk_draw, dynamic_chunk_mask, make_pad_mask
+from .mask import (add_optional_chunk_mask, chunk_mask, chunk_mask_applies, dynamic_chunk_draw, dynamic_chunk_mask,
+                   make_pad_mask)
 from .scaling import BasicNorm, activation_balancer
 from .subsampling import (SUBSAMPLINGS, Conv2dSubsampling, Conv2dSubsampling2, Conv2dSubsampling4,
                           Conv2dSubsampling6, Conv2dSubsampling8, LinearNoSubsampling, ReConv2dSubsampling4)
@@ -40,6 +41,7 @@ __all__ = [
     "apply_rope",
     "attention_normalize",
     "chunk_mask",
+    "chunk_mask_applies",
     "combine",
     "dynamic_chunk_draw",
     "dynamic_chunk_mask",

@@ -28,6 +28,15 @@ conv1d over time (JAX :27-32). ``rel_shift=True`` aligns the relative
 term Transformer-XL style over the ``[2T-1, D]`` table (JAX :191-198,
 218-236); the encoder never sets it.
 
+On the card the relative-position attention takes one fused kernel (K5,
+nn/fused_rel_attention.py) from its projections to the heads' outputs,
+where the call allows it (``RelPositionMultiHeadedAttention._fused``:
+inference in bf16 or fp16, the plain softmax, Dh 64, a padding-only
+mask, which the encoder states by handing over ``pad_mask``); every
+other call, and every call on the CPU, runs the chain above. Each call
+on a CUDA tensor counts ``conformer.attention_fused`` or
+``conformer.attention_plain`` (utils/profiling.py ``add``).
+
 Precision: the scores, the mask, the normalisation and the lengths run
 in at least float32; the attention weights go back to the compute type
 for the product with the values. The tables enter in the compute type
@@ -43,13 +52,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...utils.profiling import span
+from ...utils.profiling import add, span
 from ..dropout import dropout
+from ..fused_rel_attention import HEAD_DIM, fused_rel_attention
 from ..norm import _at_least_f32
 from .embedding import apply_rope, position_table, rel_position_encoding, rope_freqs
 
 NEG_INF = -1.0e9
 NORM_METHODS = ("softmax", "relu_plus", "softmax_plus")
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether x lies on a CUDA device: where the relative attention counts
+    its calls and may take its fused kernel (the CPU tests stand in a CPU
+    tensor for a card's, which runs the kernel's plain version)."""
+    return x.is_cuda
 
 
 def attention_normalize(scores: torch.Tensor, mask: Optional[torch.Tensor], d_k: int, *,
@@ -156,16 +173,16 @@ class MultiHeadedAttention(_Attention):
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, 3 * dim)
 
-    def _split(self, x: torch.Tensor):
-        """-> q [B, T, H, Dh], k and v [B, H, T, Dh]."""
-        b, t, d = x.shape
-        q, k, v = self.qkv(x).view(b, t, 3, self.num_heads, d // self.num_heads).unbind(2)
+    def _split(self, qkv: torch.Tensor):
+        """The ``qkv`` projection [B, T, 3D] -> q [B, T, H, Dh], k and v [B, H, T, Dh]."""
+        b, t, d3 = qkv.shape
+        q, k, v = qkv.view(b, t, 3, self.num_heads, d3 // (3 * self.num_heads)).unbind(2)
         return q, k.transpose(1, 2), v.transpose(1, 2)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 extra_score: Optional[torch.Tensor] = None) -> torch.Tensor:
-        q, k, v = self._split(x)
+        q, k, v = self._split(self.qkv(x))
         scores = _at_least_f32(torch.matmul(q.transpose(1, 2), k.transpose(-1, -2)))
         return self._attend(scores, v, mask, generator, extra_score)
 
@@ -193,14 +210,41 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         x = F.pad(x, (1, 0)).reshape(b, h, 2 * t, t)[:, :, 1:, :]
         return x.reshape(b, h, t, 2 * t - 1)[..., :t]
 
+    def _fused(self, qkv: torch.Tensor, p: torch.Tensor, mask: Optional[torch.Tensor],
+               pad_mask: Optional[torch.Tensor], extra_score: Optional[torch.Tensor]) -> bool:
+        """Whether a call on the card takes the fused kernel (K5): bf16 or
+        fp16, nothing that needs a gradient, no active dropout, the plain
+        softmax (no scale_adapt, g_sa or diag_mask), no T5 bias, no
+        rel-shift, Dh 64, and an attention mask that is the padding mask's
+        alone (``mask`` None, or ``pad_mask`` given)."""
+        if qkv.dtype not in (torch.bfloat16, torch.float16):
+            return False
+        if torch.is_grad_enabled() and (qkv.requires_grad or p.requires_grad
+                                        or any(w.requires_grad for w in self.parameters())):
+            return False
+        return (not (self.dropout_rate > 0 and self.training) and self.norm_method == "softmax"
+                and not (self.scale_adapt or self.g_sa or self.diag_mask) and extra_score is None
+                and not self.rel_shift and self.d_k == HEAD_DIM and (mask is None or pad_mask is not None)
+                and self.pos_bias_u.dtype == qkv.dtype == p.dtype)
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                extra_score: Optional[torch.Tensor] = None) -> torch.Tensor:
+                extra_score: Optional[torch.Tensor] = None,
+                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``pad_mask`` [B, T] states that ``mask`` is this padding mask's
+        alone (no chunk mask); it lets the fused kernel take the call."""
         with span("conformer.attention", device=x):
             b, t, d = x.shape
-            q, k, v = self._split(x)
+            qkv = self.qkv(x)
             table = rel_position_encoding(t, d, x.device) if self.rel_shift else position_table(t, d, x.device)
             p = self.pos(table.to(x.dtype))  # [P, D]
+            if _on_card(x):
+                fused = self._fused(qkv, p, mask, pad_mask, extra_score)
+                add("conformer.attention_fused" if fused else "conformer.attention_plain", 1)
+                if fused:
+                    return self.project(fused_rel_attention(qkv, p, self.pos_bias_u, self.pos_bias_v,
+                                                            self.num_heads, pad_mask))
+            q, k, v = self._split(qkv)
             p = p.view(-1, self.num_heads, d // self.num_heads).transpose(0, 1)  # [H, P, Dh]
             ac = torch.matmul((q + self.pos_bias_u).transpose(1, 2), k.transpose(-1, -2))
             bd = _at_least_f32(torch.matmul((q + self.pos_bias_v).transpose(1, 2), p.transpose(-1, -2)))
@@ -222,7 +266,7 @@ class RoPESelfAttention(MultiHeadedAttention):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 extra_score: Optional[torch.Tensor] = None) -> torch.Tensor:
-        q, k, v = self._split(x)
+        q, k, v = self._split(self.qkv(x))
         q = q.transpose(1, 2)
         cos, sin = rope_freqs(x.shape[1], q.shape[-1], x.device)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)

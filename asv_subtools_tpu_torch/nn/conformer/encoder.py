@@ -72,7 +72,7 @@ from ..norm import BatchNorm, LayerNorm
 from .attention import GAU, MultiHeadedAttention, RelPositionMultiHeadedAttention, RoPESelfAttention, T5RelPositionBias
 from .convolution import ConvolutionModule
 from .embedding import abs_position_encoding
-from .mask import add_optional_chunk_mask
+from .mask import add_optional_chunk_mask, chunk_mask_applies
 from .scaling import BasicNorm, activation_balancer
 from .subsampling import make_subsampling
 
@@ -251,14 +251,19 @@ class ConformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, att_mask: Optional[torch.Tensor] = None,
                 pad_mask: Optional[torch.Tensor] = None, warmup: Scalar = 1.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                att_pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``att_pad_mask``: the padding mask where ``att_mask`` is that
+        mask's alone (no chunk mask), which lets the relative attention
+        take its fused kernel."""
         x_orig = x
         if self.macaron:
             h = self.ff_macaron(self._pre_norm("ff_macaron", x), att_mask, generator)
             x = self._branch("ff_macaron", x, self._drop(h, generator), self.ff_scale)
         h = self._pre_norm("mha", x)
         extra = None if self.t5_bias is None else self.t5_bias(x.shape[1], x.device)
-        h_att = self.self_attn(h, att_mask, generator, extra)
+        kw = {"pad_mask": att_pad_mask} if isinstance(self.self_attn, RelPositionMultiHeadedAttention) else {}
+        h_att = self.self_attn(h, att_mask, generator, extra, **kw)
         if self.concat_after:
             x = x + self.concat_linear(torch.cat([h, h_att], dim=-1))
             x = self.norm_mha(x) if self.post else x
@@ -408,9 +413,11 @@ class ConformerEncoder(nn.Module):
                 h = h * math.sqrt(self.attention_dim)
         att_mask = add_optional_chunk_mask(mask, h.shape[1], draw=self.training, generator=generator,
                                            device=h.device, **self.chunk)
+        chunked = chunk_mask_applies(self.chunk["static_chunk_size"], self.chunk["use_dynamic_chunk"],
+                                     draw=self.training)
         taps = []
         for i, block in enumerate(self.blocks):
-            h = block(h, att_mask, mask, warmup, generator)
+            h = block(h, att_mask, mask, warmup, generator, att_pad_mask=None if chunked else mask)
             if i in self.aux_layers:
                 taps.append(h)
         if self.combiner_type == "mfa":

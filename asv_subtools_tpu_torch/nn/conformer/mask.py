@@ -60,6 +60,16 @@ def dynamic_chunk_mask(generator: Optional[torch.Generator], size: int, use_dyna
     return chunk_mask(size, *dynamic_chunk_draw(generator, size, use_dynamic_left_chunk, device))
 
 
+def chunk_mask_applies(static_chunk_size: int = 0, use_dynamic_chunk: bool = False, draw: bool = False,
+                       decoding_chunk_size: int = 0) -> bool:
+    """Whether :func:`add_optional_chunk_mask` adds a chunk mask to the
+    padding mask under these options (else the attention mask is the
+    padding mask's alone)."""
+    if use_dynamic_chunk:
+        return decoding_chunk_size > 0 or (decoding_chunk_size == 0 and draw)
+    return static_chunk_size > 0
+
+
 def add_optional_chunk_mask(pad_mask: Optional[torch.Tensor], size: int, static_chunk_size: int = 0,
                             num_left_chunks: int = -1, use_dynamic_chunk: bool = False,
                             use_dynamic_left_chunk: bool = False, draw: bool = False,
@@ -75,15 +85,13 @@ def add_optional_chunk_mask(pad_mask: Optional[torch.Tensor], size: int, static_
     if pad_mask is not None:
         device = pad_mask.device
     att = None if pad_mask is None else pad_mask[:, None, None, :] & pad_mask[:, None, :, None]
-    cm = None
-    if use_dynamic_chunk:
-        if decoding_chunk_size > 0:
-            cm = chunk_mask(size, decoding_chunk_size, num_left_chunks, device)
-        elif decoding_chunk_size == 0 and draw:
-            cm = dynamic_chunk_mask(generator, size, use_dynamic_left_chunk, device)
-    elif static_chunk_size > 0:
+    if not chunk_mask_applies(static_chunk_size, use_dynamic_chunk, draw, decoding_chunk_size):
+        return att
+    if not use_dynamic_chunk:
         cm = chunk_mask(size, static_chunk_size, num_left_chunks, device)
-    if cm is not None:
-        cm = cm[None, None]
-        att = cm if att is None else att & cm
-    return att
+    elif decoding_chunk_size > 0:
+        cm = chunk_mask(size, decoding_chunk_size, num_left_chunks, device)
+    else:
+        cm = dynamic_chunk_mask(generator, size, use_dynamic_left_chunk, device)
+    cm = cm[None, None]
+    return cm if att is None else att & cm

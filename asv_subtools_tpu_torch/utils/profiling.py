@@ -42,7 +42,10 @@ is for:
   the positions' scale, once a call (``conformer.subsample_share``);
 - ``conformer.attention``: ``RelPositionMultiHeadedAttention.forward``,
   once a block (``conformer.attention_share``,
-  ``conformer.attention_roofline``);
+  ``conformer.attention_roofline``), with the counters
+  ``conformer.attention_fused`` and ``conformer.attention_plain`` (calls
+  on the card that took the fused kernel K5, or the unfused chain),
+  which no metric reads;
 - ``conformer.conv_module``: the convolution module, once a block;
 - ``conformer.pooling``: the Conformer x-vector's ``transform_out``
   through ``fc2``, once a call. These two, each with the card's time,

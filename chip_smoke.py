@@ -3,7 +3,7 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. device and build: the card's name and power limit; the four CUDA
+  1. device and build: the card's name and power limit; the five CUDA
      kernels built from asv_subtools_tpu_torch/csrc with nvcc, one process
      per source, all started together.
   2. K1 fused fbank against its plain version on the card: the f32 DFT (the
@@ -378,6 +378,15 @@ Phases (any failure raises and the script exits non-zero):
      BREAKDOWN, finalize p50/p95); the x-vector's bf16 and int8 wires at
      0.999 against its f32 wire. The launches of this phase are the
      binaries' own counts (runtime/ops.cc).
+  5b. K5 fused relative-position attention against its plain version,
+     the module's unfused chain and the same attention in f32 at
+     [128, 1596] and [128, 396] frames (4 heads of 64, mixed lengths, the
+     Conformer cell's largest and smallest buckets): the kernel's
+     relative L2 gap to f32 at most 1.5 times the bf16 chain's, padded
+     rows zero; times of the kernel, its plain version, the module with
+     the kernel and with the chain (projections included), and
+     F.scaled_dot_product_attention on the concatenated inputs (a
+     yardstick only: the port never calls it).
  30. a "kernels" JSON line, then the device JSON as the last line.
 
 Clocks. A kernel's time ("ms", "plain_ms", "library_ms" of the kernels
@@ -422,6 +431,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # H100 SXM dense; f32 outside the tensor cores
 # the __global__ functions of asv_subtools_tpu_torch/csrc, as the profiler's kernel names hold them
 OWN_KERNELS = ("fbank_kernel", "fbank_mma_kernel", "stats_kernel", "stats_ring_kernel", "combine_kernel",
+               "rel_attention_kernel",
                "res2_kernel", "res2_mma_kernel", "glob_kernel", "attend_kernel", "attend_mma_kernel",
                "att_stats_kernel")
 
@@ -734,6 +744,88 @@ def phase_att_pooling(torch):
     }
 
 
+def phase_rel_attention(torch):
+    """K5 at the Conformer cell's largest and smallest buckets (phase 5b)."""
+    import torch.nn.functional as F
+
+    from asv_subtools_tpu_torch.nn import fused_rel_attention, fused_rel_attention_plain
+    from asv_subtools_tpu_torch.nn.conformer import RelPositionMultiHeadedAttention, position_table
+
+    dev = torch.device("cuda")
+    b, d, heads = BATCH, 256, 4
+    torch.manual_seed(SEED + 5)
+    mod = RelPositionMultiHeadedAttention(d, heads).eval()
+    with torch.no_grad():
+        mod.pos_bias_u.normal_(0.0, 0.5)
+        mod.pos_bias_v.normal_(0.0, 0.5)
+    mod.out = torch.nn.Identity()  # the module's output is the heads' rows
+    mod = mod.to(device=dev, dtype=torch.bfloat16)
+    u, v = mod.pos_bias_u, mod.pos_bias_v
+    rows, worst = {}, 0.0
+    for t in (1596, 396):
+        gen = torch.Generator(device=dev).manual_seed(SEED + t)
+        x = torch.randn((b, t, d), generator=gen, device=dev).to(torch.bfloat16)
+        lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+        lengths[:64] = t  # half the rows whole, as the cell's buckets mostly are; one 1-frame row
+        lengths[64] = 1
+        pad = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+        att = pad[:, None, None, :] & pad[:, None, :, None]
+        with torch.inference_mode():
+            qkv, p = mod.qkv(x), mod.pos(position_table(t, d, dev).to(torch.bfloat16))
+            k = fused_rel_attention(qkv, p, u, v, heads, pad)
+            plain = fused_rel_attention_plain(qkv, p, u, v, heads, pad)
+            err = max_abs(k, plain)
+            # the gaps to f32 on 16 rows (8 whole, 8 ragged): the f32 reference's
+            # [B, H, T, T] tensors at 128 rows would take 26 GB
+            sel = torch.arange(56, 72, device=dev)
+            chain = mod(x[sel], att[sel])  # no pad_mask: the unfused chain
+            want = fused_rel_attention_plain(qkv[sel].float(), p.float(), u.float(), v.float(), heads, pad[sel])
+            valid = pad[sel][..., None].expand_as(want)
+            gap = lambda a: float(torch.linalg.vector_norm((a.float() - want)[valid])
+                                  / torch.linalg.vector_norm(want[valid]))
+            gk, gc = gap(k[sel]), gap(chain)
+            zero = bool((k[~pad] == 0).all())
+            del plain, chain, want
+            torch.cuda.empty_cache()
+        print(f"K5 rel attention bf16 [{b},{t}] 4x64: max abs err vs plain {err:.3e}; relative L2 gap to f32 "
+              f"(16 rows): kernel {gk:.3e}, bf16 chain {gc:.3e} (kernel <= 1.5 x chain); padded rows zero {zero}",
+              flush=True)
+        check(gk <= 1.5 * gc and zero and bool(torch.isfinite(k.float()).all()),
+              f"K5 [{b},{t}] is farther from f32 than the chain allows, or a padded row is not zero")
+        worst = max(worst, err)
+        with torch.inference_mode():
+            run_k = lambda: fused_rel_attention(qkv, p, u, v, heads, pad)
+            run_p = lambda: fused_rel_attention_plain(qkv, p, u, v, heads, pad)
+            ms_p, ms_k = turns_ms(torch, run_p, run_k, n=3 if t > 1000 else 10)
+            ms_mk = device_ms(torch, lambda: mod(x, att, pad_mask=pad), n=3)
+            ms_mc = device_ms(torch, lambda: mod(x, att), n=3)
+            # the yardstick: one library call on [q+u | q+v], [k | p] and v
+            q3, k3, v3 = qkv.view(b, t, 3, heads, 64).unbind(2)
+            qcat = torch.cat([q3 + u, q3 + v], -1).transpose(1, 2).contiguous()
+            kcat = torch.cat([k3, p.view(t, heads, 64).expand(b, t, heads, 64)], -1).transpose(1, 2).contiguous()
+            vv = v3.transpose(1, 2).contiguous()
+            kmask = pad[:, None, None, :]
+            ms_lib = device_ms(torch, lambda: F.scaled_dot_product_attention(qcat, kcat, vv, attn_mask=kmask,
+                                                                              scale=0.125), n=3)
+            split = profiled_split(torch, run_k, n=3)
+        flops = 6.0 * b * t * t * d
+        nbytes = 2 * (b * t * 3 * d + t * d + 2 * heads * 64 + b * t * d) + b * t
+        bound, by = bound_ms(nbytes, flops)
+        rows[t] = {"ms": ms_k, "plain_ms": ms_p, "bound_ms": bound, "bound_by": by, "library_ms": ms_lib}
+        print(f"K5 bf16 [{b},{t}] (ms, back to back): kernel {ms_k:.4f} plain {ms_p:.4f}; the module with the kernel "
+              f"{ms_mk:.4f}, with the chain {ms_mc:.4f} (projections in both); F.scaled_dot_product_attention "
+              f"{ms_lib:.4f}; bound {bound:.4f} by {by} ({flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB): "
+              f"{100 * bound / ms_k:.1f}% of it, {flops / ms_k / 1e9:.1f} TFLOP/s", flush=True)
+        print_split(f"K5 bf16 [{b},{t}] kernel", split)
+        del x, qkv, p, pad, att, qcat, kcat, vv, kmask
+        torch.cuda.empty_cache()
+    big = rows[1596]
+    return {
+        "name": "fused_rel_attention", "route": "cuda", "source": "asv_subtools_tpu_torch/csrc/rel_attention.cu",
+        "replaces": None, "max_abs_err": worst, **big,
+    }
+
+
 def _res2_block(torch, dilation, dtype, seed):
     """A C1024 Res2NetBlock with seeded weights and non-trivial BN statistics."""
     from asv_subtools_tpu_torch.models import Res2NetBlock
@@ -982,12 +1074,22 @@ def _plain_embed(torch, model, opts, dft_dtype, dtype):
 
 
 def _wrappers():
-    """The four kernels' wrappers by name: each counts its launches."""
+    """The five kernels' wrappers by name: each counts its launches."""
     from asv_subtools_tpu_torch.features import fused_fbank
-    from asv_subtools_tpu_torch.nn import fused_attentive_stats_pool, fused_res2_chain, fused_stats_pooling
+    from asv_subtools_tpu_torch.nn import (fused_attentive_stats_pool, fused_rel_attention, fused_res2_chain,
+                                           fused_stats_pooling)
 
     return {"fused_fbank": fused_fbank, "fused_attentive_stats_pool": fused_attentive_stats_pool,
-            "fused_res2_chain": fused_res2_chain, "fused_stats_pooling": fused_stats_pooling}
+            "fused_res2_chain": fused_res2_chain, "fused_stats_pooling": fused_stats_pooling,
+            "fused_rel_attention": fused_rel_attention}
+
+
+def k5_layers(model) -> int:
+    """The relative-position attention layers of a model that take K5 at
+    inference (Dh 64; the served models' masks are padding-only)."""
+    from asv_subtools_tpu_torch.nn.conformer import RelPositionMultiHeadedAttention
+
+    return sum(isinstance(m, RelPositionMultiHeadedAttention) and m.d_k == 64 for m in model.modules())
 
 
 def zero_launches() -> None:
@@ -1515,6 +1617,8 @@ def _serve_family(torch, model32, label: str, path: str, device_label: str, seed
         torch.cuda.synchronize()
         counts = read_launches(path, ("fused_fbank",))
         check(counts["fused_fbank"] == 1, f"K1 launched {counts['fused_fbank']} times in one served batch")
+        check(counts["fused_rel_attention"] == k5_layers(model16),
+              f"K5 launched {counts['fused_rel_attention']} times in one served batch, expected one a rel-pos layer")
         check(tuple(emb.shape) == (BATCH, 256) and bool(torch.isfinite(emb.float()).all()),
               f"served {label} embeddings not finite or of the wrong shape")
         c16, c32 = float(cosine(emb, ref16).min()), float(cosine(emb, ref32).min())
@@ -3224,7 +3328,10 @@ def phase_step_options(torch, device_label):
         zero_launches()
         emb = embed(waves[0], smask)
         torch.cuda.synchronize()
-        add(read_launches("ReConformer served", ("fused_fbank",)))
+        c = read_launches("ReConformer served", ("fused_fbank", "fused_rel_attention"))
+        check(c["fused_rel_attention"] == k5_layers(model16), f"K5 launched {c['fused_rel_attention']} times in one "
+              "served ReConformer batch, expected one a layer")
+        add(c)
         check(tuple(emb.shape) == (BATCH, 256) and bool(torch.isfinite(emb.float()).all()),
               "served ReConformer embeddings not finite or of the wrong shape")
         c16, c32 = float(cosine(emb, ref16).min()), float(cosine(emb, ref32).min())
@@ -4602,7 +4709,8 @@ def main() -> int:
     t0 = time.perf_counter()
     name, smi = phase_device(torch)
     kernels = {"fused_fbank": phase_fbank(torch), "fused_attentive_stats_pool": phase_att_pooling(torch),
-               "fused_res2_chain": phase_res2(torch), "fused_stats_pooling": phase_stats_pooling(torch)}
+               "fused_res2_chain": phase_res2(torch), "fused_stats_pooling": phase_stats_pooling(torch),
+               "fused_rel_attention": phase_rel_attention(torch)}
     torch.cuda.empty_cache()
     paths = [phase_served(torch, smi)]
     torch.cuda.empty_cache()
@@ -4652,7 +4760,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.append(phase_runtime(torch, smi))
     for kernel_name, k in kernels.items():
-        k["launches"] = sum(counts[kernel_name] for counts in paths)
+        k["launches"] = sum(counts.get(kernel_name, 0) for counts in paths)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)

@@ -124,6 +124,14 @@ utterance; the pinned, one-in-flight path yields the keys, the order and
 the embeddings of a synchronous pageable path (a fresh zero-padded batch,
 a host mask, ``.cpu()``) bit for bit, copies in from pinned memory only,
 and allocates no slab on a second pass.
+
+The fused relative-position attention (K5): at the Conformer cell's
+shapes (B 8-16, T' 396 / 796 / 1,596, 4 heads of 64, mixed lengths) the
+kernel's relative L2 gap to the same attention in f32 is at most 1.5
+times the bf16 chain's (the module's unfused path on the card), padded
+rows are zero; fp16 and no mask run; the 6L-256D-4H Conformer x-vector's
+eval forward launches it once a layer and never waits on the card; and
+``torch.export`` keeps it as one node of the exported program.
 """
 
 import numpy as np
@@ -136,6 +144,8 @@ from asv_subtools_tpu_torch.nn import (
     StatisticsPooling,
     fused_attentive_stats_pool,
     fused_attentive_stats_pool_plain,
+    fused_rel_attention,
+    fused_rel_attention_plain,
     fused_res2_chain,
     fused_res2_chain_plain,
     fused_stats_pooling,
@@ -1992,3 +2002,119 @@ def test_pinned_extractor_matches_a_pageable_path_bit_for_bit(card):
     assert len(ex._staging) == 1 and all(s.is_pinned() for s in ex._staging[0].slabs)
     copies = [e.name for e in prof.events() if "Memcpy HtoD" in e.name]
     assert copies and all("Pinned" in n for n in copies), sorted(set(copies))
+
+
+def _rel_attention_module(card, dim=256, heads=4, seed=0):
+    """A bf16 RelPositionMultiHeadedAttention whose output projection is the
+    identity, so that its output is the heads' [B, T, D] rows."""
+    from asv_subtools_tpu_torch.nn.conformer import RelPositionMultiHeadedAttention
+
+    torch.manual_seed(seed)
+    mod = RelPositionMultiHeadedAttention(dim, heads).eval()
+    with torch.no_grad():
+        mod.pos_bias_u.normal_(0.0, 0.5)
+        mod.pos_bias_v.normal_(0.0, 0.5)
+    mod.out = torch.nn.Identity()
+    return mod.to(device=card, dtype=torch.bfloat16)
+
+
+def _rel_gap(got, want, valid):
+    d = (got.float() - want)[valid]
+    return float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(want[valid]))
+
+
+@pytest.mark.parametrize("b,t", [(16, 396), (16, 796), (8, 1596)])
+def test_rel_attention_kernel_at_the_cells_shapes(card, b, t):
+    from asv_subtools_tpu_torch.nn.conformer import make_pad_mask, position_table
+
+    mod = _rel_attention_module(card, seed=t)
+    gen = torch.Generator(device=card).manual_seed(t)
+    x = torch.randn((b, t, 256), generator=gen, device=card).to(torch.bfloat16)
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=card)
+    lengths[0], lengths[1] = t, 1  # a full row and a 1-frame row
+    pad = make_pad_mask(lengths, t)
+    att = pad[:, None, None, :] & pad[:, None, :, None]
+    with torch.inference_mode():
+        before = fused_rel_attention.launches
+        got = mod(x, att, pad_mask=pad)  # the kernel
+        assert fused_rel_attention.launches == before + 1
+        chain = mod(x, att)  # no pad_mask: the unfused chain
+        assert fused_rel_attention.launches == before + 1
+        qkv, p = mod.qkv(x), mod.pos(position_table(t, 256, card).to(torch.bfloat16))
+        f32 = [a.float() for a in (qkv, p, mod.pos_bias_u, mod.pos_bias_v)]
+        want = fused_rel_attention_plain(*f32, 4, pad)
+        plain = fused_rel_attention_plain(qkv, p, mod.pos_bias_u, mod.pos_bias_v, 4, pad)
+    torch.cuda.synchronize()
+    valid = pad[..., None].expand_as(want)
+    gap_k, gap_c, gap_p = _rel_gap(got, want, valid), _rel_gap(chain, want, valid), _rel_gap(plain, want, valid)
+    print(f"K5 [{b}, {t}]: relative L2 gap to f32, kernel {gap_k:.3e}, bf16 chain {gap_c:.3e}, "
+          f"plain bf16 {gap_p:.3e}")
+    assert gap_k <= 1.5 * gap_c, (gap_k, gap_c)
+    assert bool((got[~pad] == 0).all()) and bool(torch.isfinite(got.float()).all())
+
+
+def test_rel_attention_kernel_fp16_and_without_a_mask(card):
+    b, t, heads = 4, 333, 4
+    gen = torch.Generator(device=card).manual_seed(3)
+    qkv = torch.randn((b, t, 3 * 256), generator=gen, device=card)
+    p = torch.randn((t, 256), generator=gen, device=card)
+    u, v = (torch.randn((heads, 64), generator=gen, device=card) * 0.5 for _ in range(2))
+    pad = torch.arange(t, device=card)[None, :] < torch.tensor([333, 200, 64, 65], device=card)[:, None]
+    for dt, mask in ((torch.float16, pad), (torch.bfloat16, None), (torch.float16, None)):
+        args = [a.to(dt) for a in (qkv, p, u, v)]
+        got = fused_rel_attention(*args, heads, mask)
+        want = fused_rel_attention_plain(*[a.float() for a in args], heads, mask)
+        valid = (torch.ones((b, t), dtype=torch.bool, device=card) if mask is None else mask)[..., None]
+        valid = valid.expand_as(want)
+        gap = _rel_gap(got, want, valid)
+        # one rounding of P and of the output to the 8- or 11-bit mantissa
+        assert gap <= (1e-2 if dt == torch.bfloat16 else 2e-3), (dt, mask is None, gap)
+        assert got.dtype == dt and bool(torch.isfinite(got.float()).all())
+
+
+def _served_conformer(card):
+    from asv_subtools_tpu_torch.models import ConformerXvector
+
+    model = init_weights_(ConformerXvector(80, num_blocks=6, attention_dim=256, attention_heads=4,
+                                           input_layer="conv2d2", device="cpu"), 11)
+    return model.to(device=card, dtype=torch.bfloat16).eval()
+
+
+def test_conformer_forward_launches_k5_a_layer_and_never_waits(card):
+    model = _served_conformer(card)
+    gen = torch.Generator(device=card).manual_seed(12)
+    x = torch.randn((8, 400, 80), generator=gen, device=card).to(torch.bfloat16)
+    mask = torch.arange(400, device=card)[None, :] < torch.linspace(40, 400, 8, device=card).long()[:, None]
+    with torch.inference_mode():
+        model(x, mask)  # builds the kernels
+        torch.cuda.synchronize()
+        before = fused_rel_attention.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            emb = model(x, mask)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert fused_rel_attention.launches == before + 6
+    assert emb.shape == (8, 256) and bool(torch.isfinite(emb.float()).all())
+
+
+def test_exported_conformer_keeps_k5(card, tmp_path):
+    from asv_subtools_tpu_torch.export import export_embed_fn, load_embed_fn
+
+    model = _served_conformer(card)
+    fn = lambda x, m: model(x.to(torch.bfloat16), m).float()
+    paths = export_embed_fn(fn, 80, str(tmp_path), bucket_lengths=(200,), batch_sizes=(4,))
+    program = torch.export.load(paths["b4_t200"])
+    ops = {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
+    assert "asv_subtools_tpu_torch.fused_rel_attention.default" in ops
+    loaded = load_embed_fn(paths["b4_t200"])
+    gen = torch.Generator(device=card).manual_seed(13)
+    x = torch.randn((4, 200, 80), generator=gen, device=card)
+    mask = torch.arange(200, device=card)[None, :] < torch.tensor([200, 170, 120, 60], device=card)[:, None]
+    with torch.inference_mode():
+        before = fused_rel_attention.launches
+        got = loaded(x, mask)
+        assert fused_rel_attention.launches == before + 6
+        want = fn(x, mask)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    assert float(cos.min()) >= 0.99999, cos

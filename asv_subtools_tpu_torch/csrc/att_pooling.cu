@@ -35,7 +35,7 @@
 // kernel does. Products of bf16 values are exact in f32 and all sums are
 // f32.
 //
-// Two attend kernels; the wrapper chooses by type:
+// Two attend kernels; the launcher chooses by type (launch_plan.h att_plan):
 //
 // attend_mma_kernel serves bf16 x, on the tensor cores (mma.sync.m16n8k16,
 // bf16 operands, f32 sums; fragments by ldmatrix). What it answers to:
@@ -49,7 +49,7 @@
 //    channel's 64 logits sit in one quad of lanes, so the softmax partials
 //    are a row reduction in registers and two shuffles.
 //  - Copies. The x chunks and the weight chunks (Wx^T and W2^T, prepared
-//    by the wrapper zero-padded to whole chunks, 16 KB and 32 KB each)
+//    by the launcher zero-padded to whole chunks, 16 KB and 32 KB each)
 //    stream from device memory and L2 through a two-stage ring by cp.async,
 //    the next chunk in flight while the tensor cores work on this one. Not
 //    by cp.async.bulk or TMA: at the served T = 998 a channel's row starts
@@ -94,12 +94,13 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "launch_plan.h"
 #include "mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTT = 64;  // frames per attend block, both kernels
+constexpr int kTT = asv_plan::kAttTT;
 constexpr int kCC = 32;  // channels per shared-memory chunk in attend
 constexpr int kStatsChannels = 128;  // channels per stats block: 8 warps x 16
 
@@ -242,7 +243,7 @@ __global__ void __launch_bounds__(kThreads) att_stats_kernel(
 constexpr int kGlobRows = 4;      // batch rows a glob block takes
 constexpr int kGlobChunk = 256;   // channels of the statistics staged at a time
 constexpr int kGlobThreads = 512; // 128 units x 4 channel groups
-constexpr int kGlobSplit = 4;     // blocks that share a unit's channels: glob is kGlobSplit partial sums
+constexpr int kGlobSplit = asv_plan::kAttGlobSplit;  // blocks that share a unit's channels: glob's partial sums
 
 // glob[b][k] as the attend kernels read it: the sum of the partial sums
 __device__ __forceinline__ float glob_at(const float* glob, int b, int k, int B, int K) {
@@ -460,8 +461,9 @@ __device__ __forceinline__ float exp2_approx(float v) {
   return r;
 }
 
-constexpr int kCA = 64;      // channels a chunk of the first product
-constexpr int kCB = 128;     // channels a chunk of the second product: 8 warps x 16
+constexpr int kCA = asv_plan::kAttCA;  // channels a chunk of the first product
+constexpr int kCB = asv_plan::kAttCB;  // channels a chunk of the second product
+static_assert(kCB == 8 * 16, "a warp takes 16 channels of the second product");
 
 // Shared memory of attend_mma_kernel for K padded to KP units and tiles of
 // TT frames, in bytes: the ring of kStages stages (each an x chunk
@@ -741,9 +743,9 @@ int launch_attend_mma(const __nv_bfloat16* x, const uint8_t* mask, const __nv_bf
 
 int launch_mma(const __nv_bfloat16* x, const uint8_t* mask, const __nv_bfloat16* wxt,
                const float* glob, const float* bns, const float* bnt, const __nv_bfloat16* w2t,
-               const float* b2, float* part, int B, int C, int Tn, int K, int even,
+               const float* b2, float* part, int B, int C, int Tn, int K, int kp, bool even,
                cudaStream_t st) {
-  if (K <= 128)
+  if (kp == 128)
     return even ? launch_attend_mma<128, kTT, true>(x, mask, wxt, glob, bns, bnt, w2t, b2, part, B, C, Tn, K, st)
                 : launch_attend_mma<128, kTT, false>(x, mask, wxt, glob, bns, bnt, w2t, b2, part, B, C, Tn, K, st);
   return even ? launch_attend_mma<256, kTT, true>(x, mask, wxt, glob, bns, bnt, w2t, b2, part, B, C, Tn, K, st)
@@ -771,33 +773,36 @@ int launch_attend(const T* x, const uint8_t* mask, const T* wx, const float* glo
 template <typename T>
 int launch_all(const void* xv, const void* maskv, const void* wxv, const void* wmv,
                const void* wsv, const void* b1, const void* bns, const void* bnt,
-               const void* w2v, const void* b2, void* stats, void* glob, void* part, void* out,
-               int B, int C, int Tn, int K, bool tensor, int even, cudaStream_t st) {
+               const void* w2v, const void* b2, void* out, unsigned char* work, int B, int C, int Tn,
+               int K, const asv_plan::AttPlan& plan, cudaStream_t st) {
   const T* x = static_cast<const T*>(xv);
   const uint8_t* mask = static_cast<const uint8_t*>(maskv);
+  float* stats = reinterpret_cast<float*>(work + plan.stats);
+  float* g = reinterpret_cast<float*>(work + plan.glob);
+  float* p = reinterpret_cast<float*>(work + plan.part);
   att_stats_kernel<T><<<dim3((C + kStatsChannels - 1) / kStatsChannels, B), kThreads, 0, st>>>(
-      x, mask, static_cast<float*>(stats), C, Tn);
+      x, mask, stats, C, Tn);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   glob_kernel<T><<<dim3((B + kGlobRows - 1) / kGlobRows, (K + 127) / 128, kGlobSplit), kGlobThreads, 0, st>>>(
-      static_cast<const float*>(stats), static_cast<const T*>(wmv), static_cast<const T*>(wsv),
-      static_cast<const float*>(b1), static_cast<float*>(glob), B, C, K);
+      stats, static_cast<const T*>(wmv), static_cast<const T*>(wsv), static_cast<const float*>(b1), g, B, C, K);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const T* wx = static_cast<const T*>(wxv);
   const T* w2 = static_cast<const T*>(w2v);
-  const float* g = static_cast<const float*>(glob);
   const float* s = static_cast<const float*>(bns);
   const float* t = static_cast<const float*>(bnt);
   const float* bb = static_cast<const float*>(b2);
-  float* p = static_cast<float*>(part);
   int rc;
-  if (tensor) {
+  if (plan.tensor) {
     typedef __nv_bfloat16 bf;
-    const bf* xh = reinterpret_cast<const bf*>(x);
-    const bf* wxh = reinterpret_cast<const bf*>(wx);
-    const bf* w2h = reinterpret_cast<const bf*>(w2);
-    rc = launch_mma(xh, mask, wxh, g, s, t, w2h, bb, p, B, C, Tn, K, even, st);
+    rc = padded_transpose<uint16_t>(wxv, work + plan.wxt, 1, C, K, plan.kp, plan.wxt_cols, st);
+    if (rc == 0) rc = padded_transpose<uint16_t>(w2v, work + plan.w2t, 1, K, C, plan.w2t_rows, plan.kp, st);
+    if (rc != 0) return rc;
+    // the frame pairs come by 4-byte copies where T is even and x 4-byte aligned
+    const bool even = Tn % 2 == 0 && reinterpret_cast<uintptr_t>(xv) % 4 == 0;
+    rc = launch_mma(reinterpret_cast<const bf*>(x), mask, reinterpret_cast<const bf*>(work + plan.wxt), g, s, t,
+                    reinterpret_cast<const bf*>(work + plan.w2t), bb, p, B, C, Tn, K, plan.kp, even, st);
   } else if (K <= 32) {
     rc = launch_attend<T, 1>(x, mask, wx, g, s, t, w2, bb, p, B, C, Tn, K, st);
   } else if (K <= 64) {
@@ -808,9 +813,7 @@ int launch_all(const void* xv, const void* maskv, const void* wxv, const void* w
     rc = launch_attend<T, 8>(x, mask, wx, g, s, t, w2, bb, p, B, C, Tn, K, st);
   }
   if (rc != 0) return rc;
-  const int n_tiles = (Tn + kTT - 1) / kTT;
-  combine_kernel<<<dim3((C + 255) / 256, B), 256, 0, st>>>(p, static_cast<float*>(out), C,
-                                                          n_tiles);
+  combine_kernel<<<dim3((C + 255) / 256, B), 256, 0, st>>>(p, static_cast<float*>(out), C, plan.tiles);
   return (int)cudaGetLastError();
 }
 
@@ -818,27 +821,26 @@ int launch_all(const void* xv, const void* maskv, const void* wxv, const void* w
 
 extern "C" {
 
-// x [B, C, T] (bf16 when bf16 != 0, else f32); mask [B, T] uint8 or null;
-// wm, ws [C, K] in x's type; b1, bns, bnt [K] and b2 [C] f32. Scratch:
-// stats [B, 2, C], glob [4, B, K], part [B, ceil(T/64), 4, C] f32. out
-// [B, 2C] f32. K <= 256.
-// f32, the CUDA-core kernel: wx [C, K] and w2 [K, C]. bf16, the
-// tensor-core kernel: wx is Wx^T [KP][64 * ceil(C / 64)] and w2 is W2^T
-// [128 * ceil(C / 128)][KP], zero-padded, KP = 128 for K <= 128 else 256;
-// even != 0 when T is even and x 4-byte aligned. Returns the first CUDA
-// error, or 0.
+// The C interface is declared, and its arguments described, in launch_plan.h.
+int asv_att_pool_workspace_bytes(int B, int C, int T, int K, int bf16, long long* bytes) {
+  asv_plan::AttPlan plan;
+  if (!asv_plan::att_plan(B, C, T, K, bf16, &plan)) return (int)cudaErrorInvalidValue;
+  *bytes = (long long)plan.bytes;
+  return 0;
+}
+
 int asv_att_pool_launch(const void* x, const void* mask, const void* wx, const void* wm,
                         const void* ws, const void* b1, const void* bns, const void* bnt,
-                        const void* w2, const void* b2, void* stats, void* glob, void* part,
-                        void* out, int B, int C, int T, int K, int bf16, int even, void* stream) {
+                        const void* w2, const void* b2, void* out, void* work, int B, int C, int T,
+                        int K, int bf16, int* route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || B > 65535 || C < 1 || T < 1 || K < 1 || K > 256)
-    return (int)cudaErrorInvalidValue;
+  asv_plan::AttPlan plan;
+  if (!asv_plan::att_plan(B, C, T, K, bf16, &plan)) return (int)cudaErrorInvalidValue;
+  if (route != nullptr) *route = plan.tensor;
+  unsigned char* w = static_cast<unsigned char*>(work);
   if (bf16)
-    return launch_all<__nv_bfloat16>(x, mask, wx, wm, ws, b1, bns, bnt, w2, b2, stats, glob,
-                                     part, out, B, C, T, K, true, even, st);
-  return launch_all<float>(x, mask, wx, wm, ws, b1, bns, bnt, w2, b2, stats, glob, part, out,
-                           B, C, T, K, false, 0, st);
+    return launch_all<__nv_bfloat16>(x, mask, wx, wm, ws, b1, bns, bnt, w2, b2, out, w, B, C, T, K, plan, st);
+  return launch_all<float>(x, mask, wx, wm, ws, b1, bns, bnt, w2, b2, out, w, B, C, T, K, plan, st);
 }
 
 const char* asv_error_string(int code) {

@@ -90,6 +90,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "launch_plan.h"
 #include "mma.cuh"
 
 namespace {
@@ -565,6 +566,10 @@ __global__ void __launch_bounds__(kThreads, 1) fbank_mma_kernel(
 }  // namespace
 
 extern "C" {
+
+// The shared memory a block may use (launch_plan.h), which the wrapper
+// holds each kernel's geometry to.
+int asv_smem_limit() { return asv_plan::kSmemLimit; }
 
 // Shared memory bytes a launch with this geometry needs.
 size_t asv_fbank_smem_bytes(int shift, int window_pad, int nb, int nnz) {

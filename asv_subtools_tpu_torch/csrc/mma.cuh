@@ -1,6 +1,8 @@
 // The tensor cores' fragment loads and product as inline PTX (mma.sync on
 // bf16 or fp16 with f32 sums), shared by fbank.cu, att_pooling.cu,
-// res2_chain.cu and rel_attention.cu.
+// res2_chain.cu and rel_attention.cu; and the padded transpose that writes
+// the weight layouts of att_pooling.cu's and res2_chain.cu's tensor-core
+// kernels.
 // Shared-memory addresses are u32 (smem_u32 in async_copy.cuh).
 //
 // m16n8k16 fragments (g = lane / 4, tg = lane % 4): A [16 rows][16 k],
@@ -57,6 +59,29 @@ __device__ __forceinline__ void mma_f16_16816(float* c, const uint32_t* a, const
 __device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
   const __half2 h = __floats2half2_rn(lo, hi);  // .x = lo in the low half
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The weight layouts the tensor-core launchers write into their workspace:
+// dst[b][i][j] = src[b][j][i] (i < cols, j < rows), else 0, bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(256) padded_transpose_kernel(const T* __restrict__ src, T* __restrict__ dst,
+                                                               int rows, int cols, int dst_rows, int dst_cols,
+                                                               size_t n) {
+  const size_t per = (size_t)dst_rows * dst_cols;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n; e += (size_t)gridDim.x * blockDim.x) {
+    const size_t b = e / per, r = e - b * per;
+    const int i = (int)(r / dst_cols), j = (int)(r - (size_t)i * dst_cols);
+    dst[e] = i < cols && j < rows ? src[(b * rows + j) * cols + i] : T(0);
+  }
+}
+
+template <typename T>
+int padded_transpose(const void* src, void* dst, int batch, int rows, int cols, int dst_rows, int dst_cols,
+                     cudaStream_t st) {
+  const size_t n = (size_t)batch * dst_rows * dst_cols, blocks = (n + 255) / 256;
+  padded_transpose_kernel<T><<<(unsigned)(blocks < 2048 ? blocks : 2048), 256, 0, st>>>(
+      static_cast<const T*>(src), static_cast<T*>(dst), rows, cols, dst_rows, dst_cols, n);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

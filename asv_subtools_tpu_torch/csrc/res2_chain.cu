@@ -40,7 +40,7 @@
 // h = 128; the 8-warp layout of halves read 0.81 against 0.67 ms).
 // What it answers to:
 //  - Weights. Each tap's weights, [h out][h in + 8] (32 KB at h = 128,
-//    rows padded by the wrapper so that ldmatrix reads without bank
+//    rows padded by the launcher so that ldmatrix reads without bank
 //    conflicts), are one cp.async.bulk into a ring of two slots on
 //    mbarriers: thread 0 requests tap q + 1 when tap q starts, once every
 //    warp has released its slot, so the weights arrive while the products
@@ -92,6 +92,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "launch_plan.h"
 #include "mma.cuh"
 
 namespace {
@@ -101,7 +102,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kFrames = 8;                   // frames per thread and pass
 constexpr int kPassRows = kWarps * kFrames;  // 64
 constexpr int kPasses = 3;                   // 192 rows per stage at most
-constexpr int kKC = 32;                      // weight rows per shared-memory chunk
+constexpr int kKC = asv_plan::kRes2KC;       // weight rows per shared-memory chunk
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -242,25 +243,9 @@ __global__ void __launch_bounds__(kThreads, 1) res2_kernel(
 
 constexpr int kTiles = 3;                           // 16-frame tiles per warp
 constexpr int kMmaRows = 16 * kTiles * 4;  // 192: 4 rows of warps x 3 tiles
-constexpr int kSlots = 2;                           // weight ring slots
-
-// Shared memory of res2_mma_kernel, in bytes from the start: the state
-// [RP][h + 8] bf16 | the weight ring, kSlots chunks [h out][h in + 8] |
-// the part [h][SP] bf16 (a stage's part, and at the start part 1's window)
-// | mbarriers (full, empty a slot).
-struct MmaLayout {
-  int ring, part, bars, total;
-};
-
-__host__ __device__ inline MmaLayout mma_layout(int h, int RP, int SP) {
-  MmaLayout l;
-  const int chunk = 2 * h * (h + 8);
-  l.ring = ((2 * RP * (h + 8) + 127) / 128) * 128;
-  l.part = l.ring + kSlots * chunk;
-  l.bars = ((l.part + 2 * h * SP + 7) / 8) * 8;
-  l.total = l.bars + 8 * 2 * kSlots;
-  return l;
-}
+constexpr int kSlots = asv_plan::kRes2Slots;        // weight ring slots
+static_assert(kMmaRows == kPasses * kPassRows && kMmaRows == asv_plan::kRes2Rows,
+              "both kernels compute the plan's rows a stage");
 
 // Channel groups of res2_mma_kernel: the output channels are split in G
 // groups and a stage's 12 frame tiles in 4 rows of 3, one warp each.
@@ -283,7 +268,7 @@ __global__ void __launch_bounds__(128 * mma_groups(NT), 1) res2_mma_kernel(
   constexpr int SA = h + 8;               // state and weight row stride (bf16)
   constexpr int kChunk = 2 * h * SA;      // bytes of one tap's weights
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const MmaLayout lay = mma_layout(h, RP, SP);
+  const asv_plan::MmaLayout lay = asv_plan::res2_mma_layout(h, RP, SP);
   bf16* sp_s = reinterpret_cast<bf16*>(smem_raw);  // [RP][SA]: row r is frame t0 - halo + r
   unsigned char* ring = smem_raw + lay.ring;
   bf16* p_s = reinterpret_cast<bf16*>(smem_raw + lay.part);  // [h][SP]: col j is frame ta + j
@@ -492,92 +477,88 @@ __global__ void __launch_bounds__(128 * mma_groups(NT), 1) res2_mma_kernel(
 
 template <int NT, bool EVEN>
 int launch_mma(const void* x, const void* wt, const void* bias, const void* bns, const void* bnt,
-               void* out, int B, int Tn, int n, int d, int TT, int tiles, int RP, int SP,
-               cudaStream_t st) {
-  const int smem = mma_layout(16 * NT, RP, SP).total;
+               void* out, int B, int Tn, int n, int d, const asv_plan::Res2Plan& p, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(res2_mma_kernel<NT, EVEN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return (int)err;
-  res2_mma_kernel<NT, EVEN><<<dim3(tiles, B), 128 * mma_groups(NT), smem, st>>>(
+  res2_mma_kernel<NT, EVEN><<<dim3(p.tiles, B), 128 * mma_groups(NT), p.smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wt),
       static_cast<const float*>(bias), static_cast<const float*>(bns),
-      static_cast<const float*>(bnt), static_cast<__nv_bfloat16*>(out), Tn, n, d, TT, RP, SP);
+      static_cast<const float*>(bnt), static_cast<__nv_bfloat16*>(out), Tn, n, d, p.tt, (int)p.rp, (int)p.sp);
   return (int)cudaGetLastError();
 }
 
+// The weights [n, 3, h in, h out] into the workspace as [n, 3, h out, h in
+// + 8] (each tap's weights one bulk copy, rows padded by 16 bytes), then the
+// kernel; bf16 x, h = 16 NT.
 template <int NT>
-int launch_mma_any(const void* x, const void* wt, const void* bias, const void* bns, const void* bnt,
-                   void* out, int B, int Tn, int n, int d, int TT, int tiles, int RP, int SP, int even,
+int launch_mma_any(const void* x, const void* w, const void* bias, const void* bns, const void* bnt,
+                   void* out, void* work, int B, int Tn, int n, int d, const asv_plan::Res2Plan& p,
                    cudaStream_t st) {
-  return even ? launch_mma<NT, true>(x, wt, bias, bns, bnt, out, B, Tn, n, d, TT, tiles, RP, SP, st)
-              : launch_mma<NT, false>(x, wt, bias, bns, bnt, out, B, Tn, n, d, TT, tiles, RP, SP, st);
+  constexpr int h = 16 * NT;
+  const int rc = padded_transpose<uint16_t>(w, work, 3 * n, h, h, h, h + 8, st);
+  if (rc != 0) return rc;
+  // the parts come as 4-byte pairs of frames where T is even and x 4-byte aligned
+  const bool even = Tn % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  return even ? launch_mma<NT, true>(x, work, bias, bns, bnt, out, B, Tn, n, d, p, st)
+              : launch_mma<NT, false>(x, work, bias, bns, bnt, out, B, Tn, n, d, p, st);
 }
 
 template <typename T, int TC>
 int launch_tc(const T* x, const T* w, const float* bias, const float* bns, const float* bnt,
-              T* out, int B, int Tn, int h, int n, int d, int TT, int tiles, int RP, int smem,
-              cudaStream_t st) {
+              T* out, int B, int Tn, int h, int n, int d, const asv_plan::Res2Plan& p, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(res2_kernel<T, TC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return (int)err;
-  res2_kernel<T, TC><<<dim3(tiles, B), kThreads, smem, st>>>(x, w, bias, bns, bnt, out, Tn, h, n,
-                                                             d, TT, RP);
+  res2_kernel<T, TC><<<dim3(p.tiles, B), kThreads, p.smem, st>>>(x, w, bias, bns, bnt, out, Tn, h, n,
+                                                                 d, p.tt, (int)p.rp);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* xv, const void* wv, const void* bias, const void* bns, const void* bnt,
-           void* outv, int B, int Tn, int h, int n, int d, int TT, int tiles, int RP, int smem,
-           cudaStream_t st) {
+           void* outv, int B, int Tn, int h, int n, int d, const asv_plan::Res2Plan& p, cudaStream_t st) {
   const T* x = static_cast<const T*>(xv);
   const T* w = static_cast<const T*>(wv);
   const float* b = static_cast<const float*>(bias);
   const float* s = static_cast<const float*>(bns);
   const float* t = static_cast<const float*>(bnt);
   T* out = static_cast<T*>(outv);
-  if (h <= 32) return launch_tc<T, 1>(x, w, b, s, t, out, B, Tn, h, n, d, TT, tiles, RP, smem, st);
-  if (h <= 64) return launch_tc<T, 2>(x, w, b, s, t, out, B, Tn, h, n, d, TT, tiles, RP, smem, st);
-  return launch_tc<T, 4>(x, w, b, s, t, out, B, Tn, h, n, d, TT, tiles, RP, smem, st);
+  if (h <= 32) return launch_tc<T, 1>(x, w, b, s, t, out, B, Tn, h, n, d, p, st);
+  if (h <= 64) return launch_tc<T, 2>(x, w, b, s, t, out, B, Tn, h, n, d, p, st);
+  return launch_tc<T, 4>(x, w, b, s, t, out, B, Tn, h, n, d, p, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x, out [B, (n+1)h, T] (bf16 when bf16 != 0, else f32); bias, bns, bnt
-// [n, h] f32. TT frames per tile, tiles = ceil(T / TT), TT + 2(n-1)d <= 192;
-// RP >= (n+1)d + 192: rows of the shared-memory state.
-// tensor == 0, the CUDA-core kernel: w [n, 3h, h] in x's type (rows:
-// tap-major, then input channel), h <= 128, smem = 4 (h RP + 32 h) bytes.
-// tensor != 0, the tensor-core kernel: bf16 only, h in {16, 32, 64, 128},
-// TT even, w [n, 3, h out, h in + 8] (zero past h in), SP >= TT + 2nd + 2
-// the row stride of its part buffer; even != 0 when T is even and x
-// 4-byte aligned; smem is its mma_layout(h, RP, SP).total.
-// Returns the first CUDA error, or 0.
+// The C interface is declared, and its arguments described, in launch_plan.h.
+int asv_res2_chain_workspace_bytes(int B, int T, int h, int n, int d, int bf16, long long* bytes) {
+  asv_plan::Res2Plan p;
+  if (!asv_plan::res2_plan(B, T, h, n, d, bf16, &p)) return (int)cudaErrorInvalidValue;
+  *bytes = (long long)p.bytes;
+  return 0;
+}
+
 int asv_res2_chain_launch(const void* x, const void* w, const void* bias, const void* bns,
-                          const void* bnt, void* out, int B, int T, int h, int n, int d, int TT,
-                          int tiles, int RP, int SP, int smem, int bf16, int tensor, int even,
-                          void* stream) {
+                          const void* bnt, void* out, void* work, int B, int T, int h, int n, int d,
+                          int bf16, int* route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  static_assert(kMmaRows == kPasses * kPassRows, "both kernels compute 192 rows a stage");
-  if (B < 1 || B > 65535 || T < 1 || h < 1 || h > 128 || n < 1 || d < 1 || TT < 1 ||
-      TT + 2 * (n - 1) * d > kPasses * kPassRows || RP < (n + 1) * d + kPasses * kPassRows ||
-      (long long)tiles * TT < T)
-    return (int)cudaErrorInvalidValue;
-  if (tensor) {
-    if (!bf16 || TT % 2 || SP < TT + 2 * n * d + 2 || smem != mma_layout(h, RP, SP).total)
-      return (int)cudaErrorInvalidValue;
+  asv_plan::Res2Plan p;
+  if (!asv_plan::res2_plan(B, T, h, n, d, bf16, &p)) return (int)cudaErrorInvalidValue;
+  if (route != nullptr) *route = p.tensor;
+  if (p.tensor) {
     switch (h) {
-      case 16: return launch_mma_any<1>(x, w, bias, bns, bnt, out, B, T, n, d, TT, tiles, RP, SP, even, st);
-      case 32: return launch_mma_any<2>(x, w, bias, bns, bnt, out, B, T, n, d, TT, tiles, RP, SP, even, st);
-      case 64: return launch_mma_any<4>(x, w, bias, bns, bnt, out, B, T, n, d, TT, tiles, RP, SP, even, st);
-      case 128: return launch_mma_any<8>(x, w, bias, bns, bnt, out, B, T, n, d, TT, tiles, RP, SP, even, st);
+      case 16: return launch_mma_any<1>(x, w, bias, bns, bnt, out, work, B, T, n, d, p, st);
+      case 32: return launch_mma_any<2>(x, w, bias, bns, bnt, out, work, B, T, n, d, p, st);
+      case 64: return launch_mma_any<4>(x, w, bias, bns, bnt, out, work, B, T, n, d, p, st);
+      case 128: return launch_mma_any<8>(x, w, bias, bns, bnt, out, work, B, T, n, d, p, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (bf16)
-    return launch<__nv_bfloat16>(x, w, bias, bns, bnt, out, B, T, h, n, d, TT, tiles, RP, smem, st);
-  return launch<float>(x, w, bias, bns, bnt, out, B, T, h, n, d, TT, tiles, RP, smem, st);
+  if (bf16) return launch<__nv_bfloat16>(x, w, bias, bns, bnt, out, B, T, h, n, d, p, st);
+  return launch<float>(x, w, bias, bns, bnt, out, B, T, h, n, d, p, st);
 }
 
 const char* asv_error_string(int code) {

@@ -23,7 +23,7 @@
 // The ring kernel (x aligned to 16 bytes: the served shapes). The TPU
 // kernel walks T in a sequential grid and accumulates into its output
 // block; a grid of short-lived blocks on this card pays its fill and drain
-// for every 64 KB. Here the grid is persistent (the wrapper passes two
+// for every 64 KB. Here the grid is persistent (the launcher takes two
 // blocks for each SM) and each block walks its items in a loop. One
 // producer warp copies an item's rows, 32 at a time, into a ring of
 // shared-memory stages with cp.async.bulk (each lane one row of 512 bytes,
@@ -54,6 +54,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "launch_plan.h"
 
 namespace {
 
@@ -61,7 +62,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;  // frames in flight per warp (direct kernel)
 
-constexpr int kRingRows = 32;                           // rows per stage: one per producer lane
+constexpr int kRingRows = asv_plan::kStatsRingRows;    // rows per stage: one per producer lane
+static_assert(kRingRows == 32, "a stage's rows are the producer warp's lanes and its ballot's bits");
 constexpr int kRowBytes = 512;                          // 32 lanes x 16 bytes
 constexpr int kStageBytes = kRingRows * kRowBytes;      // 16 KB
 constexpr int kStages = 5;
@@ -456,50 +458,52 @@ int launch_ring(const void* xv, const void* maskv, float* part, float* cnt, floa
   return launch_combine(part, cnt, out, B, D, splits, eps, stream);
 }
 
+// The plan of a call on the current device, whose SM count sizes the ring
+// kernel's grid (0 where the query fails: the ring launch then refuses).
+bool plan_call(const void* x, long long sb, long long st, int B, int T, int D, int bf16, int route,
+               asv_plan::StatsPlan* p) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return asv_plan::stats_plan(reinterpret_cast<uintptr_t>(x), bf16 ? 2 : 4, sb, st, B, T, D, route, sms, p);
+}
+
 }  // namespace
 
 extern "C" {
 
-// x [B, T, D] with element strides sb (batch), st (time) and 1 (feature),
-// bf16 when bf16 != 0, else f32; mask [B, T] one byte a frame (0 = masked)
-// or null; out [B, 2D] f32. Span s of a row covers frames
-// [s * span_rows, min(T, (s + 1) * span_rows)). part is scratch of
-// B * splits * (3 * D + 1) floats (unused when splits == 1).
-// vec: features per load, 1 or 16 bytes' worth (4 f32, 8 bf16).
-// ring != 0 runs the ring kernel on `blocks` persistent blocks: it needs
-// vec of 16 bytes' worth, D, sb and st multiples of it, x aligned to 16
-// bytes and span_rows a multiple of 32 (the caller checks). Otherwise the
-// direct kernel runs, one block an item. Returns the first CUDA error, or 0.
-int asv_stats_pool_launch(const void* x, const void* mask, void* part, void* out, long long sb,
-                          long long st, int B, int T, int D, int splits, int span_rows, int vec,
-                          int bf16, int ring, int blocks, float eps, void* stream) {
+// The C interface is declared, and its arguments described, in launch_plan.h.
+int asv_stats_pool_workspace_bytes(const void* x, long long sb, long long st, int B, int T, int D, int bf16,
+                                   int route, long long* bytes) {
+  asv_plan::StatsPlan p;
+  if (!plan_call(x, sb, st, B, T, D, bf16, route, &p)) return (int)cudaErrorInvalidValue;
+  *bytes = (long long)p.bytes;
+  return 0;
+}
+
+int asv_stats_pool_launch(const void* mask, void* out, void* work, const void* x, long long sb, long long st,
+                          int B, int T, int D, int bf16, int route, float eps, int* taken, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || splits < 1 || span_rows < 1 || T < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  float* p = static_cast<float*>(part);
-  float* cnt = p == nullptr ? nullptr : p + (size_t)B * splits * 3 * D;
+  asv_plan::StatsPlan p;
+  if (!plan_call(x, sb, st, B, T, D, bf16, route, &p)) return (int)cudaErrorInvalidValue;
+  if (taken != nullptr) *taken = p.ring;
+  const int splits = p.splits, span_rows = p.span_rows;
+  float* part = static_cast<float*>(work);
+  float* cnt = splits > 1 ? part + (size_t)B * splits * 3 * D : nullptr;
   float* o = static_cast<float*>(out);
-  if (ring) {
-    if (span_rows % kRingRows != 0) return (int)cudaErrorInvalidValue;
-    if (bf16 && vec == 8)
-      return launch_ring<__nv_bfloat16, 8>(x, mask, p, cnt, o, sb, st, B, T, D, splits, span_rows,
-                                           blocks, eps, s);
-    if (!bf16 && vec == 4)
-      return launch_ring<float, 4>(x, mask, p, cnt, o, sb, st, B, T, D, splits, span_rows, blocks,
-                                   eps, s);
-    return (int)cudaErrorInvalidValue;
+  if (p.ring) {
+    if (bf16)
+      return launch_ring<__nv_bfloat16, 8>(x, mask, part, cnt, o, sb, st, B, T, D, splits, span_rows, p.blocks,
+                                           eps, s);
+    return launch_ring<float, 4>(x, mask, part, cnt, o, sb, st, B, T, D, splits, span_rows, p.blocks, eps, s);
   }
   if (bf16) {
-    if (vec == 8)
-      return launch_direct<__nv_bfloat16, 8>(x, mask, p, cnt, o, sb, st, B, T, D, splits, span_rows, eps, s);
-    if (vec == 1)
-      return launch_direct<__nv_bfloat16, 1>(x, mask, p, cnt, o, sb, st, B, T, D, splits, span_rows, eps, s);
-  } else {
-    if (vec == 4)
-      return launch_direct<float, 4>(x, mask, p, cnt, o, sb, st, B, T, D, splits, span_rows, eps, s);
-    if (vec == 1)
-      return launch_direct<float, 1>(x, mask, p, cnt, o, sb, st, B, T, D, splits, span_rows, eps, s);
+    if (p.vec == 8)
+      return launch_direct<__nv_bfloat16, 8>(x, mask, part, cnt, o, sb, st, B, T, D, splits, span_rows, eps, s);
+    return launch_direct<__nv_bfloat16, 1>(x, mask, part, cnt, o, sb, st, B, T, D, splits, span_rows, eps, s);
   }
-  return (int)cudaErrorInvalidValue;
+  if (p.vec == 4)
+    return launch_direct<float, 4>(x, mask, part, cnt, o, sb, st, B, T, D, splits, span_rows, eps, s);
+  return launch_direct<float, 1>(x, mask, part, cnt, o, sb, st, B, T, D, splits, span_rows, eps, s);
 }
 
 const char* asv_error_string(int code) {

@@ -44,6 +44,7 @@ from .functional import check_extraction_options, cmvn_utterance, dft_matrices, 
 _CHUNK = 16      # folded-matrix rows per shared-memory chunk of the CUDA-core kernel in csrc/fbank.cu
 _MMA_CHUNK = 32  # rows per ring stage of the tensor-core kernel (kKC there)
 _SIGNATURES = {
+    "asv_smem_limit": ([], ctypes.c_int),
     "asv_fbank_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_size_t),
     "asv_fbank_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
                          ctypes.c_int),
@@ -219,8 +220,9 @@ def _launch_kernel(wave, opts, bf16, with_energy, t):
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     window_pad = -(-fo.window_size // _MMA_CHUNK) * _MMA_CHUNK
+    limit = lib.asv_smem_limit()
     if (bf16 and fo.window_shift % 8 == 0
-            and lib.asv_fbank_mma_smem_bytes(fo.window_shift, window_pad, nb, nnz) <= _build.SMEM_LIMIT):
+            and lib.asv_fbank_mma_smem_bytes(fo.window_shift, window_pad, nb, nnz) <= limit):
         # rows of the waveform start on 16-byte boundaries: the kernel brings
         # a tile's samples in with one bulk copy
         if s % 4:
@@ -237,8 +239,8 @@ def _launch_kernel(wave, opts, bf16, with_energy, t):
         if fo.window_shift % 4:
             raise ValueError(f"the fbank kernel needs a frame shift that is a multiple of 4, got {fo.window_shift}")
         smem = lib.asv_fbank_smem_bytes(fo.window_shift, eff.shape[0], nb, nnz)
-        if smem > _build.SMEM_LIMIT:
-            raise ValueError(f"frame geometry needs {smem} bytes of shared memory, above {_build.SMEM_LIMIT}")
+        if smem > limit:
+            raise ValueError(f"frame geometry needs {smem} bytes of shared memory, above {limit}")
         with torch.cuda.device(dev):
             code = lib.asv_fbank_launch(
                 wave.data_ptr(), eff.data_ptr(), meta.data_ptr(), weights.data_ptr(), *tail,

@@ -4,14 +4,16 @@ Each source ``asv_subtools_tpu_torch/csrc/<name>.cu`` has a plain C
 interface. It is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``asv_subtools_tpu_torch/build/lib<name>.so`` (listed in ``.gitignore``)
 and loaded with ``ctypes``. A library is rebuilt when its source, or a
-shared header (``csrc/*.cuh``), is newer than it. Every launch function
-returns ``cudaGetLastError()``; the wrappers pass it to :func:`check`,
-which raises if it is not 0.
+shared header (``csrc/*.cuh``, ``csrc/*.h``), is newer than it. Every
+launch function returns ``cudaGetLastError()``; the wrappers pass it to
+:func:`check`, which raises if it is not 0. K2-K4's launchers plan their
+own launches from ``csrc/launch_plan.h``.
 
-The native host front end (``runtime/capi.cc`` over
-``runtime/frontend/feature.cc``) is built here too, by :func:`build_capi`:
-plain ``c++`` with the flags of ``runtime/CMakeLists.txt``, into
-``build/libasvtpu_capi.so``. It is host code and needs no CUDA.
+Host libraries are built by :func:`build_host`: plain ``c++`` with the
+flags of ``runtime/CMakeLists.txt``, no CUDA. It builds the native front
+end (``runtime/capi.cc`` over ``runtime/frontend/feature.cc``) into
+``build/libasvtpu_capi.so`` (:func:`build_capi`), and the CPU tests' host
+library over ``csrc/launch_plan.h``.
 
 The native runtime (``asv_subtools_tpu_torch/runtime``: the bundle loader,
 the CudaExecutor, the kernels' op registrations and the two binaries
@@ -40,10 +42,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("fbank", "att_pooling", "res2_chain", "stats_pooling", "rel_attention")
-SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "--expt-relaxed-constexpr",
 )
 
 RUNTIME = _PKG.parent / "runtime"
@@ -69,11 +70,19 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def _older(out: Path, deps) -> bool:
+    """Whether ``out`` is missing or older than one of ``deps``."""
+    return not out.exists() or out.stat().st_mtime < max(f.stat().st_mtime for f in deps)
+
+
+def _headers() -> list:
+    """The headers every kernel source may include."""
+    return [*CSRC.glob("*.cuh"), *CSRC.glob("*.h")]
+
+
 def _stale(name: str) -> bool:
     """A library is stale when its source, or any shared header, is newer."""
-    lib = _lib_path(name)
-    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
-    return not lib.exists() or lib.stat().st_mtime < max(f.stat().st_mtime for f in sources)
+    return _older(_lib_path(name), [CSRC / f"{name}.cu", *_headers()])
 
 
 def build(names: Sequence[str] = SOURCES) -> float:
@@ -86,21 +95,11 @@ def build(names: Sequence[str] = SOURCES) -> float:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    procs = []
+    jobs = []
     for name in todo:
-        tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for name, tmp, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{out}")
-            continue
-        os.replace(tmp, _lib_path(name))
-    if failed:
-        raise RuntimeError("\n".join(failed))
+        tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.{threading.get_ident()}.tmp"
+        jobs.append(([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")], tmp, _lib_path(name)))
+    _run_all(jobs, "nvcc")
     return time.perf_counter() - t0
 
 
@@ -137,35 +136,57 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def _capi_stale(lib: Path) -> bool:
-    sources = [RUNTIME / f for f in CAPI_SOURCES] + list((RUNTIME / "frontend").glob("*.h"))
-    return not lib.exists() or lib.stat().st_mtime < max(f.stat().st_mtime for f in sources)
+def planned_launch(lib: ctypes.CDLL, prefix: str, device, pointers: tuple, facts: tuple, what: str,
+                   tail: tuple = ()) -> int:
+    """One launch of K2, K3 or K4 (``csrc/launch_plan.h``): the workspace
+    ``<prefix>_workspace_bytes(*facts)`` asks for (ValueError where no plan
+    takes the call), then ``<prefix>_launch(*pointers, workspace, *facts,
+    *tail, &route, stream)`` on the device's current stream. Raises on its
+    code; returns the route it took."""
+    import torch
+
+    need, route = ctypes.c_longlong(), ctypes.c_int()
+    with torch.cuda.device(device):
+        if getattr(lib, f"{prefix}_workspace_bytes")(*facts, ctypes.byref(need)):
+            raise ValueError(f"no plan of the {what} takes this call {facts} (csrc/launch_plan.h)")
+        work = torch.empty(need.value, dtype=torch.uint8, device=device)
+        code = getattr(lib, f"{prefix}_launch")(*pointers, work.data_ptr(), *facts, *tail, ctypes.byref(route),
+                                                 torch.cuda.current_stream(device).cuda_stream)
+    check(lib, code, what)
+    return route.value
 
 
-def build_capi(lib: Optional[Path] = None) -> float:
-    """Compile ``libasvtpu_capi.so`` (the native host front end) with
-    ``c++`` into ``lib`` (default ``CAPI_LIB``) when it is missing or
-    older than a source or a header of ``runtime/frontend/``. The library
-    is written under a temporary name and renamed, so concurrent builders
-    never load a half-written file (the name holds the process and the
-    thread). Returns the seconds spent; raises with
-    the compiler's output if the compiler is missing or the build fails."""
-    lib = Path(lib) if lib is not None else CAPI_LIB
-    if not _capi_stale(lib):
+def build_host(lib: Path, sources: Sequence[Path], include: Path, headers: Sequence[Path]) -> float:
+    """Compile host C++ ``sources`` (``-I include``) with ``c++`` into the
+    shared library ``lib`` when it is missing or older than a source or one
+    of ``headers``. The library is written under a temporary name and
+    renamed, so concurrent builders never load a half-written file (the
+    name holds the process and the thread). Returns the seconds spent;
+    raises with the compiler's output if the compiler is missing or the
+    build fails."""
+    if not _older(lib, [*sources, *headers]):
         return 0.0
     cxx = shutil.which(os.environ.get("CXX", "c++"))
     if cxx is None:
-        raise RuntimeError("no C++ compiler (c++) on PATH: the native host front end cannot be built")
+        raise RuntimeError(f"no C++ compiler (c++) on PATH: {lib.name} cannot be built")
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.parent / f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [cxx, *CXX_FLAGS, "-I", str(RUNTIME), "-o", str(tmp), *(str(RUNTIME / f) for f in CAPI_SOURCES)]
+    cmd = [cxx, *CXX_FLAGS, "-I", str(include), "-o", str(tmp), *map(str, sources)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building the native front end failed ({' '.join(cmd)}):\n{proc.stdout}")
+        raise RuntimeError(f"building {lib.name} failed ({' '.join(cmd)}):\n{proc.stdout}")
     os.replace(tmp, lib)
     return time.perf_counter() - t0
+
+
+def build_capi(lib: Optional[Path] = None) -> float:
+    """Build ``libasvtpu_capi.so``, the native host front end, into ``lib``
+    (default ``CAPI_LIB``): :func:`build_host` over ``runtime/capi.cc`` and
+    ``runtime/frontend/``."""
+    return build_host(Path(lib) if lib is not None else CAPI_LIB, [RUNTIME / f for f in CAPI_SOURCES], RUNTIME,
+                      list((RUNTIME / "frontend").glob("*.h")))
 
 
 RUNTIME_SRC = _PKG / "runtime"
@@ -242,7 +263,8 @@ def _run_all(jobs, what: str) -> None:
 def build_runtime(out_dir: Optional[Path] = None, ops: bool = True) -> float:
     """Build the native runtime's two binaries into ``out_dir`` (default
     ``build/runtime/``) when they are missing, older than a source or a
-    header (``runtime/frontend/`` and ``runtime/utils/`` included), or were
+    header (``runtime/frontend/``, ``runtime/utils/`` and the kernels'
+    headers, ``csrc/launch_plan.h`` among them, included), or were
     built by another torch or variant. Every translation unit compiles at
     once, one ``c++`` each; objects and binaries are written under
     temporary names and renamed. The CUDA variant (:func:`runtime_has_cuda`)
@@ -259,11 +281,11 @@ def build_runtime(out_dir: Optional[Path] = None, ops: bool = True) -> float:
     stamp_file = out / "BUILD_STAMP"
     binaries = [runtime_binary(name, out) for name in RUNTIME_BINARIES]
     sources = list(_RUNTIME_UNITS.values()) + [*RUNTIME_SRC.glob("*.h"), *(RUNTIME / "frontend").glob("*.h"),
-                                               *(RUNTIME / "utils").glob("*.h")]
+                                               *(RUNTIME / "utils").glob("*.h"), *_headers()]
     libs = [_lib_path(name) for name in _OP_KERNELS] if cuda and ops else []
-    fresh = (all(b.exists() for b in binaries) and stamp_file.exists() and stamp_file.read_text() == stamp
+    fresh = (stamp_file.exists() and stamp_file.read_text() == stamp
              and not any(_stale(name) for name in (_OP_KERNELS if libs else ()))
-             and min(b.stat().st_mtime for b in binaries) >= max(f.stat().st_mtime for f in sources + libs))
+             and not any(_older(b, sources + libs) for b in binaries))
     if fresh:
         return 0.0
     cxx = shutil.which(os.environ.get("CXX", "c++"))
@@ -276,7 +298,7 @@ def build_runtime(out_dir: Optional[Path] = None, ops: bool = True) -> float:
     stamp_file.unlink(missing_ok=True)
     torch_lib = Path(torch.__file__).resolve().parent / "lib"
     flags = ["-std=c++17", "-O2", "-fPIC", f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
-             "-I", str(RUNTIME), "-I", str(RUNTIME_SRC)]
+             "-I", str(RUNTIME), "-I", str(RUNTIME_SRC), "-I", str(CSRC)]
     for inc in cpp_extension.include_paths():
         flags += ["-isystem", inc]
     if cuda:

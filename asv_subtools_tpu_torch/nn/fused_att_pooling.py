@@ -13,8 +13,9 @@ clamps the logits at 80 instead, which agrees wherever they stay below 80.
 On the card bf16 x runs the products on the tensor cores
 ("tensor_core"), f32 x on the CUDA cores in true f32 ("cuda_core");
 ``fused_attentive_stats_pool.last_route`` names the route of the last
-launch. On CPU tensors the wrapper runs the plain version; on CUDA
-tensors it launches the kernel or raises.
+launch; the launcher chooses and plans (csrc/launch_plan.h). On CPU
+tensors the wrapper runs the plain version; on CUDA tensors it launches
+the kernel (through its custom op while torch.export traces) or raises.
 """
 
 from __future__ import annotations
@@ -26,12 +27,10 @@ import torch
 
 from ..kernels import _build
 
-_T_TILE = 64  # frames per attend block in csrc/att_pooling.cu, both kernels
-_MAX_K = 256
-_CA, _CB = 64, 128  # channels a chunk of the tensor-core kernel's first and second product
 _SIGNATURES = {
-    "asv_att_pool_launch": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-                            ctypes.c_int),
+    "asv_att_pool_workspace_bytes": ([ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)], ctypes.c_int),
+    "asv_att_pool_launch": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int),
+                                                                            ctypes.c_void_p], ctypes.c_int),
 }
 
 
@@ -61,19 +60,6 @@ def fused_attentive_stats_pool_plain(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, 
     return torch.cat([mean_w, torch.sqrt(torch.clamp_min(var_w, 1e-5))], dim=-1)
 
 
-def tensor_core_weights(wx, w2):
-    """(Wx^T [KP, 64 ceil(C/64)], W2^T [128 ceil(C/128), KP]) as the
-    tensor-core kernel streams them: transposed and zero-padded to whole
-    chunks, KP = 128 for K <= 128 else 256."""
-    c, k = wx.shape
-    kp = 128 if k <= 128 else 256
-    wxt = wx.new_zeros((kp, -(-c // _CA) * _CA))
-    wxt[:k, :c] = wx.t()
-    w2t = w2.new_zeros((-(-c // _CB) * _CB, kp))
-    w2t[:c, :k] = w2.t()
-    return wxt, w2t
-
-
 def _launch_kernel(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask):
     b, t, c = x.shape
     k = wx.shape[1]
@@ -85,10 +71,7 @@ def _launch_kernel(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask):
     if tuple(wx.shape) != (c, k) or tuple(wm.shape) != (c, k) or tuple(ws.shape) != (c, k) \
             or tuple(w2.shape) != (k, c):
         raise ValueError("weights must be wx, wm, ws [C, K] and w2 [K, C]")
-    if k > _MAX_K:
-        raise ValueError(f"bottleneck {k} above the kernel's limit {_MAX_K}")
     dev = x.device
-    f32 = torch.float32
     # [B, C, T] time-contiguous: free when x is a transposed view of the
     # model's [B, C, T] activations
     xt = x.transpose(1, 2).contiguous()
@@ -98,32 +81,14 @@ def _launch_kernel(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask):
         m = mask.to(device=dev).contiguous().view(torch.uint8)
     else:
         m = mask.to(device=dev, dtype=torch.uint8).contiguous()
-    vecs = [v.to(device=dev, dtype=f32).contiguous() for v in (b1, bn_scale, bn_shift, b2)]
-    tensor = x.dtype == torch.bfloat16
-    wts = [w.contiguous() for w in (wx, wm, ws, w2)]
-    if tensor:
-        wts[0], wts[3] = tensor_core_weights(wx, w2)
-    # the tensor-core kernel brings frame pairs by 4-byte copies where it can
-    even = t % 2 == 0 and xt.data_ptr() % 4 == 0
-    n_tiles = -(-t // _T_TILE)
-    stats = torch.empty((b, 2, c), dtype=f32, device=dev)
-    glob = torch.empty((4, b, k), dtype=f32, device=dev)  # four partial sums
-    part = torch.empty((b, n_tiles, 4, c), dtype=f32, device=dev)
-    out = torch.empty((b, 2 * c), dtype=f32, device=dev)
-    lib = _build.load("att_pooling", _SIGNATURES)
-    with torch.cuda.device(dev):
-        code = lib.asv_att_pool_launch(
-            xt.data_ptr(), None if m is None else m.data_ptr(),
-            wts[0].data_ptr(), wts[1].data_ptr(), wts[2].data_ptr(),
-            vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(),
-            wts[3].data_ptr(), vecs[3].data_ptr(),
-            stats.data_ptr(), glob.data_ptr(), part.data_ptr(), out.data_ptr(),
-            b, c, t, k, int(tensor), int(even),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(lib, code, "attentive pooling kernel")
+    f32 = [v.to(device=dev, dtype=torch.float32).contiguous() for v in (b1, bn_scale, bn_shift, b2)]
+    out = torch.empty((b, 2 * c), dtype=torch.float32, device=dev)
+    args = [wx.contiguous(), wm.contiguous(), ws.contiguous(), *f32[:3], w2.contiguous(), f32[3], out]
+    route = _build.planned_launch(_build.load("att_pooling", _SIGNATURES), "asv_att_pool", dev,
+                                  (xt.data_ptr(), None if m is None else m.data_ptr(), *(a.data_ptr() for a in args)),
+                                  (b, c, t, k, int(x.dtype == torch.bfloat16)), "attentive pooling kernel")
     fused_attentive_stats_pool.launches += 1
-    fused_attentive_stats_pool.last_route = "tensor_core" if tensor else "cuda_core"
+    fused_attentive_stats_pool.last_route = "tensor_core" if route else "cuda_core"
     return out
 
 
@@ -156,7 +121,9 @@ def fused_attentive_stats_pool(
         return fused_attentive_stats_pool_plain(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask)
     if x.device.type != "cuda":
         raise ValueError(f"fused_attentive_stats_pool runs on cpu or cuda tensors, got {x.device}")
-    return fused_attentive_stats_pool_op(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask)
+    if torch.compiler.is_compiling():  # traced (torch.export): one node of the graph
+        return fused_attentive_stats_pool_op(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask)
+    return _launch_kernel(x, wx, wm, ws, b1, bn_scale, bn_shift, w2, b2, mask)
 
 
 fused_attentive_stats_pool.launches = 0
@@ -166,7 +133,8 @@ fused_attentive_stats_pool.last_route = None
 # The kernel as a custom op, so that torch.export keeps it as one node of
 # an exported program (the ctypes launch reads data pointers, which a
 # tracer's fake tensors do not have): its CUDA implementation launches the
-# kernel, its CPU implementation is the plain version.
+# kernel, its CPU implementation is the plain version. Eager calls launch
+# directly: a custom op's first dispatch imports torch._dynamo and sympy.
 @torch.library.custom_op("asv_subtools_tpu_torch::fused_attentive_stats_pool", mutates_args=(),
                          device_types="cuda")
 def fused_attentive_stats_pool_op(x: torch.Tensor, wx: torch.Tensor, wm: torch.Tensor, ws: torch.Tensor,

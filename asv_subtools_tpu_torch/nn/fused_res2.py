@@ -15,10 +15,11 @@ in x's type. With f32 x everything stays f32. Unlike the TPU kernel, h
 need not be a multiple of 128 and T has no limit. On the card bf16 x with
 h in {16, 32, 64, 128} runs on the tensor cores (where its shared memory
 fits: at h = 128 up to dilation 14); f32 x and other widths up to 128 run
-on the CUDA cores.
+on the CUDA cores. The launcher chooses and plans (csrc/launch_plan.h).
 
 On CPU tensors the wrapper runs the plain version; on CUDA tensors it
-launches the kernel or raises.
+launches the kernel (through its custom op while torch.export traces) or
+raises.
 """
 
 from __future__ import annotations
@@ -30,14 +31,10 @@ import torch.nn.functional as F
 
 from ..kernels import _build
 
-_ROWS = 192    # frames one block computes per stage in csrc/res2_chain.cu
-_KC = 32       # weight rows per shared-memory chunk of the CUDA-core kernel
-_MAX_H = 128   # a thread's output channels stay in registers up to here
-_TENSOR_H = (16, 32, 64, 128)  # widths of the bf16 tensor-core kernel
-_SLOTS = 2     # weight ring slots of the tensor-core kernel
 _SIGNATURES = {
-    "asv_res2_chain_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
-                              ctypes.c_int),
+    "asv_res2_chain_workspace_bytes": ([ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)], ctypes.c_int),
+    "asv_res2_chain_launch": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int),
+                                                                            ctypes.c_void_p], ctypes.c_int),
 }
 
 
@@ -75,84 +72,25 @@ def fused_res2_chain_plain(x, w, b, bn_scale, bn_shift, dilation: int = 1):
     return torch.cat(outs, dim=-1)
 
 
-def tile_plan(t: int, n_stages: int, dilation: int):
-    """(frames per tile, tiles, row stride of the CUDA-core kernel's
-    shared-memory state).
-
-    A tile of TT output frames starts from input frames
-    [t0 - n*d, t0 + TT + n*d) and recomputes the halo; stage 0 computes
-    TT + 2*(n-1)*d frames, which must fit the block's 192 rows. TT is even,
-    so that every tile starts on an even frame (4-byte pairs of bf16)."""
-    max_tt = _ROWS - 2 * (n_stages - 1) * dilation  # even
-    if max_tt < 16:
-        raise ValueError(f"dilation {dilation} with {n_stages} stages leaves no room for a tile "
-                         f"in the kernel's {_ROWS} rows")
-    tiles = -(-t // max_tt)
-    tt = -(-t // tiles)
-    tt += tt % 2
-    rp = ((n_stages + 1) * dilation + _ROWS) | 1  # odd: conflict-free column writes
-    return tt, tiles, rp
-
-
-def tensor_core_plan(t: int, h: int, n_stages: int, dilation: int):
-    """(TT, tiles, state rows, part row stride SP, shared-memory bytes) of
-    the tensor-core kernel (csrc/res2_chain.cu `mma_layout`).
-
-    The part buffer holds a channel's frames [ta, ta + SP) from an even ta:
-    the window of TT + 2*n*d frames and one more for the even start, and one
-    spare; SP = 8 (mod 64) puts the fragments' 2-byte accesses on 32 banks."""
-    tt, tiles, _ = tile_plan(t, n_stages, dilation)
-    rows = (n_stages + 1) * dilation + _ROWS
-    need = tt + 2 * n_stages * dilation + 2
-    sp = need + (8 - need) % 64
-    ring = -(-2 * rows * (h + 8) // 128) * 128
-    part = ring + _SLOTS * 2 * h * (h + 8)
-    bars = -(-(part + 2 * h * sp) // 8) * 8
-    return tt, tiles, rows, sp, bars + 8 * 2 * _SLOTS
-
-
 def _launch_kernel(x, w, b, bn_scale, bn_shift, dilation):
     n, h = _check_geometry(x, w, b, bn_scale, bn_shift, dilation)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     if w.dtype != x.dtype:
         raise ValueError(f"w must have x's type {x.dtype}, got {w.dtype}")
-    if h > _MAX_H:
-        raise ValueError(f"hidden width {h} above the kernel's limit {_MAX_H}")
-    bsz, t, c = x.shape
-    if bsz > 65535:
-        raise ValueError(f"batch {bsz} above the kernel's limit 65535")
-    tensor = x.dtype == torch.bfloat16 and h in _TENSOR_H
-    if tensor:
-        tt, tiles, rp, sp, smem = tensor_core_plan(t, h, n, dilation)
-        tensor = smem <= _build.SMEM_LIMIT
-    if tensor:
-        # [n, 3, h out, h in + 8]: each tap's weights one bulk copy, rows
-        # padded by 16 bytes
-        wc = F.pad(w.permute(0, 1, 3, 2), (0, 8)).contiguous()
-    else:  # the CUDA-core kernel: the f32 state [h][rp] and a chunk of weights
-        tt, tiles, rp = tile_plan(t, n, dilation)
-        sp, smem = 0, 4 * (h * rp + _KC * h)
-        wc = w.contiguous()
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"hidden width {h} at dilation {dilation} needs {smem} bytes of shared memory")
     dev = x.device
     # [B, C, T] time-contiguous: free when x is a transposed view of the
     # model's [B, C, T] activations
     xt = x.transpose(1, 2).contiguous()
     out = torch.empty_like(xt)
-    even = t % 2 == 0 and xt.data_ptr() % 4 == 0  # the parts come as 4-byte pairs of frames
-    vecs = [v.to(device=dev, dtype=torch.float32).contiguous() for v in (b, bn_scale, bn_shift)]
-    lib = _build.load("res2_chain", _SIGNATURES)
-    with torch.cuda.device(dev):
-        code = lib.asv_res2_chain_launch(
-            xt.data_ptr(), wc.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), vecs[2].data_ptr(),
-            out.data_ptr(), bsz, t, h, n, dilation, tt, tiles, rp, sp, smem,
-            int(x.dtype == torch.bfloat16), int(tensor), int(even), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(lib, code, "res2 chain kernel")
+    args = [xt, w.contiguous(), *(v.to(device=dev, dtype=torch.float32).contiguous() for v in (b, bn_scale, bn_shift)),
+            out]
+    route = _build.planned_launch(_build.load("res2_chain", _SIGNATURES), "asv_res2_chain", dev,
+                                  tuple(a.data_ptr() for a in args),
+                                  (x.shape[0], x.shape[1], h, n, dilation, int(x.dtype == torch.bfloat16)),
+                                  "res2 chain kernel")
     fused_res2_chain.launches += 1
-    fused_res2_chain.last_route = "tensor_core" if tensor else "cuda_core"
+    fused_res2_chain.last_route = "tensor_core" if route else "cuda_core"
     return out.transpose(1, 2)
 
 
@@ -180,13 +118,16 @@ def fused_res2_chain(
         return fused_res2_chain_plain(x, w, b, bn_scale, bn_shift, dilation)
     if x.device.type != "cuda":
         raise ValueError(f"fused_res2_chain runs on cpu or cuda tensors, got {x.device}")
-    return fused_res2_chain_op(x, w, b, bn_scale, bn_shift, dilation)
+    if torch.compiler.is_compiling():  # traced (torch.export): one node of the graph
+        return fused_res2_chain_op(x, w, b, bn_scale, bn_shift, dilation)
+    return _launch_kernel(x, w, b, bn_scale, bn_shift, dilation)
 
 
 # The kernel as a custom op, so that torch.export keeps it as one node of
 # an exported program (the ctypes launch reads data pointers, which a
 # tracer's fake tensors do not have): its CUDA implementation launches the
-# kernel, its CPU implementation is the plain version.
+# kernel, its CPU implementation is the plain version. Eager calls launch
+# directly: a custom op's first dispatch imports torch._dynamo and sympy.
 @torch.library.custom_op("asv_subtools_tpu_torch::fused_res2_chain", mutates_args=(), device_types="cuda")
 def fused_res2_chain_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, bn_scale: torch.Tensor,
                         bn_shift: torch.Tensor, dilation: int) -> torch.Tensor:

@@ -4411,21 +4411,22 @@ _OP_MODULES = {"fused_attentive_stats_pool": "asv_subtools_tpu_torch.nn.fused_at
 
 
 def _served_op_calls(torch, run) -> list:
-    """(op name, its arguments) of every custom-op call that ``run()``
-    makes: the main path's own arguments, views included."""
+    """(op name, its arguments) of every kernel launch that ``run()``
+    makes through a custom op's wrapper (eager calls launch directly, with
+    the op's arguments): the main path's own arguments, views included."""
     import importlib
 
     calls, saved = [], []
     for name, module in _OP_MODULES.items():
         mod = importlib.import_module(module)
-        op = getattr(mod, f"{name}_op")
-        saved.append((mod, f"{name}_op", op))
+        launch = mod._launch_kernel
+        saved.append((mod, "_launch_kernel", launch))
 
-        def record(*args, _name=name, _op=op):
+        def record(*args, _name=name, _launch=launch):
             calls.append((_name, args))
-            return _op(*args)
+            return _launch(*args)
 
-        setattr(mod, f"{name}_op", record)
+        setattr(mod, "_launch_kernel", record)
     try:
         with torch.no_grad():
             run()

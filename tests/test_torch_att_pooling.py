@@ -20,8 +20,8 @@ from asv_subtools_tpu.models.ecapa import EcapaAttentiveStatsPool as JaxPool
 from asv_subtools_tpu.nn.pallas_att_pooling import fused_attentive_stats_pool as jax_fused
 from asv_subtools_tpu_torch.models import EcapaAttentiveStatsPool
 from asv_subtools_tpu_torch.nn import fused_attentive_stats_pool, fused_attentive_stats_pool_plain
-from asv_subtools_tpu_torch.nn.fused_att_pooling import _T_TILE, tensor_core_weights
 from asv_subtools_tpu_torch.weights import load_ecapa_variables
+from kernel_plans import att_plan
 
 torch.set_num_threads(2)
 
@@ -160,8 +160,9 @@ def test_wrapper_checks_shapes():
 
 
 def _tiled_pool(x, mask, port, tile):
-    """The tensor-core kernel's scheme in numpy, f32: the weights as
-    `tensor_core_weights` pads them, tiles of `tile` frames, per tile and
+    """The tensor-core kernel's scheme in numpy, f32: the weights
+    transposed and zero-padded to the launcher's plan (csrc/launch_plan.h,
+    through tests/kernel_plans.py), tiles of `tile` frames, per tile and
     channel the partials (max, sum e, sum e x, sum e x^2) of a softmax taken
     in base 2 over the tile's valid frames (a tile without one: max -inf),
     merged as `combine_kernel` merges them."""
@@ -171,10 +172,16 @@ def _tiled_pool(x, mask, port, tile):
         kern = port.att1.kernel[0]
         wx, wm, ws = (kern[i * c:(i + 1) * c].numpy() for i in range(3))
         w2 = port.att2.weight[..., 0].t()
-        wxt, w2t = (a.numpy() for a in tensor_core_weights(kern[:c], w2))
+        w2 = w2.numpy()
         bn_s, bn_t = (v.numpy() for v in port.att_bn.folded())
         b1, b2 = port.att1.bias.numpy(), port.att2.bias.numpy()
-    k, kp = wx.shape[1], wxt.shape[0]
+    k = wx.shape[1]
+    _, plan = att_plan(b, c, t, k, bf16=True)
+    kp = plan["kp"]
+    wxt = np.zeros((kp, plan["wxt_cols"]), np.float32)
+    wxt[:k, :c] = wx.T
+    w2t = np.zeros((plan["w2t_rows"], kp), np.float32)
+    w2t[:c, :k] = w2.T
     assert wxt.shape[1] % 64 == 0 and w2t.shape[0] % 128 == 0 and not wxt[k:].any() and not w2t[c:].any()
     mf = m.astype(np.float32)[..., None]
     cnt = np.maximum(mf.sum(1), 1.0)
@@ -215,7 +222,9 @@ TILE_CASES = {
 }
 
 
-@pytest.mark.parametrize("tile", [_T_TILE, 37])  # the kernels' tile, and a ragged one: the merge holds for any
+# the kernels' tile (pinned by test_plan_at_the_cells_shapes), and a ragged
+# one: the merge holds for any
+@pytest.mark.parametrize("tile", [64, 37])
 @pytest.mark.parametrize("case", list(TILE_CASES))
 def test_tensor_core_plan_matches_plain(case, tile):
     b, t, c, k, lengths, scale = TILE_CASES[case]
@@ -227,3 +236,26 @@ def test_tensor_core_plan_matches_plain(case, tile):
     xla, _ = _jax_refs(x, mask, v, k, with_kernel=False)
     if lengths is None or min(lengths) > 0:  # the XLA path gives NaN for a row without valid frames
         np.testing.assert_allclose(got, xla, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("t,tiles", [(798, 13), (1598, 25), (3198, 50)])
+def test_plan_at_the_cells_shapes(t, tiles, bf16):
+    """The ECAPA cell's pooling (C 1536, K 128, B 128) at its buckets'
+    frames: 64-frame tiles, 128 units, Wx^T [128, 1536] and W2^T [1536,
+    128] on the tensor cores, and the workspace that holds the scratch
+    and those layouts."""
+    b, c, k = 128, 1536, 128
+    ok, p = att_plan(b, c, t, k, bf16)
+    assert ok and (p["tensor"], p["tiles"], p["kp"], p["wxt_cols"], p["w2t_rows"]) == (int(bf16), tiles, 128, 1536,
+                                                                                       1536)
+    parts = [4 * b * 2 * c, 4 * 4 * b * k, 4 * b * tiles * 4 * c] + ([2 * 128 * 1536, 2 * 1536 * 128] if bf16 else [])
+    starts = [p["stats"], p["glob"], p["part"]] + ([p["wxt"], p["w2t"]] if bf16 else [])
+    ends = starts[1:] + [p["bytes"]]
+    assert starts[0] == 0 and all(s % 256 == 0 and e - s >= n for s, e, n in zip(starts, ends, parts))
+    assert p["bytes"] - starts[-1] == parts[-1]
+
+
+@pytest.mark.parametrize("b,k", [(1, 257), (65536, 128), (0, 128)])
+def test_plan_refuses_what_the_kernels_do_not_take(b, k):
+    assert att_plan(b, 256, 100, k, True)[0] is False

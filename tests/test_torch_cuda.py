@@ -132,6 +132,12 @@ times the bf16 chain's (the module's unfused path on the card), padded
 rows are zero; fp16 and no mask run; the 6L-256D-4H Conformer x-vector's
 eval forward launches it once a layer and never waits on the card; and
 ``torch.export`` keeps it as one node of the exported program.
+
+The kernel wrappers' dispatch: an eager call of K2, K3 or K4 on a CUDA
+tensor launches its kernel once without entering its custom op (the op,
+swapped for one that raises, is never called), and ``torch.export`` of a
+module that calls the three wrappers keeps the three ops as nodes of the
+program, which launches each kernel once.
 """
 
 import numpy as np
@@ -1473,16 +1479,14 @@ def _narrow_served_ecapa(card, seed=0, **kw):
     return model16
 
 
-@pytest.mark.parametrize("op", ["fused_res2_chain", "fused_attentive_stats_pool", "fused_stats_pooling"])
-def test_kernel_custom_ops_on_the_card_match_their_plain_versions(card, op):
-    """The ops' CUDA implementations (the kernels) against their plain
-    versions, and the launch counters counting them."""
+def _kernel_case(card, op):
+    """(the wrapper's module, the op's arguments, tolerance) of one call
+    of K2, K3 or K4 in bf16."""
     import importlib
 
-    fused_att_pooling = importlib.import_module("asv_subtools_tpu_torch.nn.fused_att_pooling")
-    fused_res2 = importlib.import_module("asv_subtools_tpu_torch.nn.fused_res2")
-    fsp = importlib.import_module("asv_subtools_tpu_torch.nn.fused_stats_pooling")
-
+    mod = importlib.import_module({"fused_res2_chain": "asv_subtools_tpu_torch.nn.fused_res2",
+                                   "fused_attentive_stats_pool": "asv_subtools_tpu_torch.nn.fused_att_pooling",
+                                   "fused_stats_pooling": "asv_subtools_tpu_torch.nn.fused_stats_pooling"}[op])
     gen = torch.Generator().manual_seed(3)
     b, t, c, k, h = 3, 197, 256, 128, 32
     x = (torch.randn((b, t, c), generator=gen)).to(card, torch.bfloat16)
@@ -1490,25 +1494,75 @@ def test_kernel_custom_ops_on_the_card_match_their_plain_versions(card, op):
     if op == "fused_res2_chain":
         args = (x[..., : 8 * h], *(torch.randn(s, generator=gen).mul(0.2).to(card) for s in ((7, 3, h, h), (7, h),
                                                                                               (7, h), (7, h))))
-        args = (args[0], args[1].bfloat16(), *args[2:], 2)
-        fn, plain, counter, tol = fused_res2.fused_res2_chain_op, fused_res2.fused_res2_chain_plain, \
-            fused_res2.fused_res2_chain, 2e-2
-    elif op == "fused_attentive_stats_pool":
+        return mod, (args[0], args[1].bfloat16(), *args[2:], 2), 2e-2
+    if op == "fused_attentive_stats_pool":
         w = [torch.randn(s, generator=gen).mul(0.1).to(card) for s in ((c, k), (c, k), (c, k), (k,), (k,), (k,),
                                                                         (k, c), (c,))]
         for i in (0, 1, 2, 6):
             w[i] = w[i].bfloat16()
-        args = (x, *w, mask)
-        fn, plain, counter, tol = fused_att_pooling.fused_attentive_stats_pool_op, \
-            fused_att_pooling.fused_attentive_stats_pool_plain, fused_att_pooling.fused_attentive_stats_pool, 2e-2
-    else:
-        args = (x, mask, 1e-10)
-        fn, plain, counter, tol = fsp.fused_stats_pooling_op, fsp.fused_stats_pooling_plain, \
-            fsp.fused_stats_pooling, 1e-4
+        return mod, (x, *w, mask), 2e-2
+    return mod, (x, mask, 1e-10), 1e-4
+
+
+KERNEL_OPS = ["fused_res2_chain", "fused_attentive_stats_pool", "fused_stats_pooling"]
+
+
+@pytest.mark.parametrize("op", KERNEL_OPS)
+def test_kernel_custom_ops_on_the_card_match_their_plain_versions(card, op):
+    """The ops' CUDA implementations (the kernels) against their plain
+    versions, and the launch counters counting them."""
+    mod, args, tol = _kernel_case(card, op)
+    counter, plain = getattr(mod, op), getattr(mod, f"{op}_plain")
     before = counter.launches
-    got = fn(*args)
+    got = getattr(mod, f"{op}_op")(*args)
     assert counter.launches == before + 1
     torch.testing.assert_close(got.float(), plain(*args).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("op", KERNEL_OPS)
+def test_eager_kernel_calls_launch_without_their_custom_op(card, op, monkeypatch):
+    """Outside tracing a wrapper launches its kernel directly: the custom
+    op, swapped here for one that raises, is never entered, and the launch
+    is counted once."""
+    mod, args, tol = _kernel_case(card, op)
+    wrapper, plain = getattr(mod, op), getattr(mod, f"{op}_plain")
+
+    def refuse(*a, **kw):
+        raise AssertionError(f"an eager {op} entered its custom op")
+
+    monkeypatch.setattr(mod, f"{op}_op", refuse)
+    before = wrapper.launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    torch.testing.assert_close(got.float(), plain(*args).float(), atol=tol, rtol=tol)
+
+
+def test_export_of_the_wrappers_keeps_the_three_ops(card):
+    """torch.export of a module that calls the three wrappers (not their
+    ops) traces each call into one node of its op, and the program runs
+    the kernels."""
+    _, res2, _ = _kernel_case(card, "fused_res2_chain")
+    _, att, _ = _kernel_case(card, "fused_attentive_stats_pool")
+    x, mask = att[0], att[-1]
+
+    class Wrappers(torch.nn.Module):
+        def forward(self, x, mask):
+            y = fused_res2_chain(x, *res2[1:5], dilation=2)
+            return fused_attentive_stats_pool(y, *att[1:9], mask=mask) + fused_stats_pooling(y, mask)
+
+    program = torch.export.export(Wrappers(), (x, mask))
+    names = {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
+    assert {"asv_subtools_tpu_torch.fused_res2_chain.default",
+            "asv_subtools_tpu_torch.fused_attentive_stats_pool.default",
+            "asv_subtools_tpu_torch.fused_stats_pooling.default"} <= names
+    counts = [f.launches for f in (fused_res2_chain, fused_attentive_stats_pool, fused_stats_pooling)]
+    with torch.no_grad():
+        got = program.module()(x, mask)
+    assert [f.launches for f in (fused_res2_chain, fused_attentive_stats_pool, fused_stats_pooling)] == \
+        [n + 1 for n in counts]
+    with torch.no_grad():
+        torch.testing.assert_close(got, Wrappers()(x, mask), atol=1e-6, rtol=0)
 
 
 def test_dynamic_int8_dot_on_the_card_equals_the_cpu(card):

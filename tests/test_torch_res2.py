@@ -12,7 +12,10 @@ module max 0.06 / mean 5e-3, the scale of tests/test_pallas_res2.py:50-51.
 The kernel tiles T and recomputes a halo; `_tiled_chain` below walks the
 same tile plan, window and per-stage zeroing on the CPU, so the scheme is
 held against the plain version here and the CUDA code against the plain
-version on the card (tests/test_torch_cuda.py).
+version on the card (tests/test_torch_cuda.py). The plans are the
+launcher's own (csrc/launch_plan.h through tests/kernel_plans.py); the
+cells' plans are pinned to the values they had when the plans were
+written in Python.
 """
 
 import jax
@@ -26,8 +29,8 @@ from asv_subtools_tpu.models.ecapa import Res2NetBlock as JaxRes2Net
 from asv_subtools_tpu.nn.pallas_res2 import fused_res2_chain as jax_fused
 from asv_subtools_tpu_torch.models import EcapaTdnn, Res2NetBlock
 from asv_subtools_tpu_torch.nn import fused_res2_chain, fused_res2_chain_plain
-from asv_subtools_tpu_torch.nn.fused_res2 import tensor_core_plan, tile_plan
 from asv_subtools_tpu_torch.weights import load_variables
+from kernel_plans import res2_plan, smem_limit, tensor_core_plan, tile_plan
 
 torch.set_num_threads(2)
 
@@ -231,10 +234,8 @@ def test_tensor_core_plan_matches_plain(t, dilation, h):
 def test_tensor_core_plan_fits_shared_memory(dilation, fits):
     """At the ECAPA width (h = 128) the tensor-core kernel's state, weight
     ring and part buffer fit one block's shared memory up to dilation 14."""
-    from asv_subtools_tpu_torch.kernels._build import SMEM_LIMIT
-
     tt, tiles, rows, sp, smem = tensor_core_plan(998, 128, SCALE - 1, dilation)
-    assert (smem <= SMEM_LIMIT) == fits
+    assert (smem <= smem_limit()) == fits
     assert sp % 64 == 8 and sp >= tt + 2 * (SCALE - 1) * dilation + 2
     assert rows == SCALE * dilation + 192
 
@@ -251,6 +252,49 @@ def test_tile_plan(t, dilation, tt, tiles):
 def test_tile_plan_raises_when_the_halo_leaves_no_room():
     with pytest.raises(ValueError):
         tile_plan(998, SCALE - 1, 15)
+    assert res2_plan(1, 998, 128, SCALE - 1, 15, True)[0] is False  # so the launcher refuses the call
+
+
+# The ECAPA cell's chains (h = 128, 7 stages) at its buckets' frames: (T,
+# dilation) -> TT, tiles, rows, SP, shared memory of the tensor-core plan
+# (bf16) and TT, tiles, RP, shared memory of the CUDA-core plan (f32).
+CELL_PLANS = {
+    (798, 2): ((160, 5, 208, 200, 177440), (160, 5, 209, 123392)),
+    (798, 3): ((134, 6, 216, 200, 179616), (134, 6, 217, 127488)),
+    (798, 4): ((134, 6, 224, 200, 181792), (134, 6, 225, 131584)),
+    (1598, 2): ((160, 10, 208, 200, 177440), (160, 10, 209, 123392)),
+    (1598, 3): ((146, 11, 216, 200, 179616), (146, 11, 217, 127488)),
+    (1598, 4): ((134, 12, 224, 200, 181792), (134, 12, 225, 131584)),
+    (3198, 2): ((160, 20, 208, 200, 177440), (160, 20, 209, 123392)),
+    (3198, 3): ((154, 21, 216, 200, 179616), (154, 21, 217, 127488)),
+    (3198, 4): ((140, 23, 224, 200, 181792), (140, 23, 225, 131584)),
+}
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("t,dilation", list(CELL_PLANS))
+def test_plan_at_the_cells_shapes(t, dilation, bf16):
+    ok, p = res2_plan(128, t, 128, SCALE - 1, dilation, bf16)
+    tensor, cuda = CELL_PLANS[(t, dilation)]
+    assert ok and p["tensor"] == int(bf16)
+    if bf16:
+        assert (p["tt"], p["tiles"], p["rp"], p["sp"], p["smem"]) == tensor
+        assert p["bytes"] == 2 * (SCALE - 1) * 3 * 128 * 136  # the weights [n, 3, h out, h in + 8] bf16
+    else:
+        assert (p["tt"], p["tiles"], p["rp"], p["smem"]) == cuda and p["sp"] == 0 and p["bytes"] == 0
+
+
+@pytest.mark.parametrize("b,h,n,d,bf16,route", [
+    (2, 64, 1, 310, True, 0),     # the tensor cores' part buffer does not fit: the CUDA cores' state does
+    (2, 128, 1, 300, True, None),  # neither fits
+    (2, 129, 7, 2, False, None),   # wider than a thread's registers hold
+    (65536, 128, 7, 2, True, None),
+])
+def test_plan_takes_the_cuda_cores_or_refuses(b, h, n, d, bf16, route):
+    ok, p = res2_plan(b, 500, h, n, d, bf16)
+    assert ok == (route is not None)
+    if ok:
+        assert p["tensor"] == route and p["smem"] <= smem_limit() < tensor_core_plan(500, h, n, d)[4]
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 0.06)])

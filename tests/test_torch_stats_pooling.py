@@ -29,7 +29,8 @@ from asv_subtools_tpu_torch.nn import (
     fused_stats_pooling,
     fused_stats_pooling_plain,
 )
-from asv_subtools_tpu_torch.nn.fused_stats_pooling import _t_splits
+from asv_subtools_tpu_torch.nn.fused_stats_pooling import _mask_bytes
+from kernel_plans import direct_plan, ring_plan, stats_plan, t_splits
 
 torch.set_num_threads(2)
 
@@ -213,13 +214,12 @@ def test_wrapper_checks_shapes():
     (3, 20, 64, 4, 1),         # T below 32 is never split
 ])
 def test_time_split_plan(b, t, d, vec, want):
-    assert _t_splits(b, t, d, vec) == want
+    assert t_splits(b, t, d, vec) == want
 
 
 # ---------------------------------------------------------------------------
-# The ring kernel's plan and the wrapper's mask handling, on the CPU.
-
-from asv_subtools_tpu_torch.nn.fused_stats_pooling import _direct_plan, _mask_bytes, _ring_plan  # noqa: E402
+# The ring kernel's plan (csrc/launch_plan.h, through tests/kernel_plans.py)
+# and the wrapper's mask handling, on the CPU.
 
 RING_BLOCKS = 2 * 132  # two persistent blocks for each SM of an H100
 
@@ -229,7 +229,7 @@ def _walk_ring_items(b, t, d, vec, blocks):
     k + grid, ...; an item is (pair, split), a pair (row, D tile); a span
     goes through the ring in stages of 32 rows. Yields (block, row, D tile,
     first frame, frames) per stage."""
-    splits, span_rows = _ring_plan(b, t, d, vec, blocks)
+    splits, span_rows = ring_plan(b, t, d, vec, blocks)
     assert span_rows % 32 == 0 and (splits - 1) * span_rows < t <= splits * span_rows
     d_tiles = -(-d // (32 * vec))
     items = b * d_tiles * splits
@@ -251,7 +251,7 @@ def _walk_ring_items(b, t, d, vec, blocks):
     (2, 1, 16, 8, 1),         # T = 1
 ])
 def test_ring_plan_covers_every_stage_once(b, t, d, vec, want_splits):
-    assert _ring_plan(b, t, d, vec, RING_BLOCKS)[0] == want_splits
+    assert ring_plan(b, t, d, vec, RING_BLOCKS)[0] == want_splits
     seen = {}
     load = {}
     for block, row, d_tile, t0, n in _walk_ring_items(b, t, d, vec, RING_BLOCKS):
@@ -266,8 +266,50 @@ def test_ring_plan_covers_every_stage_once(b, t, d, vec, want_splits):
 
 @pytest.mark.parametrize("b,t,d,vec", [(1, 5000, 8, 4), (64, 1000, 1536, 8), (3, 20, 64, 4), (1, 1000, 256, 1)])
 def test_direct_plan_has_no_empty_span(b, t, d, vec):
-    splits, span_rows = _direct_plan(b, t, d, vec)
-    assert splits <= _t_splits(b, t, d, vec) and (splits - 1) * span_rows < t <= splits * span_rows
+    splits, span_rows = direct_plan(b, t, d, vec)
+    assert splits <= t_splits(b, t, d, vec) and (splits - 1) * span_rows < t <= splits * span_rows
+
+
+# ResNet34's pooling input [128, T, 2560] at the train chunk's 125 frames
+# and the extraction buckets' 100, 200 and 400, and the TDNN x-vectors'
+# [128, 998, 1500]: (B, T, D, element bytes) -> route, vec, splits,
+# span_rows as the launcher plans them for a contiguous x on an H100 (132
+# SMs), and the direct kernel's (splits, span_rows).
+CELL_PLANS = {
+    (128, 100, 2560, 2): ((1, 8, 1, 128), (1, 100)),
+    (128, 100, 2560, 4): ((1, 4, 1, 128), (1, 100)),
+    (128, 125, 2560, 2): ((1, 8, 1, 128), (1, 125)),
+    (128, 125, 2560, 4): ((1, 4, 1, 128), (1, 125)),
+    (128, 200, 2560, 2): ((1, 8, 1, 224), (1, 200)),
+    (128, 200, 2560, 4): ((1, 4, 1, 224), (1, 200)),
+    (128, 400, 2560, 2): ((1, 8, 1, 416), (1, 400)),
+    (128, 400, 2560, 4): ((1, 4, 1, 416), (1, 400)),
+    (128, 998, 1500, 2): ((0, 1, 1, 998), (1, 998)),  # rows of 3,000 bytes: the direct kernel
+    (128, 998, 1500, 4): ((1, 4, 1, 1024), (1, 998)),
+}
+
+
+@pytest.mark.parametrize("b,t,d,elem", list(CELL_PLANS))
+def test_plan_at_the_cells_shapes(b, t, d, elem):
+    chosen, direct = CELL_PLANS[(b, t, d, elem)]
+    ok, p = stats_plan(b, t, d, elem)
+    assert ok and (p["ring"], p["vec"], p["splits"], p["span_rows"]) == chosen
+    assert p["blocks"] == 2 * 132 and p["bytes"] == 0  # one span: no partial sums
+    ok, p = stats_plan(b, t, d, elem, route=0)
+    assert ok and p["ring"] == 0 and (p["splits"], p["span_rows"]) == direct
+
+
+def test_plan_refuses_the_ring_where_x_is_not_aligned():
+    assert stats_plan(4, 100, 256, 2, route=1)[0]
+    for kw in ({"address": 8}, {"strides": (100 * 256, 260)}):
+        assert stats_plan(4, 100, 256, 2, route=1, **kw)[0] is False
+        ok, p = stats_plan(4, 100, 256, 2, **kw)
+        assert ok and p["ring"] == 0 and p["vec"] == 1
+
+
+def test_plan_sizes_the_spans_partial_sums():
+    ok, p = stats_plan(64, 1000, 1536, 2)
+    assert ok and p["splits"] > 1 and p["bytes"] == 4 * 64 * p["splits"] * (3 * 1536 + 1)
 
 
 def test_spans_merge_to_the_plain_result():
